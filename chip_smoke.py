@@ -1,0 +1,509 @@
+"""End-to-end smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase (the default)
+    python3 chip_smoke.py --phases device,kernels
+
+Phases, each printing one JSON line (any failure raises and the script
+exits non-zero):
+
+1. device      the card (``nvidia-smi`` name and power limit), and the
+               build of the CUDA kernels and the DES core from the sources
+               in this checkout (build seconds);
+2. kernels     each range_match kernel (K1 ``range_match``, K2
+               ``range_match_spread``, K4a ``slab_lookup``) against its plain
+               PyTorch version on the card at the full-width shapes of the
+               main path, bitwise, with CUDA-event timings and its bound;
+3. parity      the port's EpochDriver on the card against itself on the
+               CPU at the test configuration (metric stream, final store,
+               chains bit-identical), and fused == per-epoch on the card;
+4. full_width  the main path at full width — YCSB records of
+               fieldcount 10 x fieldlength 100 (value_dim 256 float32),
+               1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges,
+               replication 2 — under ``frozen`` and ``full_adaptive``, with
+               the kernels' launch counts read around the run and every
+               acknowledged write read back from every live replica.
+
+It then prints the kernel table (``{"kernels": [...]}``), the card line,
+and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
+non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PHASES = ("device", "kernels", "parity", "full_width")
+EXTRA_PHASES = ("profile",)   # run only when named in --phases
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    from repro_torch.core import _des_native
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    t0 = time.perf_counter()
+    # one compiler process per source, all started together
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        cu = ex.submit(RMK.build, True)
+        des = ex.submit(_des_native.load)
+        lib = cu.result()
+        des.result()
+    build_s = time.perf_counter() - t0
+    RMK._load()
+    out = {"phase": "device", "card": card_line(),
+           "kind": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count(),
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "kernel_library": os.path.relpath(lib, Path(__file__).parent),
+           "build_s": build_s}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+B_FULL = 65536
+N_FULL = 8
+RANGES_FULL = 1024
+S_FULL = 2 * RANGES_FULL
+R_MAX = 4
+RECORDS_FULL = 1_000_000
+C_FULL = max(256, 2 * RECORDS_FULL * R_MAX // N_FULL)
+
+
+def _full_width_tables(rng, dev):
+    """A full-width directory after some random control history."""
+    from repro_torch.core import directory as D
+    from repro_torch.core.controller import Controller
+
+    d = D.make_directory(RANGES_FULL, N_FULL, 2, r_max=R_MAX, n_slots=S_FULL,
+                         device=dev)
+    ctl = Controller(d)
+    load = rng.random(N_FULL)
+    for _ in range(400):
+        r = int(rng.choice(ctl.live_ranges()))
+        act = rng.integers(0, 3)
+        if act == 0:
+            lo, hi = ctl.range_span(r)
+            if hi - lo > 2:
+                ctl.split_range(r, int(rng.integers(lo, hi)))
+        elif act == 1:
+            ctl.widen_chain(r, load)
+        elif ctl.children():
+            ctl.merge_range(int(rng.choice(ctl.children())))
+    return ctl.directory()
+
+
+def _slabs(rng, dev):
+    slabs = np.full((N_FULL, C_FULL), 0xFFFFFFFF, np.int64)
+    for n in range(N_FULL):
+        m = int(rng.integers(C_FULL // 4, C_FULL // 2))
+        slabs[n, :m] = np.sort(rng.choice(2**32 - 1, m, replace=False))
+    return torch.tensor(slabs, device=dev)
+
+
+def phase_kernels(seed: int = 0) -> list[dict]:
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.range_match import ops as OPS
+    from repro_torch.kernels.range_match import ref as REF
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    directory = _full_width_tables(rng, dev)
+    lo, hi, chains, clen = OPS.pack_tables(directory)
+    S = lo.shape[0]
+    keys = rng.integers(0, 2**32, B_FULL, dtype=np.uint64).astype(np.int64)
+    ops = np.where(rng.random(B_FULL) < 0.9, 0, 1).astype(np.int32)
+    mvals = torch.tensor(keys, device=dev)
+    opcodes = torch.tensor(ops, device=dev)
+    u = torch.tensor(rng.integers(0, 2**31 - 1, (2, B_FULL)).astype(np.int32),
+                     device=dev)
+    u1, u2 = u[0].contiguous(), u[1].contiguous()
+    loads = OPS.to_i32_bits(torch.tensor(
+        rng.integers(0, 2**32, N_FULL, dtype=np.uint64).astype(np.int64),
+        device=dev))
+    slabs = _slabs(rng, dev)
+    target = torch.tensor(rng.integers(-1, N_FULL, B_FULL), device=dev)
+    t_safe = target.clamp(0, N_FULL - 1)
+    resident = slabs[t_safe, torch.tensor(rng.integers(0, C_FULL // 4, B_FULL),
+                                          device=dev)]
+    fresh = torch.tensor(rng.integers(0, 2**32 - 1, B_FULL, dtype=np.uint64)
+                         .astype(np.int64), device=dev)
+    qkeys = torch.where(torch.tensor(rng.random(B_FULL) < 0.7, device=dev),
+                        resident, fresh).contiguous()
+
+    K1 = lambda: RMK.range_match(mvals, opcodes, lo, hi, chains, clen,
+                                 num_slots=directory.num_slots)
+    K1p = lambda: REF.range_match_ref(mvals, opcodes, lo, hi, chains, clen,
+                                      num_slots=directory.num_slots)
+    K2 = lambda: RMK.range_match_spread(mvals, opcodes, u1, u2, lo, hi, chains,
+                                        clen, loads, num_slots=directory.num_slots)
+    K2p = lambda: REF.range_match_spread_ref(mvals, opcodes, u1, u2, lo, hi,
+                                             chains, clen, loads,
+                                             num_slots=directory.num_slots)
+    K4 = lambda: RMK.slab_lookup(qkeys, target, slabs)
+    K4p = lambda: REF.slab_lookup_ref(qkeys, target, slabs)
+    # the one-call yardstick for K4a: torch.searchsorted over the
+    # node-offset concatenation of the slabs (built outside the timing)
+    flat = REF.offset_rows(slabs)
+    qoff = (qkeys + t_safe * (1 << 33)).contiguous()
+    K4lib = lambda: torch.searchsorted(flat, qoff)
+
+    # Bounds count the bytes the function needs: every key, matching
+    # value, target, slab word and output id at its 32-bit width (the
+    # kernels read the port's int64 carriers, 8 B, for the first four),
+    # found flags at 1 B, each input read once and each output written
+    # once.  K4a reads the slab words its bisect probes: a left bisect
+    # over C entries takes ceil(log2(C + 1)) steps plus the final probe.
+    probes = math.ceil(math.log2(C_FULL + 1)) + 1
+    table_bytes = S * (4 + 4 + 4 + 4 * R_MAX)
+    specs = [
+        ("range_match", K1, K1p, None,
+         B_FULL * (4 + 4 + 4 + 4 + 4 * R_MAX) + table_bytes,
+         "kernel.py:782", "range_match_pallas", {}),
+        ("range_match_spread", K2, K2p, None,
+         B_FULL * (4 + 4 + 4 + 4 + 4 + 4 + 4 * R_MAX) + table_bytes + 4 * N_FULL,
+         "kernel.py:712", "range_match_spread_pallas", {}),
+        ("slab_lookup", K4, K4p, K4lib,
+         B_FULL * (4 + 4 + 4 + 1) + B_FULL * probes * 4,
+         "kernel.py:582", "slab_lookup_pallas",
+         {"dependent_loads": probes, "C": C_FULL}),
+    ]
+    rows = []
+    for name, fn, plain, lib, nbytes, replaces, replaces_fn, extra in specs:
+        before = RMK.launches[name]
+        got = fn()
+        want = plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        ms = time_cuda(fn)
+        plain_ms = time_cuda(plain, reps=5, warmup=1)
+        lib_ms = time_cuda(lib) if lib is not None else None
+        RMK.launches[name] = before   # comparison launches do not count
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/range_match/csrc/range_match.cu",
+               "replaces": "src/repro/kernels/range_match/" + replaces,
+               "replaces_fn": replaces_fn,
+               "max_abs_err": 0, "parity": "bitwise", "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "bound_bytes": nbytes, "library_ms": lib_ms,
+               "shape": {"B": B_FULL, "S": S, "N": N_FULL, "r_max": R_MAX},
+               **extra}
+        emit({"phase": "kernels", **row})
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+
+def _parity_driver(policy: str, device: str, fused: bool = True):
+    from repro_torch import cluster as TC
+
+    scen = TC.make_scenario(
+        "shifting_hotspot",
+        TC.ScenarioConfig(n_epochs=6, epoch_ops=256, n_records=512,
+                          value_dim=2, seed=3),
+        theta=1.2, shift_every=2)
+    cfg = TC.ClusterConfig(num_nodes=8, num_ranges=32, replication=2, r_max=4,
+                           n_clients=16, report_every=2,
+                           imbalance_threshold=1.1, max_moves_per_round=6)
+    drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=fused,
+                         device=device)
+    return drv, drv.run()
+
+
+def _same_run(a, b) -> None:
+    import dataclasses
+
+    (da, ra), (db, rb) = a, b
+    if [dataclasses.asdict(x) for x in ra] != [dataclasses.asdict(x) for x in rb]:
+        raise AssertionError("EpochMetrics streams differ")
+    for f in ("keys", "values", "overflow"):
+        if not torch.equal(getattr(da.store, f).cpu(), getattr(db.store, f).cpu()):
+            raise AssertionError(f"final store {f} differs")
+    if not torch.equal(da.directory.chains.cpu(), db.directory.chains.cpu()):
+        raise AssertionError("directory.chains differ")
+
+
+def phase_parity() -> dict:
+    out = {"phase": "parity"}
+    for policy in ("frozen", "full_adaptive"):
+        cuda_f = _parity_driver(policy, "cuda", fused=True)
+        cpu_f = _parity_driver(policy, "cpu", fused=True)
+        _same_run(cuda_f, cpu_f)
+        cuda_e = _parity_driver(policy, "cuda", fused=False)
+        _same_run(cuda_e, cuda_f)
+        if not cuda_f[0].host_syncs < cuda_e[0].host_syncs:
+            raise AssertionError("fused loop did not save host syncs")
+        out[policy] = {"cuda_vs_cpu": "bitwise", "fused_vs_per_epoch": "bitwise",
+                       "host_syncs_fused": cuda_f[0].host_syncs,
+                       "host_syncs_per_epoch": cuda_e[0].host_syncs,
+                       "epochs": len(cuda_f[1])}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+
+def _expected_values(scen):
+    """Every record's last acknowledged value: the preload, then each
+    epoch's PUTs in batch order (last write wins)."""
+    keys, vals = scen.load()
+    expected = vals.copy()
+    for e in range(scen.cfg.n_epochs):
+        ops, ekeys, _, evals = scen.epoch(e)
+        put = np.where(ops == 1)[0]
+        # keep the last occurrence of each key
+        rk = ekeys[put][::-1]
+        _, first = np.unique(rk, return_index=True)
+        last = put[::-1][first]
+        expected[np.searchsorted(keys, ekeys[last])] = evals[last]
+    return keys, expected
+
+
+def _read_back(drv, keys: np.ndarray, expected: np.ndarray) -> dict:
+    """GET every record from every live member of its chain."""
+    from repro_torch.kernels.range_match import ops as OPS
+
+    dev = drv.device
+    d = drv.directory
+    checked = missing = wrong = 0
+    chunk = 1 << 17
+    for s in range(0, keys.size, chunk):
+        k = torch.tensor(keys[s:s + chunk].astype(np.int64), device=dev)
+        want = torch.tensor(expected[s:s + chunk], device=dev)
+        ridx, _, _ = OPS.range_match(d, k, torch.zeros_like(k, dtype=torch.int32))
+        ridx = ridx.long()
+        chain, clen = d.chains[ridx], d.chain_len[ridx]
+        for p in range(d.r_max):
+            member = chain[:, p]
+            live = (p < clen) & (member >= 0)
+            slot, found = OPS.slab_lookup(k, member, drv.store.keys)
+            got = drv.store.values[member.clamp(min=0), slot.long()]
+            same = (got.view(torch.int32) == want.view(torch.int32)).all(dim=1)
+            checked += int(live.sum())
+            missing += int((live & ~found).sum())
+            wrong += int((live & found & ~same).sum())
+    return {"replica_reads": checked, "missing": missing, "wrong_value": wrong}
+
+
+def phase_full_width() -> dict:
+    from repro_torch import cluster as TC
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    out = {"phase": "full_width"}
+    main_launches = {k: 0 for k in RMK.launches}
+    need = {"frozen": ("range_match", "slab_lookup"),
+            "full_adaptive": ("range_match_spread", "slab_lookup")}
+    for policy in ("frozen", "full_adaptive"):
+        scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
+                                 epoch_ops=B_FULL, n_epochs=6, read_ratio=0.9,
+                                 seed=0)
+        cfg = TC.ClusterConfig(num_nodes=N_FULL, num_ranges=RANGES_FULL,
+                               replication=2, r_max=R_MAX, n_clients=64)
+        scen = TC.make_scenario("shifting_hotspot", scfg, theta=1.2,
+                                shift_every=2)
+        torch.cuda.reset_peak_memory_stats()
+        RMK.reset_launches()                       # counts of the main path
+        t0 = time.perf_counter()
+        drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=True,
+                             device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows = drv.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(RMK.launches)
+        for name in need[policy]:
+            if launches[name] <= 0:
+                raise AssertionError(f"{policy}: kernel {name} never launched")
+        for name, n in launches.items():
+            main_launches[name] += n
+        drops = sum(r.drops for r in rows)
+        if drops:
+            raise AssertionError(f"{policy}: {drops} capacity drops")
+        for r in rows:
+            for f in ("p50", "p99", "p999", "throughput", "imbalance"):
+                if not math.isfinite(getattr(r, f)) or getattr(r, f) < 0:
+                    raise AssertionError(f"{policy}: bad {f} at epoch {r.epoch}")
+        keys, expected = _expected_values(scen)
+        rb = _read_back(drv, keys, expected)
+        if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < 2 * keys.size:
+            raise AssertionError(f"{policy}: read-back failed {rb}")
+        # host stage times are taken without a synchronise (host_des_s
+        # includes waiting for the period's device work); the device's
+        # share is the steps' CUDA-event time
+        ss = drv.stage_seconds
+        out[policy] = {
+            "setup_s": t1 - t0,
+            "run_s": t2 - t1,
+            "epochs_per_s": len(rows) / (t2 - t1),
+            "host_inject_s": ss.get("inject", 0.0),
+            "host_route_apply_enqueue_s": ss.get("route_apply", 0.0),
+            "host_des_s": ss.get("des", 0.0),
+            "host_control_s": ss.get("control", 0.0),
+            "device_step_s": drv.device_step_seconds,
+            "device_step_share": drv.device_step_seconds / (t2 - t1),
+            "host_syncs": drv.host_syncs,
+            "launches": launches,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "p50": [r.p50 for r in rows], "p99": [r.p99 for r in rows],
+            "p999": [r.p999 for r in rows],
+            "imbalance": [r.imbalance for r in rows],
+            "migration_entries": sum(r.migration_entries for r in rows),
+            "drops": drops, **rb,
+        }
+        del drv
+        torch.cuda.empty_cache()
+    out["launches"] = main_launches
+    emit(out)
+    return out
+
+
+def phase_profile() -> dict:
+    """``torch.profiler`` over a two-epoch full-width ``frozen`` run (after
+    its preload): device time by kernel name and the device's busy share
+    of the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import cluster as TC
+
+    scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
+                             epoch_ops=B_FULL, n_epochs=2, read_ratio=0.9,
+                             seed=0)
+    cfg = TC.ClusterConfig(num_nodes=N_FULL, num_ranges=RANGES_FULL,
+                           replication=2, r_max=R_MAX, n_clients=64,
+                           report_every=2)
+    drv = TC.EpochDriver(
+        TC.make_scenario("shifting_hotspot", scfg, theta=1.2, shift_every=2),
+        TC.make_policy("frozen"), cfg, fused=True, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, attr, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    from torch.autograd import DeviceType
+
+    # device-side events only (kernels and copies): the operator rows of
+    # key_averages() repeat their kernels' time
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and dev_us(e) > 0]
+    events.sort(key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events) / 1e6
+    out = {"phase": "profile", "epochs": 2, "wall_s": wall,
+           "device_busy_s": busy, "device_busy_share": busy / wall,
+           "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
+                    "calls": e.count} for e in events[:12]]}
+    emit(out)
+    del drv
+    torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    bad = set(phases) - set(PHASES + EXTRA_PHASES)
+    if bad:
+        ap.error(f"unknown phases {sorted(bad)}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    t0 = time.perf_counter()
+    dev_info = phase_device()           # always: the build is every phase's
+    kernels = phase_kernels() if "kernels" in phases else None
+    if "parity" in phases:
+        phase_parity()
+    full = phase_full_width() if "full_width" in phases else None
+    if "profile" in phases:
+        phase_profile()
+    if kernels is not None:
+        for row in kernels:
+            row["launches"] = (full["launches"][row["name"]]
+                               if full is not None else None)
+        emit({"kernels": [{k: r[k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err",
+            "parity", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in kernels]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    print(dev_info["card"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

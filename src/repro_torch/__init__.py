@@ -1,0 +1,17 @@
+"""repro_torch — the TurboKV reproduction on PyTorch and CUDA.
+
+A second package beside the JAX reference ``repro``: the same data plane
+(switch match-action routing over a slot-pool directory, sorted-slab
+store, hop plans, the discrete-event timing engine) and the same closed
+control loop (:class:`repro_torch.cluster.EpochDriver`), written as plain
+functions on tensors.  The match-action and slab-probe hot path runs as
+hand-written CUDA kernels on an NVIDIA Hopper card
+(:mod:`repro_torch.kernels.range_match`); on CPU tensors the kernels'
+plain PyTorch versions run instead.
+
+This package imports ``torch`` and ``numpy`` and never ``jax``.
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,675 @@
+"""The closed-loop epoch driver on PyTorch (counterpart of
+``repro.cluster.epoch``, oracle backend, eventual replication).
+
+One *epoch* is one device step —
+
+    inject workload slice
+    -> route (K1 ``range_match`` or K2 ``range_match_spread``; counter,
+       load-register and count-min sketch updates in torch)
+    -> apply to the store (``apply_routed``; GET/DEL probes through K4a
+       ``slab_lookup``)
+    -> build the DES hop plan
+
+— and the host closes the loop at each control period: pull the
+statistics report, run the balancing policy, execute its migration plan,
+graft the refreshed tables onto the live directory, and time the period's
+traffic on the DES engine.
+
+``fused=True`` (default) runs a control period's epochs back to back
+with every carry on the device (store, directory, load registers,
+sketch) and brings the period's hop plans and observables home in ONE
+device-to-host copy, timed by ONE batched ``simulate_closed_loop`` call.
+``fused=False`` is the per-epoch loop the fused one is held to bit for
+bit.  The reference's fused period is a donated ``lax.scan``; here the
+carries are updated in place (the store slabs are the big allocation).
+Capturing the period as one CUDA graph is later work.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the dist backend, the chain/craq replication modes and the CRAQ
+key filter, the overload plane, telemetry, the coordination tier, the
+metrics plane, and ``split_overflow`` slot-pool growth.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.cluster.metrics import (
+    EpochMetrics,
+    imbalance_stats_batch,
+    latency_percentiles_batch,
+    masked_p99_batch,
+    migration_traffic,
+    p999_batch,
+)
+from repro_torch.cluster.policies import Policy
+from repro_torch.cluster.scenarios import Scenario
+from repro_torch.core import directory as D
+from repro_torch.core import keys as K
+from repro_torch.core import routing as R
+from repro_torch.core.controller import Controller, ControllerConfig
+from repro_torch.core.coordination import (
+    IN_SWITCH,
+    HopPlan,
+    LatencyModel,
+    ServiceModel,
+    plan_hops,
+)
+from repro_torch.core.des import simulate_closed_loop
+from repro_torch.core.migration import execute as execute_migrations
+from repro_torch.core.stats import make_sketch, pull_report, sketch_query, sketch_update
+from repro_torch.core.store import apply_routed, make_store
+from repro_torch.device import resolve_device
+from repro_torch.replication import protocol as RPL
+
+# coordination-tier fault events: without the tier the reference ignores
+# them, so the same scenario is the no-tier baseline
+COORD_EVENT_KINDS = ("lease_expire", "lease_renew", "split_brain",
+                     "heal_split", "quorum_drift")
+
+
+@dataclasses.dataclass
+class ClusterConfig:
+    """Cluster geometry + timing knobs (the reference's fields; the ones
+    whose subsystem is not ported yet must keep their off value)."""
+
+    num_nodes: int = 8
+    num_ranges: int = 64
+    replication: int = 2
+    r_max: int = 4
+    n_slots: int | None = None
+    capacity: int | None = None
+    mode: str = IN_SWITCH
+    n_clients: int = 32
+    replication_mode: str = "eventual"
+    report_every: int | str | None = None
+    auto_band: tuple = (1, 8)
+    auto_drift_lo: float = 0.1
+    auto_drift_hi: float = 0.4
+    sketch_width: int = 512
+    sketch_depth: int = 4
+    key_window_cap: int = 1 << 16
+    latency: LatencyModel = dataclasses.field(default_factory=LatencyModel)
+    service_model: ServiceModel = dataclasses.field(default_factory=ServiceModel)
+    p2c_chunks: int = 1
+    des_backend: str | None = None
+    max_scan_results: int = 8
+    imbalance_threshold: float = 1.3
+    max_moves_per_round: int = 4
+    overload: object | None = None
+    standby_nodes: tuple = ()
+    split_overflow: bool = False
+    telemetry: object | None = None
+    coordination: object | None = None
+    metrics: object | None = None
+    craq_filter_bits: int = 0
+    seed: int = 0
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP, {item})"
+    )
+
+
+def _check_supported(cfg: ClusterConfig, backend: str) -> None:
+    if backend == "dist":
+        raise _not_ported("backend='dist'", "module-port step 11")
+    if backend != "oracle":
+        raise ValueError(f"unknown backend {backend!r}")
+    if cfg.replication_mode != RPL.EVENTUAL:
+        if cfg.replication_mode not in RPL.REPLICATION_MODES:
+            raise ValueError(f"unknown replication mode {cfg.replication_mode!r}")
+        raise _not_ported(f"replication_mode={cfg.replication_mode!r}",
+                          "module-port step 7")
+    if cfg.craq_filter_bits:
+        raise _not_ported("craq_filter_bits", "module-port step 7")
+    if cfg.overload is not None:
+        raise _not_ported("the overload plane", "module-port step 8")
+    if cfg.coordination is not None:
+        raise _not_ported("the coordination tier", "module-port step 9")
+    if cfg.telemetry is not None:
+        raise _not_ported("telemetry", "module-port step 10")
+    if cfg.metrics is not None:
+        raise _not_ported("the metrics plane", "module-port step 10")
+    if cfg.split_overflow:
+        raise _not_ported("split_overflow slot-pool growth",
+                          "module-port step 6, pool growth")
+    if cfg.des_backend not in (None, "auto", "native"):
+        raise ValueError(
+            f"DES backend {cfg.des_backend!r}: the port runs the native core only"
+        )
+
+
+def _node_ops(decision: R.RoutingDecision, opcode: torch.Tensor,
+              num_nodes: int) -> torch.Tensor:
+    """(N,) ops served per node: reads at their target, writes at every
+    live chain member.  A NO_NODE read target charges node N-1, as in the
+    reference (``D.wrap_node``, ROADMAP fault F2)."""
+    is_write = (opcode == K.OP_PUT) | (opcode == K.OP_DEL)
+    r_max = decision.chain.shape[1]
+    live = (torch.arange(r_max, device=opcode.device)[None, :]
+            < decision.chain_len[:, None]) & (decision.chain != D.NO_NODE)
+    w_hit = live & is_write[:, None]
+    ops = torch.zeros(num_nodes, dtype=torch.int64, device=opcode.device)
+    ops.index_add_(0, torch.where(w_hit, decision.chain, 0).reshape(-1),
+                   w_hit.reshape(-1).to(torch.int64))
+    ops.index_add_(0, D.wrap_node(decision.target, num_nodes),
+                   (~is_write).to(torch.int64))
+    return ops
+
+
+def _merge_unique(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Merge two sorted-unique uint32 arrays in linear time."""
+    if a.size == 0:
+        return b
+    if b.size == 0:
+        return a
+    pos = np.searchsorted(a, b)
+    hit = (pos < a.size) & (a[np.minimum(pos, a.size - 1)] == b)
+    fresh = b[~hit]
+    if fresh.size == 0:
+        return a
+    out = np.empty(a.size + fresh.size, a.dtype)
+    at_b = np.searchsorted(a, fresh) + np.arange(fresh.size)
+    mask = np.zeros(out.size, bool)
+    mask[at_b] = True
+    out[mask] = fresh
+    out[~mask] = a
+    return out
+
+
+def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Bring several device tensors home in ONE device-to-host copy: their
+    bytes are concatenated on the device, copied once, and split and
+    re-typed on the host."""
+    flats = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    host = torch.cat(flats).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(tensors, flats):
+        n = f.numel()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(host[at:at + n].view(dtype).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
+class EpochDriver:
+    """Run a scenario under a policy, one control period at a time, on
+    ``device`` (``None`` = the CUDA card; raises when there is none)."""
+
+    def __init__(self, scenario: Scenario, policy: Policy,
+                 cfg: ClusterConfig | None = None, *, backend: str = "oracle",
+                 fused: bool = True, device=None):
+        self.scenario = scenario
+        self.policy = policy
+        self.cfg = cfg = cfg or ClusterConfig()
+        _check_supported(cfg, backend)
+        self.device = resolve_device(device)
+        self.backend = backend
+        self.fused = fused
+        self.mode_plan = RPL.resolve_mode(
+            cfg.replication_mode, policy.read_spread, cfg.replication
+        )
+        # per-stage host wall seconds, taken without any synchronise (so
+        # "des" includes waiting for the period's device work), and on
+        # CUDA the device seconds of every step from a pair of CUDA events,
+        # read once the period's copy home has passed them
+        self.stage_seconds: dict[str, float] = {}
+        self.device_step_seconds = 0.0
+        self._step_events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        pe = (cfg.report_every if cfg.report_every is not None
+              else policy.pull_every)
+        self.period_history: list[int] = []
+        if pe == "auto":
+            lo, hi = int(cfg.auto_band[0]), int(cfg.auto_band[1])
+            if not (1 <= lo <= hi):
+                raise ValueError(f"bad auto_band {cfg.auto_band}")
+            self.auto_period = True
+            self.period = hi
+            self._cur_period = lo
+            self._next_pull = lo
+            self._prev_load: np.ndarray | None = None
+            self._last_pull_epoch = 0
+            self._reg_floor = np.zeros((cfg.num_nodes,), np.float64)
+        else:
+            self.auto_period = False
+            self.period = int(pe)
+
+        scfg = scenario.cfg
+        policy.config.base_replication = cfg.replication
+        if cfg.p2c_chunks > 1 and scfg.epoch_ops % cfg.p2c_chunks != 0:
+            raise ValueError(
+                f"epoch_ops {scfg.epoch_ops} not divisible by "
+                f"p2c_chunks {cfg.p2c_chunks}"
+            )
+
+        n_slots = 2 * cfg.num_ranges if cfg.n_slots is None else cfg.n_slots
+        directory = D.make_directory(
+            cfg.num_ranges, cfg.num_nodes, cfg.replication, r_max=cfg.r_max,
+            n_slots=n_slots, device=self.device,
+        )
+        self.controller = Controller(
+            directory,
+            ControllerConfig(
+                imbalance_threshold=cfg.imbalance_threshold,
+                max_moves_per_round=cfg.max_moves_per_round,
+            ),
+        )
+        if cfg.standby_nodes:
+            for node in cfg.standby_nodes:
+                self.controller.park_node(int(node))
+            directory = self.controller.directory()
+            self.controller.drain_repl_log()
+        capacity = cfg.capacity
+        if capacity is None:
+            # every record on up to r_max chains, plus 2x headroom for
+            # skewed placement and widen copies
+            capacity = max(256, 2 * scfg.n_records * cfg.r_max // cfg.num_nodes)
+        self.store = make_store(cfg.num_nodes, capacity, scfg.value_dim,
+                                device=self.device)
+        self.directory = directory
+        self.load_reg = torch.zeros(cfg.num_nodes, dtype=torch.int64,
+                                    device=self.device)
+        self.sketch = make_sketch(cfg.sketch_width, cfg.sketch_depth,
+                                  device=self.device)
+        self.key = prng.PRNGKey(cfg.seed)
+        # no slot-pool growth in this slice (split_overflow raises), so the
+        # reference's compile count 1 + growth_events is structurally 1
+        self.growth_events = 0
+        self._period = 0
+        self._last_overflow = 0
+        self.host_syncs = 0        # device->host round-trips (profile metric)
+        self._key_window: np.ndarray = np.empty(0, np.uint32)
+        self._event_epochs = {
+            e for e in range(scfg.n_epochs) if scenario.events(e)
+        }
+        self._preload()
+
+    # -- host-side helpers -------------------------------------------------
+    def _stage(self, name: str, t0: float) -> float:
+        t1 = time.perf_counter()
+        self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + t1 - t0
+        return t1
+
+    def _timed_step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool):
+        """:meth:`_step` between two CUDA events on the current stream
+        (recording them does not block the host)."""
+        if self.device.type != "cuda":
+            return self._step(q, rng, scans)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._step(q, rng, scans)
+        end.record()
+        self._step_events.append((start, end))
+        return out
+
+    def _fold_step_events(self) -> None:
+        """Add up the recorded steps' device time; called after a blocking
+        copy home that follows them on the stream, so every event is done."""
+        for start, end in self._step_events:
+            self.device_step_seconds += start.elapsed_time(end) / 1e3
+        self._step_events.clear()
+
+    def _sync(self, x: torch.Tensor) -> np.ndarray:
+        """Device->host transfer with bookkeeping."""
+        self.host_syncs += 1
+        return x.cpu().numpy()
+
+    def _note_keys(self, keys) -> None:
+        ek = np.unique(np.asarray(keys, np.uint32).ravel())
+        self._key_window = _merge_unique(self._key_window, ek)
+        cap = self.cfg.key_window_cap
+        if cap and self._key_window.size > cap:
+            stride = -(-self._key_window.size // cap)
+            self._key_window = self._key_window[::stride]
+
+    def _sketch_heat(self, sample: np.ndarray) -> np.ndarray:
+        q = torch.as_tensor(sample.astype(np.int64), device=self.device)
+        return self._sync(sketch_query(self.sketch, q)).astype(np.float64)
+
+    def _live_mask(self) -> np.ndarray:
+        out = self.controller.failed | self.controller.standby
+        return np.array([n not in out for n in range(self.cfg.num_nodes)])
+
+    def _queries(self, e: int):
+        opcodes, keys, end_keys, values = self.scenario.epoch(e)
+        self._note_keys(keys)
+        q = R.make_queries(keys, opcodes, values, end_keys, device=self.device)
+        return opcodes, q
+
+    # -- setup -------------------------------------------------------------
+    def _preload(self):
+        """YCSB load phase: PUT every record through the normal data path."""
+        keys, vals = self.scenario.load()
+        q = R.make_queries(keys, np.full((len(keys),), K.OP_PUT, np.int32),
+                           vals, device=self.device)
+        decision, _ = R.route(self.directory, q)   # counter bumps discarded
+        apply_routed(self.store, q, decision,
+                     max_scan_results=self.cfg.max_scan_results, scans=False)
+        ovf = self.store.overflow.cpu().numpy().astype(np.int64)
+        self._last_overflow = int(ovf.sum())
+        self._ovf_node_last = ovf
+
+    # -- the device step -----------------------------------------------------
+    def _step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool):
+        """One epoch's device work (shared verbatim by the per-epoch and
+        the fused loops).  ``scans``: the batch holds a SCAN (known on the
+        host from the generated opcodes).  Updates the carries in place or
+        by rebinding; returns ``(plan, node_ops)``."""
+        cfg = self.cfg
+        N = cfg.num_nodes
+        mp = self.mode_plan
+        spread = mp.spread
+        chunks = cfg.p2c_chunks if spread else 1
+        r_route, r_plan = prng.split(rng)
+        B = q.batch
+        if spread and chunks > 1:
+            # intra-epoch p2c freshness: route the batch in sub-chunks with
+            # load-register updates between them
+            csize = B // chunks
+            decs = []
+            for ci in range(chunks):
+                sl = slice(ci * csize, (ci + 1) * csize)
+                qs = R.QueryBatch(q.opcode[sl], q.key[sl], q.end_key[sl],
+                                  q.value[sl])
+                dec, self.directory, self.load_reg = R.route_load_aware(
+                    self.directory, qs, self.load_reg, prng.fold_in(r_route, ci)
+                )
+                decs.append(dec)
+            decision = R.RoutingDecision(*[
+                torch.cat([getattr(d, f.name) for d in decs], dim=0)
+                for f in dataclasses.fields(R.RoutingDecision)
+            ])
+        elif spread:
+            decision, self.directory, self.load_reg = R.route_load_aware(
+                self.directory, q, self.load_reg, r_route
+            )
+        else:
+            decision, self.directory = R.route(self.directory, q)
+        node_ops = _node_ops(decision, q.opcode, N)
+        if not spread:
+            # tail-read path: registers tracked in the same units
+            self.load_reg = K.u32(self.load_reg + node_ops)
+        self.sketch = sketch_update(self.sketch, q.key)
+        apply_routed(self.store, q, decision,
+                     max_scan_results=cfg.max_scan_results, scans=scans)
+        plan = plan_hops(
+            q, decision, cfg.mode, cfg.latency, rng=r_plan, num_nodes=N,
+            write_chain_cap=mp.write_cap_spread if spread else None,
+            service_model=cfg.service_model,
+        )
+        return plan, node_ops
+
+    # -- control -----------------------------------------------------------
+    def _handle_events(self, e: int) -> tuple[list[str], int, int]:
+        """Apply the scenario's control events for epoch ``e``."""
+        scfg = self.scenario.cfg
+        events: list[str] = []
+        mig_entries = mig_bytes = 0
+        for kind, node in self.scenario.events(e):
+            if kind == "fail":
+                nl = self._sync(D.node_load(self.directory))
+                ops = self.controller.handle_node_failure(node, nl)
+                en, by = migration_traffic(self.store, ops, scfg.value_dim)
+                execute_migrations(self.store, ops)
+                self.directory = self.controller.refresh(self.directory)
+                mig_entries += en
+                mig_bytes += by
+                events.append(f"fail:{node}")
+            elif kind == "rack_fail":
+                rack = [int(n) for n in node]
+                ops = self.controller.handle_switch_failure(rack)
+                en, by = migration_traffic(self.store, ops, scfg.value_dim)
+                execute_migrations(self.store, ops)
+                self.directory = self.controller.refresh(self.directory)
+                mig_entries += en
+                mig_bytes += by
+                events.append("rack_fail:" + "+".join(map(str, rack)))
+            elif kind == "recover":
+                self.controller.recover_node(node)
+                events.append(f"recover:{node}")
+            elif kind not in COORD_EVENT_KINDS:
+                raise ValueError(f"unknown scenario event {kind!r}")
+        # eventual mode tracks no version/dirty state: the journal is
+        # drained so it cannot grow without bound
+        self.controller.drain_repl_log()
+        return events, mig_entries, mig_bytes
+
+    def _control_pull(self, now: int) -> tuple[list[str], int, int]:
+        """The period-boundary pull: harvest + reset counters, run the
+        policy, execute its plan, graft the refreshed tables."""
+        scfg = self.scenario.cfg
+        self.host_syncs += 1   # pull_report harvests the device counters
+        report, self.directory = pull_report(self.directory, self._period)
+        self._period += 1
+        if self._key_window.size:
+            sample = self._key_window
+            heat = self._sketch_heat(sample)
+            report = dataclasses.replace(report, key_sample=sample,
+                                         key_heat=heat)
+            self._key_window = np.empty(0, np.uint32)
+        if self.mode_plan.spread:
+            # under p2c spreading the load registers are the truthful
+            # per-node picture
+            report = dataclasses.replace(
+                report, node_load=self._sync(self.load_reg).astype(np.float64)
+            )
+        if self.auto_period:
+            span = max(now - self._last_pull_epoch, 1)
+            report = dataclasses.replace(
+                report,
+                budget_scale=float(span) / float(self.cfg.auto_band[0]),
+            )
+        events: list[str] = []
+        ops = self.policy.on_report(self.controller, report)
+        notes = getattr(self.policy, "notes", None)
+        if notes:
+            events.extend(notes)
+            notes.clear()
+        mig_entries = mig_bytes = 0
+        if ops:
+            mig_entries, mig_bytes = migration_traffic(self.store, ops,
+                                                       scfg.value_dim)
+            execute_migrations(self.store, ops)
+            events.extend(f"{op.kind}:{op.src}->{op.dst}" for op in ops)
+        self.directory = self.controller.refresh(self.directory)
+        self.controller.drain_repl_log()
+        if self.auto_period and now < self.scenario.cfg.n_epochs:
+            nl = np.asarray(report.node_load, np.float64)
+            if self.mode_plan.spread:
+                self._auto_retune(nl - self._reg_floor, now)
+                self._reg_floor = np.floor_divide(nl, 2)
+            else:
+                self._auto_retune(nl, now)
+        # halve rather than zero: p2c needs recent load signal
+        self.load_reg = self.load_reg // 2
+        self.sketch = torch.zeros_like(self.sketch)
+        return events, mig_entries, mig_bytes
+
+    def _auto_retune(self, node_load: np.ndarray, now: int) -> None:
+        """Adaptive pull cadence from report-to-report load drift."""
+        cfg = self.cfg
+        lo, hi = int(cfg.auto_band[0]), int(cfg.auto_band[1])
+        span = max(now - self._last_pull_epoch, 1)
+        load = np.asarray(node_load, np.float64) / span
+        prev = self._prev_load
+        if prev is not None:
+            mass = max(prev.sum(), 1e-9)
+            drift = float(np.abs(load - prev).sum() / mass)
+            if drift > cfg.auto_drift_hi:
+                self._cur_period = max(lo, self._cur_period // 2)
+            elif drift < cfg.auto_drift_lo:
+                self._cur_period = min(hi, self._cur_period * 2)
+        self._prev_load = load
+        self._last_pull_epoch = now
+        self._next_pull = now + self._cur_period
+        self.period_history.append(self._cur_period)
+
+    # -- metric rows -------------------------------------------------------
+    @staticmethod
+    def _fold_pull(row: EpochMetrics, pull: tuple) -> None:
+        """Charge a control pull's events and migration traffic to the
+        epoch that ended the period."""
+        events, entries, nbytes = pull
+        row.events.extend(events)
+        row.migration_entries += entries
+        row.migration_bytes += nbytes
+
+    def _rows(self, e0: int, lat: np.ndarray, mks: np.ndarray,
+              node_ops_h: np.ndarray, ovf_h: np.ndarray, opcodes_h: np.ndarray,
+              head: tuple) -> list[EpochMetrics]:
+        """EpochMetrics rows for a segment of ``L`` epochs, computed before
+        the period's pull (the live mask is the segment's); ``head``
+        carries the segment-start events and migration traffic."""
+        cfg = self.cfg
+        scfg = self.scenario.cfg
+        L = lat.shape[0]
+        p50s, p99s = latency_percentiles_batch(lat)
+        p999s = p999_batch(lat)
+        is_read = (opcodes_h == K.OP_GET) | (opcodes_h == K.OP_SCAN)
+        # eventual mode: no CRAQ tail bounces
+        read_p99s = masked_p99_batch(lat, is_read)
+        clean_p99s = masked_p99_batch(lat, is_read)
+        imbs, covs = imbalance_stats_batch(node_ops_h, self._live_mask())
+        drops = np.diff(ovf_h, prepend=np.int64(self._last_overflow))
+        self._last_overflow = int(ovf_h[-1])
+        rows = []
+        for i in range(L):
+            mk = float(mks[i])
+            events, mig_entries, mig_bytes = head if i == 0 else ([], 0, 0)
+            rows.append(EpochMetrics(
+                epoch=e0 + i,
+                scenario=self.scenario.name,
+                policy=self.policy.name,
+                ops=scfg.epoch_ops,
+                throughput=scfg.epoch_ops / mk if mk > 0 else 0.0,
+                p50=float(p50s[i]),
+                p99=float(p99s[i]),
+                makespan=mk,
+                imbalance=float(imbs[i]),
+                cov=float(covs[i]),
+                migration_entries=mig_entries,
+                migration_bytes=mig_bytes,
+                drops=int(drops[i]),
+                retries=0,          # bucket overflows exist on dist only
+                compiled_steps=1 + self.growth_events,
+                events=events,
+                p999=float(p999s[i]),
+                read_p99=float(read_p99s[i]),
+                clean_read_p99=float(clean_p99s[i]),
+                dirty_reads=0,
+                replication=cfg.replication_mode,
+                coordination="none",
+            ))
+        return rows
+
+    def _time(self, plan: HopPlan):
+        cfg = self.cfg
+        latency, makespan = simulate_closed_loop(
+            plan, n_clients=cfg.n_clients, num_nodes=cfg.num_nodes,
+            link=cfg.latency.link,
+        )
+        return latency.numpy(), np.atleast_1d(makespan.numpy())
+
+    # -- the per-epoch reference loop --------------------------------------
+    def run_epoch(self, e: int) -> EpochMetrics:
+        """One epoch, one host round-trip (the ``fused=False`` loop)."""
+        if self.fused:
+            raise RuntimeError(
+                "per-epoch stepping is unavailable on a fused driver; "
+                "use run(), or construct with fused=False"
+            )
+        t0 = time.perf_counter()
+        head = self._handle_events(e)
+        t0 = self._stage("control", t0)
+        opcodes, q = self._queries(e)
+        t0 = self._stage("inject", t0)
+        plan, node_ops = self._timed_step(q, prng.fold_in(self.key, e),
+                                          bool((opcodes == K.OP_SCAN).any()))
+        t0 = self._stage("route_apply", t0)
+        self.host_syncs += 1   # the DES engine pulls the plan to the host
+        lat, mks = self._time(plan)
+        t0 = self._stage("des", t0)
+        node_ops_h = self._sync(node_ops)[None]
+        ovf_h = np.array([int(self._sync(self.store.overflow).sum())], np.int64)
+        self._fold_step_events()
+        (row,) = self._rows(e, lat[None], mks, node_ops_h, ovf_h,
+                            opcodes[None], head)
+        pulled = ((e + 1) == self._next_pull if self.auto_period
+                  else (e + 1) % self.period == 0)
+        if pulled:
+            self._fold_pull(row, self._control_pull(e + 1))
+        self._stage("control", t0)
+        return row
+
+    # -- the fused period loop ---------------------------------------------
+    def _segment_len(self, e0: int, n: int) -> int:
+        """Epochs until the next host intervention: the period boundary,
+        the run end, or the next scenario control event."""
+        if self.auto_period:
+            next_pull = self._next_pull
+        else:
+            next_pull = ((e0 // self.period) + 1) * self.period
+        end = min(next_pull, e0 + self.period, n)
+        for e2 in range(e0 + 1, end):
+            if e2 in self._event_epochs:
+                return e2 - e0
+        return max(end - e0, 1)
+
+    def _run_segment(self, e0: int, n: int) -> list[EpochMetrics]:
+        t0 = time.perf_counter()
+        head = self._handle_events(e0)
+        t0 = self._stage("control", t0)
+        L = self._segment_len(e0, n)
+        plans, nops, ovfs, op_l = [], [], [], []
+        for i in range(L):
+            opcodes, q = self._queries(e0 + i)
+            t0 = self._stage("inject", t0)
+            op_l.append(opcodes)
+            plan, node_ops = self._timed_step(
+                q, prng.fold_in(self.key, e0 + i),
+                bool((opcodes == K.OP_SCAN).any()))
+            plans.append(plan)
+            nops.append(node_ops)
+            ovfs.append(self.store.overflow.sum())
+            t0 = self._stage("route_apply", t0)
+        # ---- ONE device-to-host copy for the whole segment ----
+        self.host_syncs += 1
+        nodes, service, reply, node_ops_h, ovf_h = _to_host([
+            torch.stack([p.nodes for p in plans]),
+            torch.stack([p.service for p in plans]),
+            torch.stack([p.reply_links for p in plans]),
+            torch.stack(nops),
+            torch.stack(ovfs),
+        ])
+        self._fold_step_events()
+        lat, mks = self._time(HopPlan(torch.from_numpy(nodes),
+                                      torch.from_numpy(service),
+                                      torch.from_numpy(reply)))
+        t0 = self._stage("des", t0)
+        rows = self._rows(e0, lat, mks, node_ops_h, ovf_h, np.stack(op_l),
+                          head)
+        pulled = ((e0 + L) == self._next_pull if self.auto_period
+                  else (e0 + L) % self.period == 0)
+        if pulled:
+            self._fold_pull(rows[-1], self._control_pull(e0 + L))
+        self._stage("control", t0)
+        return rows
+
+    def run(self) -> list[EpochMetrics]:
+        n = self.scenario.cfg.n_epochs
+        if not self.fused:
+            return [self.run_epoch(e) for e in range(n)]
+        rows: list[EpochMetrics] = []
+        e = 0
+        while e < n:
+            rows.extend(self._run_segment(e, n))
+            e = rows[-1].epoch + 1
+        return rows

@@ -1,0 +1,85 @@
+"""Carry state between the JAX reference and the port, as numpy arrays.
+
+The ``*_from_numpy`` functions take the reference's state (a Directory's,
+a StoreState's, a count-min sketch's or the load registers' arrays, each
+converted with ``np.asarray``) and build the port's tensors on a device;
+the ``*_to_numpy`` inverses return arrays in the reference's dtypes, so a
+test can start both packages from one state and compare the results.
+Nothing here imports the reference: the arrays are duck-typed by field
+name.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.directory import Directory
+from repro_torch.core.store import StoreState
+from repro_torch.device import resolve_device
+
+DIRECTORY_FIELDS = ("slot_lo", "slot_hi", "live", "chains", "chain_len",
+                    "parent", "generation", "node_addr", "read_count",
+                    "write_count")
+_DIRECTORY_DTYPES = {
+    "slot_lo": np.uint32, "slot_hi": np.uint32, "live": np.bool_,
+    "chains": np.int32, "chain_len": np.int32, "parent": np.int32,
+    "generation": np.int32, "node_addr": np.int32, "read_count": np.uint32,
+    "write_count": np.uint32,
+}
+
+
+def _t(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np.bool_:
+        a = a.astype(np.int64)
+    return torch.tensor(a, device=device)
+
+
+def directory_from_numpy(arrays, *, hash_partitioned: bool = False,
+                         device=None) -> Directory:
+    """``arrays``: a mapping (or object with attributes) of the
+    Directory's ten table fields."""
+    dev = resolve_device(device)
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (
+        lambda k: getattr(arrays, k))
+    return Directory(**{f: _t(get(f), dev) for f in DIRECTORY_FIELDS},
+                     hash_partitioned=hash_partitioned)
+
+
+def directory_to_numpy(directory: Directory) -> dict[str, np.ndarray]:
+    return {f: getattr(directory, f).cpu().numpy().astype(_DIRECTORY_DTYPES[f])
+            for f in DIRECTORY_FIELDS}
+
+
+def store_from_numpy(keys, values, overflow, *, device=None) -> StoreState:
+    dev = resolve_device(device)
+    return StoreState(
+        keys=_t(keys, dev),
+        values=torch.tensor(np.asarray(values, np.float32), device=dev),
+        overflow=_t(overflow, dev),
+    )
+
+
+def store_to_numpy(store: StoreState) -> dict[str, np.ndarray]:
+    return {
+        "keys": store.keys.cpu().numpy().astype(np.uint32),
+        "values": store.values.cpu().numpy(),
+        "overflow": store.overflow.cpu().numpy().astype(np.int32),
+    }
+
+
+def sketch_from_numpy(sketch, *, device=None) -> torch.Tensor:
+    return _t(sketch, resolve_device(device))
+
+
+def sketch_to_numpy(sketch: torch.Tensor) -> np.ndarray:
+    return sketch.cpu().numpy().astype(np.uint32)
+
+
+def load_reg_from_numpy(load_reg, *, device=None) -> torch.Tensor:
+    return _t(load_reg, resolve_device(device))
+
+
+def load_reg_to_numpy(load_reg: torch.Tensor) -> np.ndarray:
+    return load_reg.cpu().numpy().astype(np.uint32)

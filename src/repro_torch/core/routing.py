@@ -1,0 +1,194 @@
+"""Key-based routing: the switch ingress/egress pipeline (counterpart of
+``repro.core.routing``).
+
+Steps 1-4 (matching value, range match, chain fetch, head/tail or p2c
+target) run in the range_match kernels (:mod:`repro_torch.kernels.
+range_match`: K1 for :func:`route`, K2 for :func:`route_load_aware`);
+the statistics counters and load registers are bumped here in torch
+around the kernel, exactly as the reference's kernel wrappers assume.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import directory as D
+from repro_torch.core import keys as K
+from repro_torch.kernels.range_match import ops as RM
+from repro_torch.kernels.range_match.ref import p2c_ref
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryBatch:
+    """A batch of TurboKV packets.
+
+    opcode (B,) int32; key (B,) int64 (uint32 values); end_key (B,) int64;
+    value (B, V) float32 PUT payload (zeros otherwise).
+    """
+
+    opcode: torch.Tensor
+    key: torch.Tensor
+    end_key: torch.Tensor
+    value: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.opcode.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutingDecision:
+    """Per-packet routing output: ridx, target, chain_len, clength (B,)
+    int64 and chain (B, r_max) int64 (head first)."""
+
+    ridx: torch.Tensor
+    target: torch.Tensor
+    chain: torch.Tensor
+    chain_len: torch.Tensor
+    clength: torch.Tensor
+
+
+def _is_write(opcode: torch.Tensor) -> torch.Tensor:
+    return (opcode == K.OP_PUT) | (opcode == K.OP_DEL)
+
+
+def _decision(directory, ridx, target, chain_t, is_write):
+    ridx = ridx.to(torch.int64)
+    clen = directory.chain_len[ridx]
+    return RoutingDecision(
+        ridx=ridx,
+        target=target.to(torch.int64),
+        chain=chain_t.T.to(torch.int64),
+        chain_len=clen,
+        clength=torch.where(is_write, clen + 1, 2),
+    )
+
+
+def route(directory: D.Directory, q: QueryBatch
+          ) -> tuple[RoutingDecision, D.Directory]:
+    """Route a packet batch (K1): reads to the chain tail, writes to the
+    head; returns the decision and the directory with bumped counters."""
+    ridx, target, chain = RM.range_match(directory, q.key, q.opcode)
+    is_write = _is_write(q.opcode)
+    decision = _decision(directory, ridx, target, chain, is_write)
+    return decision, D.bump_counters(directory, decision.ridx, is_write)
+
+
+def route_load_aware(directory: D.Directory, q: QueryBatch,
+                     load_reg: torch.Tensor, rng: np.ndarray,
+                     ) -> tuple[RoutingDecision, D.Directory, torch.Tensor]:
+    """Route with power-of-two-choices read spreading (K2).  ``load_reg``
+    is the (N,) int64 uint32 load-register file; ``rng`` the raw
+    threefry key of the epoch's routing stream."""
+    ridx, target, chain = RM.range_match_spread(
+        directory, q.key, q.opcode, load_reg, rng
+    )
+    is_write = _is_write(q.opcode)
+    decision = _decision(directory, ridx, target, chain, is_write)
+    directory = D.bump_counters(directory, decision.ridx, is_write)
+    load_reg = _bump_load(load_reg, decision.chain, decision.chain_len,
+                          is_write, decision.target)
+    return decision, directory, load_reg
+
+
+def _p2c_pick(chain: torch.Tensor, clen: torch.Tensor, load_reg: torch.Tensor,
+              rng: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """The p2c pick on a fetched (B, r_max) chain: ``(picked, ppos)``
+    (plain form, shared with the kernel's plain version)."""
+    u1, u2 = RM.p2c_draws(rng, chain.shape[0], chain.device)
+    return p2c_ref(chain.T, clen, u1, u2, load_reg)
+
+
+def _bump_load(load_reg: torch.Tensor, chain: torch.Tensor,
+               clen: torch.Tensor, is_write: torch.Tensor,
+               target: torch.Tensor) -> torch.Tensor:
+    """Reads hit their serving node, writes every live chain member.
+
+    The read bump reproduces the reference's index wrap: a NO_NODE
+    target (a fully spliced chain) charges node N-1 (``D.wrap_node``,
+    ROADMAP fault F2)."""
+    N = load_reg.shape[0]
+    r_max = chain.shape[1]
+    live = (torch.arange(r_max, device=chain.device)[None, :] < clen[:, None]) & (
+        chain != D.NO_NODE
+    )
+    w_hit = live & is_write[:, None]
+    safe_chain = torch.where(w_hit, chain, 0)
+    add = torch.zeros(N, dtype=torch.int64, device=load_reg.device)
+    add.index_add_(0, safe_chain.reshape(-1), w_hit.reshape(-1).to(torch.int64))
+    add.index_add_(0, D.wrap_node(target, N), (~is_write).to(torch.int64))
+    return K.u32(load_reg + add)
+
+
+def expand_scans(directory: D.Directory, q: QueryBatch, *,
+                 max_scan_fanout: int) -> QueryBatch:
+    """Clone-and-circulate for range queries (static fanout unroll)."""
+    if directory.hash_partitioned:
+        raise ValueError("scans are not supported under hash partitioning (paper §4.1.1)")
+    F = max_scan_fanout
+    B = q.batch
+    dev = q.key.device
+    is_scan = q.opcode == K.OP_SCAN
+    order, rank = D.range_order(directory)
+    start_r = D.lookup_range(directory, q.key)
+    end_r = D.lookup_range(directory, torch.maximum(q.end_key, q.key))
+    start_k = rank[start_r]
+    end_k = rank[end_r]
+    span = torch.where(is_scan, end_k - start_k + 1, 1)
+    j = torch.arange(F, dtype=torch.int64, device=dev)
+    rank_j = torch.minimum(start_k[:, None] + j[None, :], end_k[:, None])
+    ridx_j = order[rank_j]
+    live = j[None, :] < span[:, None]
+    lo = directory.slot_lo[ridx_j]
+    hi = directory.slot_hi[ridx_j]
+    sub_key = torch.maximum(q.key[:, None], lo)
+    sub_end = torch.minimum(q.end_key[:, None], hi)
+    opcode = torch.where(
+        live,
+        torch.where(is_scan[:, None], K.OP_SCAN, q.opcode[:, None]),
+        K.OP_GET,
+    ).to(torch.int32)
+    key = torch.where(live, torch.where(is_scan[:, None], sub_key, q.key[:, None]),
+                      q.key[:, None])
+    end_key = torch.where(live & is_scan[:, None], sub_end, 0)
+    key = torch.where(live, key, K.EMPTY_KEY)
+    value = q.value[:, None, :].expand(B, F, q.value.shape[-1])
+    return QueryBatch(
+        opcode=opcode.reshape(B * F),
+        key=key.reshape(B * F),
+        end_key=end_key.reshape(B * F),
+        value=value.reshape(B * F, q.value.shape[-1]),
+    )
+
+
+def make_queries(keys, opcodes, values=None, end_keys=None, value_dim: int = 1,
+                 *, device=None) -> QueryBatch:
+    """Build a :class:`QueryBatch` on ``device`` from numpy arrays or
+    tensors (keys as uint32 values)."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+
+    def t(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=dtype)
+        a = np.asarray(x)
+        if dtype == torch.int64:
+            a = a.astype(np.int64)
+        return torch.as_tensor(a, device=dev).to(dtype)
+
+    key = t(keys, torch.int64)
+    B = key.shape[0]
+    if values is None:
+        values = torch.zeros((B, value_dim), dtype=torch.float32, device=dev)
+    if end_keys is None:
+        end_keys = torch.zeros(B, dtype=torch.int64, device=dev)
+    return QueryBatch(
+        opcode=t(opcodes, torch.int32),
+        key=K.u32(key),
+        end_key=K.u32(t(end_keys, torch.int64)),
+        value=t(values, torch.float32),
+    )

@@ -1,0 +1,23 @@
+"""Device selection for the port's entry points.
+
+Every entry point takes an explicit ``device``.  ``None`` means the CUDA
+card: the port runs on the GPU unless the caller asks for the CPU (as the
+tests do), and it never falls back to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` -> ``cuda`` (raising when no card is present); anything
+    else is taken as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the host"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

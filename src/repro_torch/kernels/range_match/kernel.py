@@ -1,0 +1,238 @@
+"""Build, bind and launch the range_match CUDA kernels.
+
+``csrc/range_match.cu`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface under
+``build/repro_torch_kernels/`` at the root of the checkout (one library
+per source hash), and bound with :mod:`ctypes`.  Nothing is built or
+imported at module import time: the CPU tests import this module.
+
+Each wrapper takes the plain PyTorch version (:mod:`.ref`) when its
+tensors lie on the CPU, and launches its kernel for CUDA tensors — or
+raises.  There is no fallback from a CUDA tensor to the plain version.
+``launches`` counts kernel launches per wrapper (plain-version calls do
+not count), so a run can show that the main path went through the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.range_match import ref
+
+_SRC = Path(__file__).parent / "csrc" / "range_match.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+launches = {"range_match": 0, "range_match_spread": 0, "slab_lookup": 0}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels (if this source hash is not built yet) and
+    return the library path."""
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    out = _BUILD_DIR / f"librange_match_{tag}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(_BUILD_DIR))
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, str(_SRC)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+        if verbose:
+            print(res.stderr.strip())
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.rm_range_match.argtypes = (
+                [_P] * 6 + [_I64, _I32, _I32, _I32, _I32] + [_P] * 4
+            )
+            lib.rm_range_match_spread.argtypes = (
+                [_P] * 9 + [_I64, _I32, _I32, _I32, _I32, _I32] + [_P] * 4
+            )
+            lib.rm_slab_lookup.argtypes = [_P] * 3 + [_I64] * 3 + [_P] * 3
+            for fn in (lib.rm_range_match, lib.rm_range_match_spread,
+                       lib.rm_slab_lookup):
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _grid(B: int, device: torch.device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min((B + 255) // 256, 4 * sms))
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+    return False
+
+
+def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
+                num_slots: int):
+    """K1 (replaces ``range_match_pallas``): ``(ridx, target, chain)``.
+
+    mvals (B,) int64; opcodes (B,) int32; slot_lo / slot_hi (S,) int32
+    (uint32 bits, dead-masked); chains (r_max, S) int32; chain_len (S,)
+    int32.  Returns int32 ``ridx (B,)``, ``target (B,)``, ``chain
+    (r_max, B)``."""
+    if _on_cpu(mvals, opcodes, slot_lo, slot_hi, chains, chain_len):
+        return ref.range_match_ref(mvals, opcodes, slot_lo, slot_hi, chains,
+                                   chain_len, num_slots=num_slots)
+    dev = mvals.device
+    B = mvals.shape[0]
+    r_max, S = chains.shape
+    _check("mvals", mvals, torch.int64, (B,), dev)
+    _check("opcodes", opcodes, torch.int32, (B,), dev)
+    for name, t in (("slot_lo", slot_lo), ("slot_hi", slot_hi),
+                    ("chain_len", chain_len)):
+        _check(name, t, torch.int32, (S,), dev)
+    _check("chains", chains, torch.int32, (r_max, S), dev)
+    if not 1 <= num_slots <= S:
+        raise ValueError(f"num_slots {num_slots} outside [1, {S}]")
+    ridx = torch.empty(B, dtype=torch.int32, device=dev)
+    target = torch.empty(B, dtype=torch.int32, device=dev)
+    chain = torch.empty((r_max, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return ridx, target, chain
+    rc = _load().rm_range_match(
+        mvals.data_ptr(), opcodes.data_ptr(), slot_lo.data_ptr(),
+        slot_hi.data_ptr(), chains.data_ptr(), chain_len.data_ptr(),
+        B, S, r_max, num_slots, _grid(B, dev), ridx.data_ptr(),
+        target.data_ptr(), chain.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "range_match")
+    launches["range_match"] += 1
+    return ridx, target, chain
+
+
+def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
+                       chain_len, loads, *, num_slots: int):
+    """K2 (replaces ``range_match_spread_pallas``): K1 plus the p2c read
+    pick.  u1 / u2 (B,) int32 non-negative draws; loads (N,) int32 (uint32
+    bits of the load registers)."""
+    if _on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+               loads):
+        return ref.range_match_spread_ref(
+            mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+            loads, num_slots=num_slots,
+        )
+    dev = mvals.device
+    B = mvals.shape[0]
+    r_max, S = chains.shape
+    n = loads.shape[0]
+    _check("mvals", mvals, torch.int64, (B,), dev)
+    for name, t in (("opcodes", opcodes), ("u1", u1), ("u2", u2)):
+        _check(name, t, torch.int32, (B,), dev)
+    for name, t in (("slot_lo", slot_lo), ("slot_hi", slot_hi),
+                    ("chain_len", chain_len)):
+        _check(name, t, torch.int32, (S,), dev)
+    _check("chains", chains, torch.int32, (r_max, S), dev)
+    _check("loads", loads, torch.int32, (n,), dev)
+    if not 1 <= num_slots <= S:
+        raise ValueError(f"num_slots {num_slots} outside [1, {S}]")
+    ridx = torch.empty(B, dtype=torch.int32, device=dev)
+    target = torch.empty(B, dtype=torch.int32, device=dev)
+    chain = torch.empty((r_max, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return ridx, target, chain
+    rc = _load().rm_range_match_spread(
+        mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+        slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
+        chain_len.data_ptr(), loads.data_ptr(), B, S, r_max, num_slots, n,
+        _grid(B, dev), ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "range_match_spread")
+    launches["range_match_spread"] += 1
+    return ridx, target, chain
+
+
+def slab_lookup(qkeys, target, slabs):
+    """K4a (replaces ``slab_lookup_pallas``): ``(slot int32, found bool)``.
+
+    qkeys (B,) int64; target (B,) int64; slabs (N, C) int64 sorted rows."""
+    if _on_cpu(qkeys, target, slabs):
+        return ref.slab_lookup_ref(qkeys, target, slabs)
+    dev = qkeys.device
+    B = qkeys.shape[0]
+    N, C = slabs.shape
+    _check("qkeys", qkeys, torch.int64, (B,), dev)
+    _check("target", target, torch.int64, (B,), dev)
+    _check("slabs", slabs, torch.int64, (N, C), dev)
+    if C < 1:
+        raise ValueError("slabs: empty rows")
+    slot = torch.empty(B, dtype=torch.int32, device=dev)
+    found = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return slot, found
+    rc = _load().rm_slab_lookup(
+        qkeys.data_ptr(), target.data_ptr(), slabs.data_ptr(), B, N, C,
+        slot.data_ptr(), found.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "slab_lookup")
+    launches["slab_lookup"] += 1
+    return slot, found

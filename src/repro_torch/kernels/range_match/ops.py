@@ -1,0 +1,82 @@
+"""Directory-level wrappers for the range_match kernels (counterpart of
+``repro.kernels.range_match.ops``).
+
+``pack_tables`` turns a :class:`~repro_torch.core.directory.Directory`
+into the kernels' table layout: the live mask baked into the spans (dead
+slots get the inert ``lo = MAX_KEY > hi = 0`` sentinel) as uint32 bits
+in int32 tensors, chains transposed to ``(r_max, S)``.  No lane padding:
+the CUDA kernels index the tables directly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.core import keys as K
+from repro_torch.kernels.range_match import kernel
+
+INT32_MAX = (1 << 31) - 1
+
+
+def to_i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in ``[0, 2**32)`` -> int32 tensor with the same low 32
+    bits (the kernels read them back as uint32)."""
+    x = x.to(torch.int64) & K.MASK32
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def pack_tables(directory):
+    """Directory -> ``(slot_lo, slot_hi, chains, chain_len)`` kernel tables."""
+    lo = torch.where(directory.live, directory.slot_lo, K.MAX_KEY)
+    hi = torch.where(directory.live, directory.slot_hi, 0)
+    return (
+        to_i32_bits(lo),
+        to_i32_bits(hi),
+        directory.chains.T.to(torch.int32).contiguous(),
+        directory.chain_len.to(torch.int32),
+    )
+
+
+def range_match(directory, keys: torch.Tensor, opcodes: torch.Tensor):
+    """Route a packet batch through K1: ``(ridx, target, chain (r_max, B))``
+    int32 — ``core.routing.route`` without the counter bumps."""
+    lo, hi, chains, clen = pack_tables(directory)
+    mvals = K.matching_value(keys, hash_partitioned=directory.hash_partitioned)
+    return kernel.range_match(
+        mvals.contiguous(), opcodes.to(torch.int32).contiguous(), lo, hi,
+        chains, clen, num_slots=directory.num_slots,
+    )
+
+
+def p2c_draws(rng: np.ndarray, B: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's one ``randint(rng, (B, 2), 0, INT32_MAX)`` p2c draw
+    (``routing._p2c_pick``), split into the two int32 columns."""
+    u = prng.randint(rng, (B, 2), 0, INT32_MAX, device)
+    return u[:, 0].contiguous(), u[:, 1].contiguous()
+
+
+def range_match_spread(directory, keys: torch.Tensor, opcodes: torch.Tensor,
+                       load_reg: torch.Tensor, rng: np.ndarray):
+    """Route through K2 (p2c read spreading): ``core.routing.
+    route_load_aware`` without the counter and load-register bumps, given
+    the same ``rng``."""
+    u1, u2 = p2c_draws(rng, keys.shape[0], keys.device)
+    lo, hi, chains, clen = pack_tables(directory)
+    mvals = K.matching_value(keys, hash_partitioned=directory.hash_partitioned)
+    return kernel.range_match_spread(
+        mvals.contiguous(), opcodes.to(torch.int32).contiguous(), u1, u2, lo,
+        hi, chains, clen, to_i32_bits(load_reg), num_slots=directory.num_slots,
+    )
+
+
+def slab_lookup(qkeys: torch.Tensor, target: torch.Tensor,
+                store_keys: torch.Tensor):
+    """Probe each key in its serving node's sorted slab through K4a:
+    ``(slot, found)`` — ``store.slab_get``'s searchsorted-left position
+    (clamped into ``[0, C)``) and its hit mask."""
+    return kernel.slab_lookup(
+        qkeys.to(torch.int64).contiguous(), target.to(torch.int64).contiguous(),
+        store_keys.contiguous(),
+    )

@@ -1,0 +1,112 @@
+"""Plain PyTorch versions of the range_match CUDA kernels.
+
+Each function computes exactly what its kernel in ``csrc/range_match.cu``
+computes, on the same tensors (see that file for the integer
+conventions).  The CPU path of every wrapper in :mod:`.kernel` runs
+these; ``chip_smoke.py`` holds each kernel against them on the card, and
+the tests hold them against the reference's jnp refs and Pallas kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M = 0xFFFFFFFF
+_EMPTY_KEY = 0xFFFFFFFF
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 bits of an int32 (or int64) tensor, as int64 values."""
+    return x.to(torch.int64) & _M
+
+
+def _slot_match(mvals, slot_lo, slot_hi, num_slots: int):
+    """Masked interval match: (B,) matching values -> (B,) int64 slot ids
+    (the lowest hit; a total miss clamps to ``num_slots - 1``)."""
+    v = _u32(mvals)[:, None]
+    hit = (v >= _u32(slot_lo)[None, :]) & (v <= _u32(slot_hi)[None, :])
+    S = slot_lo.shape[0]
+    iota = torch.arange(S, dtype=torch.int64, device=mvals.device)
+    ridx = torch.where(hit, iota[None, :], S).amin(dim=-1)
+    return torch.clamp(ridx, max=num_slots - 1)
+
+
+def _fetch(chains, chain_len, ridx):
+    chain = chains[:, ridx]                                  # (r_max, B)
+    clen = chain_len[ridx].to(torch.int64)
+    return chain, clen
+
+
+def range_match_ref(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
+                    num_slots: int):
+    """K1: ``(ridx, target, chain)`` — head for PUT/DEL, tail otherwise."""
+    ridx = _slot_match(mvals, slot_lo, slot_hi, num_slots)
+    chain, clen = _fetch(chains, chain_len, ridx)
+    tail = torch.gather(chain, 0, torch.clamp(clen - 1, min=0)[None, :])[0]
+    is_write = (opcodes == 1) | (opcodes == 2)
+    target = torch.where(is_write, chain[0], tail)
+    return ridx.to(torch.int32), target.to(torch.int32), chain.to(torch.int32)
+
+
+def p2c_ref(chain, clen, u1, u2, loads):
+    """The power-of-two-choices pick: two positions ``u % max(clen, 1)``,
+    the replica with the smaller (uint32) load wins, first pick on ties."""
+    c = torch.clamp(clen, min=1)
+    p1 = torch.remainder(u1.to(torch.int64), c)
+    p2 = torch.remainder(u2.to(torch.int64), c)
+    n1 = torch.gather(chain, 0, p1[None, :])[0]
+    n2 = torch.gather(chain, 0, p2[None, :])[0]
+    lu = _u32(loads)
+    l1 = lu[torch.clamp(n1, min=0).to(torch.int64)]
+    l2 = lu[torch.clamp(n2, min=0).to(torch.int64)]
+    first_wins = l1 <= l2
+    return torch.where(first_wins, n1, n2), torch.where(first_wins, p1, p2)
+
+
+def range_match_spread_ref(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
+                           chain_len, loads, *, num_slots: int):
+    """K2: K1 with p2c read spreading; writes still go to the head."""
+    ridx = _slot_match(mvals, slot_lo, slot_hi, num_slots)
+    chain, clen = _fetch(chains, chain_len, ridx)
+    picked, _ = p2c_ref(chain, clen, u1, u2, loads)
+    is_write = (opcodes == 1) | (opcodes == 2)
+    target = torch.where(is_write, chain[0], picked)
+    return ridx.to(torch.int32), target.to(torch.int32), chain.to(torch.int32)
+
+
+# Row offset of the node-offset concatenation below: larger than every
+# uint32 key, so row n's keys land in [n * _ROW, (n + 1) * _ROW).
+_ROW = 1 << 33
+
+
+def offset_rows(slabs: torch.Tensor) -> torch.Tensor:
+    """The sorted (N, C) slab rows as one ascending (N*C,) sequence: row
+    ``n`` shifted up by ``n * 2**33``."""
+    N = slabs.shape[0]
+    off = torch.arange(N, dtype=torch.int64, device=slabs.device) * _ROW
+    return (slabs + off[:, None]).reshape(-1)
+
+
+def row_searchsorted(seq: torch.Tensor, C: int, node: torch.Tensor,
+                     k: torch.Tensor, side: str = "left") -> torch.Tensor:
+    """``searchsorted`` of each key ``k`` in its own row ``node`` (in
+    ``[0, N)``) of :func:`offset_rows`'s sequence: positions in
+    ``[0, C]``."""
+    return torch.searchsorted(seq, k + node * _ROW, side=side) - node * C
+
+
+def slab_lookup_ref(qkeys, target, slabs):
+    """K4a: ``bisect_left`` of each key in row ``clip(target)`` of the
+    sorted (N, C) slab table (one searchsorted over the node-offset rows;
+    the (B, C) rank count of the reference's jnp ref does not fit at full
+    width).  ``slot`` clamps into ``[0, C)``; ``found`` is the probe hit,
+    masked for EMPTY keys and unrouted (negative) targets."""
+    N, C = slabs.shape
+    t = target.to(torch.int64)
+    ts = torch.clamp(t, 0, N - 1)
+    q = qkeys.to(torch.int64)
+    pos = row_searchsorted(offset_rows(slabs), C, ts, q)
+    slot = torch.clamp(pos, max=C - 1)
+    probe = slabs.reshape(-1)[ts * C + slot]
+    found = (probe == q) & (q != _EMPTY_KEY) & (t >= 0)
+    return slot.to(torch.int32), found

@@ -1,0 +1,135 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+These tests need an NVIDIA GPU and ``nvcc`` (they build the kernels at
+first use); without a card they skip.  Run them on the GPU machine with
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+They import torch and the port only, never jax.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import directory as D
+from repro_torch.core import routing as R
+from repro_torch.core import store as S
+from repro_torch.core.controller import Controller
+from repro_torch.kernels.range_match import kernel as RMK
+from repro_torch.kernels.range_match import ops as OPS
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _directory(seed, num_ranges, n_slots, device, num_nodes=8):
+    rng = np.random.default_rng(seed)
+    ctl = Controller(D.make_directory(num_ranges, num_nodes, 2, r_max=4,
+                                      n_slots=n_slots, device=device))
+    load = rng.random(num_nodes)
+    for _ in range(min(num_ranges // 2, 300)):
+        r = int(rng.choice(ctl.live_ranges()))
+        act = rng.integers(0, 3)
+        if act == 0:
+            lo, hi = ctl.range_span(r)
+            if hi - lo > 2:
+                ctl.split_range(r, int(rng.integers(lo, hi)))
+        elif act == 1:
+            ctl.widen_chain(r, load)
+        elif ctl.children():
+            ctl.merge_range(int(rng.choice(ctl.children())))
+    return ctl.directory()
+
+
+def _same(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize("B", [0, 1, 777, 70000])
+@pytest.mark.parametrize("n_slots", [64, 2048, 6000])
+def test_route_kernels_match_plain(dev, B, n_slots):
+    d = _directory(B + n_slots, n_slots // 2, n_slots, dev)
+    rng = np.random.default_rng(B)
+    keys = torch.tensor(rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64),
+                        device=dev)
+    ops = torch.tensor(rng.integers(0, 4, B).astype(np.int32), device=dev)
+    loads = torch.tensor(rng.integers(0, 2**32, 8, dtype=np.uint64).astype(np.int64),
+                         device=dev)
+    rng_key = np.array([0, B], np.uint32)
+    before = dict(RMK.launches)
+    got1 = OPS.range_match(d, keys, ops)
+    got2 = OPS.range_match_spread(d, keys, ops, loads, rng_key)
+    # an empty batch launches nothing and counts nothing
+    assert RMK.launches["range_match"] == before["range_match"] + (B > 0)
+    assert (RMK.launches["range_match_spread"]
+            == before["range_match_spread"] + (B > 0))
+    dc = D.Directory(**{f: getattr(d, f).cpu() for f in (
+        "slot_lo", "slot_hi", "live", "chains", "chain_len", "parent",
+        "generation", "node_addr", "read_count", "write_count")})
+    _same(got1, OPS.range_match(dc, keys.cpu(), ops.cpu()))
+    _same(got2, OPS.range_match_spread(dc, keys.cpu(), ops.cpu(), loads.cpu(),
+                                       rng_key))
+
+
+def test_route_kernel_raises_when_tables_exceed_shared_memory(dev):
+    """No fallback: tables larger than a block's shared memory make the
+    launch fail, and the wrapper raises instead of taking the plain path."""
+    d = _directory(1, 4000, 10000, dev)
+    keys = torch.zeros(16, dtype=torch.int64, device=dev)
+    ops = torch.zeros(16, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        OPS.range_match(d, keys, ops)
+
+
+@pytest.mark.parametrize("C", [1, 200, 100_003])
+def test_slab_lookup_matches_plain(dev, C):
+    rng = np.random.default_rng(C)
+    N, B = 5, 40_000
+    slabs = np.full((N, C), 0xFFFFFFFF, np.int64)
+    for n in range(N):
+        m = int(rng.integers(0, C + 1))
+        slabs[n, :m] = np.sort(rng.choice(2**32 - 1, m, replace=False))
+    target = rng.integers(-1, N, B)
+    resident = slabs[np.clip(target, 0, N - 1), rng.integers(0, C, B)]
+    fresh = rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64)
+    q = np.where(rng.random(B) < 0.6, resident, fresh)
+    args = [torch.tensor(a, device=dev) for a in (q, target, slabs)]
+    got = OPS.slab_lookup(*args)
+    want = OPS.slab_lookup(*(a.cpu() for a in args))
+    _same(got, want)
+
+
+def test_apply_routed_card_matches_cpu(dev):
+    N, V, C, B = 6, 4, 96, 512
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        d = _directory(5, 12, 24, device, num_nodes=N)
+        store = S.make_store(N, C, V, device=device)
+        resps = []
+        for step in range(3):
+            r = np.random.default_rng(step)
+            keys = r.integers(0, 2**32 - 2, B, dtype=np.uint64).astype(np.uint32)
+            ops = (np.ones(B, np.int32) if step == 0
+                   else r.integers(0, 4, B).astype(np.int32))
+            ends = np.minimum(keys.astype(np.uint64) + 2**28, 2**32 - 2)
+            q = R.make_queries(keys, ops, r.normal(size=(B, V)).astype(np.float32),
+                               ends.astype(np.uint32), device=device)
+            dec, d = R.route(d, q)
+            store, resp = S.apply_routed(store, q, dec, max_scan_results=4)
+            resps.append(resp)
+        out[device.type] = (store, resps)
+    (sg, rg), (sc, rc) = out["cuda"], out["cpu"]
+    _same((sg.keys, sg.values, sg.overflow), (sc.keys, sc.values, sc.overflow))
+    for a, b in zip(rg, rc):
+        _same((a.value, a.found, a.scan_values, a.scan_keys, a.scan_count),
+              (b.value, b.found, b.scan_values, b.scan_keys, b.scan_count))
+    assert int(sg.overflow.sum()) > 0
