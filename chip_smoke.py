@@ -10,18 +10,29 @@ exits non-zero):
                build of the CUDA kernels and the DES core from the sources
                in this checkout (build seconds);
 2. kernels     each range_match kernel (K1 ``range_match``, K2
-               ``range_match_spread``, K4a ``slab_lookup``) against its plain
-               PyTorch version on the card at the full-width shapes of the
-               main path, bitwise, with CUDA-event timings and its bound;
+               ``range_match_spread``, K3 ``range_match_spread_dirty`` without
+               and with the 64-bit key filter, K4a ``slab_lookup``, K4b
+               ``range_match_apply``) against its plain PyTorch version on
+               the card at the full-width shapes of the main path, bitwise,
+               with CUDA-event timings and its bound;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
-               chains bit-identical), and fused == per-epoch on the card;
+               chains and replication register file bit-identical), and
+               fused == per-epoch on the card, for eventual replication
+               (``shifting_hotspot``) and for ``chain`` / ``craq`` / craq
+               with an 8-bit key filter (``ycsb_a``); then the replication
+               bench (``repro_torch.replication.bench``) on the card, whose
+               gates must come back empty;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
-               1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges,
-               replication 2 — under ``frozen`` and ``full_adaptive``, with
-               the kernels' launch counts read around the run and every
-               acknowledged write read back from every live replica.
+               1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
+               — ``shifting_hotspot`` with replication 2 under ``frozen``
+               and ``full_adaptive``, and YCSB workload A with replication 3
+               under ``craq``/``full_adaptive`` and ``chain``/``frozen``;
+               the kernels' launch counts are read around each run, and
+               every acknowledged write is read back from every live
+               replica.  After the craq run, ``route_and_lookup`` (K4b) runs
+               on its live state, held against K3 followed by K4a.
 
 It then prints the kernel table (``{"kernels": [...]}``), the card line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -116,6 +127,7 @@ S_FULL = 2 * RANGES_FULL
 R_MAX = 4
 RECORDS_FULL = 1_000_000
 C_FULL = max(256, 2 * RECORDS_FULL * R_MAX // N_FULL)
+F_FULL = 64                # the key-filter width the replication bench uses
 
 
 def _full_width_tables(rng, dev):
@@ -190,6 +202,37 @@ def phase_kernels(seed: int = 0) -> list[dict]:
                                              num_slots=directory.num_slots)
     K4 = lambda: RMK.slab_lookup(qkeys, target, slabs)
     K4p = lambda: REF.slab_lookup_ref(qkeys, target, slabs)
+    # K3 and K4b: CRAQ reads over a dirty table at YCSB-A's write share
+    # (about half the slots dirty); the filter's raw keys are the matching
+    # values under range partitioning, and K4b probes them in the slabs
+    dirty = OPS.pack_dirty(torch.tensor(rng.random((S, R_MAX)) < 0.5,
+                                        device=dev))
+    kf = torch.tensor(rng.random((S, F_FULL)) < 0.3, device=dev)
+    resident_k = slabs[torch.tensor(rng.integers(0, N_FULL, B_FULL), device=dev),
+                       torch.tensor(rng.integers(0, C_FULL // 4, B_FULL),
+                                    device=dev)]
+    ckeys = torch.where(torch.tensor(rng.random(B_FULL) < 0.7, device=dev),
+                        resident_k, fresh).contiguous()
+    ops_w = torch.tensor(np.where(rng.random(B_FULL) < 0.5, 0, 1)
+                         .astype(np.int32), device=dev)
+    K3 = lambda: RMK.range_match_spread_dirty(
+        ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty,
+        num_slots=directory.num_slots)
+    K3p = lambda: REF.range_match_spread_dirty_ref(
+        ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty,
+        num_slots=directory.num_slots)
+    K3f = lambda: RMK.range_match_spread_dirty(
+        ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty, ckeys, kf,
+        num_slots=directory.num_slots)
+    K3fp = lambda: REF.range_match_spread_dirty_ref(
+        ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty, ckeys, kf,
+        num_slots=directory.num_slots)
+    K4b = lambda: RMK.range_match_apply(
+        ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty, ckeys, slabs,
+        num_slots=directory.num_slots)
+    K4bp = lambda: REF.range_match_apply_ref(
+        ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty, ckeys, slabs,
+        num_slots=directory.num_slots)
     # the one-call yardstick for K4a: torch.searchsorted over the
     # node-offset concatenation of the slabs (built outside the timing)
     flat = REF.offset_rows(slabs)
@@ -204,16 +247,34 @@ def phase_kernels(seed: int = 0) -> list[dict]:
     # over C entries takes ceil(log2(C + 1)) steps plus the final probe.
     probes = math.ceil(math.log2(C_FULL + 1)) + 1
     table_bytes = S * (4 + 4 + 4 + 4 * R_MAX)
+    route_out = 4 + 4 + 4 * R_MAX                  # ridx, target, chain
+    spread_in = 4 + 4 + 4 + 4                      # mval, opcode, u1, u2
+    # K3 adds the (r_max, S) dirty bytes in and (picked, bounced) out; the
+    # filter the raw keys and the (S, F) filter bytes
+    dirty_bytes = (B_FULL * (spread_in + route_out + 4 + 1) + table_bytes
+                   + 4 * N_FULL + R_MAX * S)
+    probe_bytes = B_FULL * (4 + 4 + 1) + B_FULL * probes * 4  # key, slot, found
     specs = [
         ("range_match", K1, K1p, None,
-         B_FULL * (4 + 4 + 4 + 4 + 4 * R_MAX) + table_bytes,
+         B_FULL * (4 + 4 + route_out) + table_bytes,
          "kernel.py:782", "range_match_pallas", {}),
         ("range_match_spread", K2, K2p, None,
-         B_FULL * (4 + 4 + 4 + 4 + 4 + 4 + 4 * R_MAX) + table_bytes + 4 * N_FULL,
+         B_FULL * (spread_in + route_out) + table_bytes + 4 * N_FULL,
          "kernel.py:712", "range_match_spread_pallas", {}),
+        ("range_match_spread_dirty", K3, K3p, None, dirty_bytes,
+         "kernel.py:631", "range_match_spread_dirty_pallas",
+         {"filter_bits": 0}),
+        ("range_match_spread_dirty", K3f, K3fp, None,
+         dirty_bytes + B_FULL * 4 + S * F_FULL,
+         "kernel.py:631", "range_match_spread_dirty_pallas",
+         {"filter_bits": F_FULL}),
         ("slab_lookup", K4, K4p, K4lib,
          B_FULL * (4 + 4 + 4 + 1) + B_FULL * probes * 4,
          "kernel.py:582", "slab_lookup_pallas",
+         {"dependent_loads": probes, "C": C_FULL}),
+        ("range_match_apply", K4b, K4bp, None,
+         dirty_bytes + probe_bytes - B_FULL * 4,   # the key is the mval
+         "kernel.py:481", "range_match_apply_pallas",
          {"dependent_loads": probes, "C": C_FULL}),
     ]
     rows = []
@@ -224,7 +285,8 @@ def phase_kernels(seed: int = 0) -> list[dict]:
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-                raise AssertionError(f"{name}: kernel disagrees with its plain version")
+                raise AssertionError(f"{name} {extra}: kernel disagrees with "
+                                     "its plain version")
         ms = time_cuda(fn)
         plain_ms = time_cuda(plain, reps=5, warmup=1)
         lib_ms = time_cuda(lib) if lib is not None else None
@@ -238,6 +300,10 @@ def phase_kernels(seed: int = 0) -> list[dict]:
                "bound_by": "bytes", "bound_bytes": nbytes, "library_ms": lib_ms,
                "shape": {"B": B_FULL, "S": S, "N": N_FULL, "r_max": R_MAX},
                **extra}
+        if name == "range_match_spread_dirty":
+            row["bounced"] = int(got[4].sum())
+        if name == "range_match_apply":
+            row["found"] = int(got[6].sum())
         emit({"phase": "kernels", **row})
         rows.append(row)
     return rows
@@ -248,17 +314,19 @@ def phase_kernels(seed: int = 0) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _parity_driver(policy: str, device: str, fused: bool = True):
+def _parity_driver(policy: str, device: str, fused: bool = True,
+                   scenario: str = "shifting_hotspot", **ckw):
     from repro_torch import cluster as TC
 
+    skw = dict(theta=1.2, shift_every=2) if scenario == "shifting_hotspot" else {}
     scen = TC.make_scenario(
-        "shifting_hotspot",
+        scenario,
         TC.ScenarioConfig(n_epochs=6, epoch_ops=256, n_records=512,
-                          value_dim=2, seed=3),
-        theta=1.2, shift_every=2)
+                          value_dim=2, seed=3), **skw)
     cfg = TC.ClusterConfig(num_nodes=8, num_ranges=32, replication=2, r_max=4,
                            n_clients=16, report_every=2,
-                           imbalance_threshold=1.1, max_moves_per_round=6)
+                           imbalance_threshold=1.1, max_moves_per_round=6,
+                           **ckw)
     drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=fused,
                          device=device)
     return drv, drv.run()
@@ -275,22 +343,63 @@ def _same_run(a, b) -> None:
             raise AssertionError(f"final store {f} differs")
     if not torch.equal(da.directory.chains.cpu(), db.directory.chains.cpu()):
         raise AssertionError("directory.chains differ")
+    for f in ("version", "acked", "key_filter"):
+        if not torch.equal(getattr(da.repl, f).cpu(), getattr(db.repl, f).cpu()):
+            raise AssertionError(f"replication register {f} differs")
+
+
+# (label, policy, scenario, ClusterConfig overrides) of the parity phase
+PARITY_RUNS = (
+    ("frozen", "frozen", "shifting_hotspot", {}),
+    ("full_adaptive", "full_adaptive", "shifting_hotspot", {}),
+    ("chain/frozen", "frozen", "ycsb_a", dict(replication_mode="chain")),
+    ("craq/full_adaptive", "full_adaptive", "ycsb_a",
+     dict(replication_mode="craq")),
+    ("craq_f8/full_adaptive", "full_adaptive", "ycsb_a",
+     dict(replication_mode="craq", craq_filter_bits=8)),
+)
 
 
 def phase_parity() -> dict:
+    from repro_torch.replication import bench as RB
+
     out = {"phase": "parity"}
-    for policy in ("frozen", "full_adaptive"):
-        cuda_f = _parity_driver(policy, "cuda", fused=True)
-        cpu_f = _parity_driver(policy, "cpu", fused=True)
+    for label, policy, scenario, ckw in PARITY_RUNS:
+        cuda_f = _parity_driver(policy, "cuda", True, scenario, **ckw)
+        cpu_f = _parity_driver(policy, "cpu", True, scenario, **ckw)
         _same_run(cuda_f, cpu_f)
-        cuda_e = _parity_driver(policy, "cuda", fused=False)
-        _same_run(cuda_e, cuda_f)
-        if not cuda_f[0].host_syncs < cuda_e[0].host_syncs:
-            raise AssertionError("fused loop did not save host syncs")
-        out[policy] = {"cuda_vs_cpu": "bitwise", "fused_vs_per_epoch": "bitwise",
-                       "host_syncs_fused": cuda_f[0].host_syncs,
-                       "host_syncs_per_epoch": cuda_e[0].host_syncs,
-                       "epochs": len(cuda_f[1])}
+        res = {"cuda_vs_cpu": "bitwise", "epochs": len(cuda_f[1]),
+               "host_syncs_fused": cuda_f[0].host_syncs,
+               "dirty_reads": sum(r.dirty_reads for r in cuda_f[1])}
+        if ckw.get("replication_mode") != "chain":
+            # fused == per-epoch on the card (eventual and craq)
+            cuda_e = _parity_driver(policy, "cuda", False, scenario, **ckw)
+            _same_run(cuda_e, cuda_f)
+            if not cuda_f[0].host_syncs < cuda_e[0].host_syncs:
+                raise AssertionError(f"{label}: fused loop did not save host syncs")
+            res.update(fused_vs_per_epoch="bitwise",
+                       host_syncs_per_epoch=cuda_e[0].host_syncs)
+        if ckw.get("replication_mode") == "craq" and not res["dirty_reads"]:
+            raise AssertionError(f"{label}: no dirty-read bounces")
+        out[label] = res
+    # the three-mode replication bench on the card, at the size of its
+    # committed reference rows (BENCH_replication.json); at its quick size
+    # gate 1 and the filter gate fail in the JAX reference too
+    t0 = time.perf_counter()
+    rows = RB.run_replication_matrix(False, verbose=False, device="cuda")
+    frows = RB.run_filter_arm(False, verbose=False, device="cuda")
+    problems = RB.check_replication(rows) + RB.check_filter_arm(frows)
+    if problems:
+        raise AssertionError(f"replication bench gates: {problems}")
+    out["replication_bench"] = {
+        "runs": len(rows) + len(frows), "seconds": time.perf_counter() - t0,
+        "gates": "empty",
+        "dirty_reads": {f"{r['scenario']}/{r['replication']}/{r['policy']}":
+                        r["total_dirty_reads"] for r in rows
+                        if r["replication"] == "craq"},
+        "filter_dirty_reads": {r["filter_bits"]: r["total_dirty_reads"]
+                               for r in frows},
+    }
     emit(out)
     return out
 
@@ -342,22 +451,75 @@ def _read_back(drv, keys: np.ndarray, expected: np.ndarray) -> dict:
     return {"replica_reads": checked, "missing": missing, "wrong_value": wrong}
 
 
+# (label, scenario, its knobs, policy, replication, mode, kernels that must
+# launch) of the full-width phase: the eventual main path of the first
+# slice, then YCSB workload A (Zipf 0.99, 50 % updates) over chains of 3,
+# the length CRAQ's paper evaluates
+FULL_RUNS = (
+    ("frozen", "shifting_hotspot", dict(theta=1.2, shift_every=2), "frozen",
+     2, "eventual", ("range_match", "slab_lookup")),
+    ("full_adaptive", "shifting_hotspot", dict(theta=1.2, shift_every=2),
+     "full_adaptive", 2, "eventual", ("range_match_spread", "slab_lookup")),
+    ("craq/full_adaptive", "ycsb_a", {}, "full_adaptive", 3, "craq",
+     ("range_match_spread_dirty", "slab_lookup")),
+    ("chain/frozen", "ycsb_a", {}, "frozen", 3, "chain",
+     ("range_match", "slab_lookup")),
+)
+
+
+def _route_and_lookup_check(drv, scen) -> dict:
+    """One more epoch of the scenario's traffic through ``route_and_lookup``
+    (K4b) on the craq driver's live directory, store, load registers and
+    dirty bits, held bitwise against K3 followed by K4a."""
+    from repro_torch import prng
+    from repro_torch import replication as RPL
+    from repro_torch.core import routing as R
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.range_match import ops as OPS
+
+    e = scen.cfg.n_epochs
+    ops, keys, ends, vals = scen.epoch(e)
+    q = R.make_queries(keys, ops, vals, ends, device=drv.device)
+    dirty = RPL.dirty_bits(drv.repl)
+    rng = prng.split(prng.fold_in(drv.key, e))[0]
+    RMK.reset_launches()
+    fused = R.route_and_lookup(drv.directory, q, drv.store.keys, drv.load_reg,
+                               dirty, rng)
+    torch.cuda.synchronize()
+    launches = dict(RMK.launches)
+    if launches["range_match_apply"] <= 0:
+        raise AssertionError("route_and_lookup: range_match_apply never launched")
+    dec, _, load2, picked, bounced = R.route_load_aware_dirty(
+        drv.directory, q, drv.load_reg, dirty, rng)
+    slot, found = OPS.slab_lookup(q.key, dec.target, drv.store.keys)
+    for f in ("ridx", "target", "chain", "chain_len", "clength"):
+        if not torch.equal(getattr(fused[0], f), getattr(dec, f)):
+            raise AssertionError(f"route_and_lookup: decision.{f} differs")
+    for a, b, name in zip(fused[2:], (load2, picked, bounced, slot, found),
+                          ("load_reg", "picked", "bounced", "slot", "found")):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"route_and_lookup: {name} differs")
+    reads = int((q.opcode == 0).sum())
+    return {"ops": int(q.batch), "bitwise": True, "launches": launches,
+            "bounced": int(bounced.sum()), "found": int(found.sum()),
+            "reads": reads}
+
+
 def phase_full_width() -> dict:
     from repro_torch import cluster as TC
     from repro_torch.kernels.range_match import kernel as RMK
 
     out = {"phase": "full_width"}
     main_launches = {k: 0 for k in RMK.launches}
-    need = {"frozen": ("range_match", "slab_lookup"),
-            "full_adaptive": ("range_match_spread", "slab_lookup")}
-    for policy in ("frozen", "full_adaptive"):
+    for label, sname, skw, policy, rep, mode, need in FULL_RUNS:
+        read_ratio = {"read_ratio": 0.9} if sname == "shifting_hotspot" else {}
         scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
-                                 epoch_ops=B_FULL, n_epochs=6, read_ratio=0.9,
-                                 seed=0)
+                                 epoch_ops=B_FULL, n_epochs=6, seed=0,
+                                 **read_ratio)
         cfg = TC.ClusterConfig(num_nodes=N_FULL, num_ranges=RANGES_FULL,
-                               replication=2, r_max=R_MAX, n_clients=64)
-        scen = TC.make_scenario("shifting_hotspot", scfg, theta=1.2,
-                                shift_every=2)
+                               replication=rep, r_max=R_MAX, n_clients=64,
+                               replication_mode=mode)
+        scen = TC.make_scenario(sname, scfg, **skw)
         torch.cuda.reset_peak_memory_stats()
         RMK.reset_launches()                       # counts of the main path
         t0 = time.perf_counter()
@@ -369,27 +531,26 @@ def phase_full_width() -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = dict(RMK.launches)
-        for name in need[policy]:
+        for name in need:
             if launches[name] <= 0:
-                raise AssertionError(f"{policy}: kernel {name} never launched")
+                raise AssertionError(f"{label}: kernel {name} never launched")
         for name, n in launches.items():
             main_launches[name] += n
         drops = sum(r.drops for r in rows)
         if drops:
-            raise AssertionError(f"{policy}: {drops} capacity drops")
+            raise AssertionError(f"{label}: {drops} capacity drops")
+        dirty_reads = sum(r.dirty_reads for r in rows)
+        if mode == "craq" and dirty_reads <= 0:
+            raise AssertionError(f"{label}: no dirty-read bounces")
         for r in rows:
-            for f in ("p50", "p99", "p999", "throughput", "imbalance"):
+            for f in ("p50", "p99", "p999", "throughput", "imbalance",
+                      "read_p99", "clean_read_p99"):
                 if not math.isfinite(getattr(r, f)) or getattr(r, f) < 0:
-                    raise AssertionError(f"{policy}: bad {f} at epoch {r.epoch}")
-        keys, expected = _expected_values(scen)
-        rb = _read_back(drv, keys, expected)
-        if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < 2 * keys.size:
-            raise AssertionError(f"{policy}: read-back failed {rb}")
-        # host stage times are taken without a synchronise (host_des_s
-        # includes waiting for the period's device work); the device's
-        # share is the steps' CUDA-event time
+                    raise AssertionError(f"{label}: bad {f} at epoch {r.epoch}")
         ss = drv.stage_seconds
-        out[policy] = {
+        res = {
+            "scenario": sname, "policy": policy, "replication": rep,
+            "mode": mode,
             "setup_s": t1 - t0,
             "run_s": t2 - t1,
             "epochs_per_s": len(rows) / (t2 - t1),
@@ -404,10 +565,26 @@ def phase_full_width() -> dict:
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
             "p50": [r.p50 for r in rows], "p99": [r.p99 for r in rows],
             "p999": [r.p999 for r in rows],
+            "read_p99": [r.read_p99 for r in rows],
+            "clean_read_p99": [r.clean_read_p99 for r in rows],
+            "dirty_reads": [r.dirty_reads for r in rows],
             "imbalance": [r.imbalance for r in rows],
             "migration_entries": sum(r.migration_entries for r in rows),
-            "drops": drops, **rb,
+            "drops": drops,
         }
+        if mode == "craq":
+            rl = _route_and_lookup_check(drv, scen)
+            main_launches["range_match_apply"] += rl["launches"]["range_match_apply"]
+            res["route_and_lookup"] = rl
+        keys, expected = _expected_values(scen)
+        rb = _read_back(drv, keys, expected)
+        if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < rep * keys.size:
+            raise AssertionError(f"{label}: read-back failed {rb}")
+        res.update(rb)
+        # host stage times are taken without a synchronise (host_des_s
+        # includes waiting for the period's device work); the device's
+        # share is the steps' CUDA-event time
+        out[label] = res
         del drv
         torch.cuda.empty_cache()
     out["launches"] = main_launches
@@ -490,13 +667,16 @@ def main(argv=None) -> int:
     if "profile" in phases:
         phase_profile()
     if kernels is not None:
-        for row in kernels:
+        # one row a kernel: K3 as the main path runs it (no key filter);
+        # its filtered variant is in the kernels phase's own line
+        main_rows = [r for r in kernels if not r.get("filter_bits")]
+        for row in main_rows:
             row["launches"] = (full["launches"][row["name"]]
                                if full is not None else None)
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "parity", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for r in kernels]})
+            for r in main_rows]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(dev_info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,19 @@
 """The closed-loop epoch driver on PyTorch (counterpart of
-``repro.cluster.epoch``, oracle backend, eventual replication).
+``repro.cluster.epoch``, oracle backend, ``eventual`` / ``chain`` /
+``craq`` replication).
 
 One *epoch* is one device step —
 
     inject workload slice
-    -> route (K1 ``range_match`` or K2 ``range_match_spread``; counter,
-       load-register and count-min sketch updates in torch)
+    -> route (K1 ``range_match`` for tail reads, K2 ``range_match_spread``
+       for p2c reads, K3 ``range_match_spread_dirty`` for craq's p2c reads
+       with dirty-bit tail bounces; counter, load-register and count-min
+       sketch updates in torch)
     -> apply to the store (``apply_routed``; GET/DEL probes through K4a
        ``slab_lookup``)
-    -> build the DES hop plan
+    -> build the DES hop plan (a bounced read visits its pick, then the
+       tail)
+    -> advance the version/dirty register file (chain and craq)
 
 — and the host closes the loop at each control period: pull the
 statistics report, run the balancing policy, execute its migration plan,
@@ -25,9 +30,8 @@ carries are updated in place (the store slabs are the big allocation).
 Capturing the period as one CUDA graph is later work.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the dist backend, the chain/craq replication modes and the CRAQ
-key filter, the overload plane, telemetry, the coordination tier, the
-metrics plane, and ``split_overflow`` slot-pool growth.
+item): the dist backend, the overload plane, telemetry, the coordination
+tier, the metrics plane, and ``split_overflow`` slot-pool growth.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from repro_torch.core.migration import execute as execute_migrations
 from repro_torch.core.stats import make_sketch, pull_report, sketch_query, sketch_update
 from repro_torch.core.store import apply_routed, make_store
 from repro_torch.device import resolve_device
-from repro_torch.replication import protocol as RPL
+from repro_torch import replication as RPL
 
 # coordination-tier fault events: without the tier the reference ignores
 # them, so the same scenario is the no-tier baseline
@@ -122,13 +126,6 @@ def _check_supported(cfg: ClusterConfig, backend: str) -> None:
         raise _not_ported("backend='dist'", "module-port step 11")
     if backend != "oracle":
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.replication_mode != RPL.EVENTUAL:
-        if cfg.replication_mode not in RPL.REPLICATION_MODES:
-            raise ValueError(f"unknown replication mode {cfg.replication_mode!r}")
-        raise _not_ported(f"replication_mode={cfg.replication_mode!r}",
-                          "module-port step 7")
-    if cfg.craq_filter_bits:
-        raise _not_ported("craq_filter_bits", "module-port step 7")
     if cfg.overload is not None:
         raise _not_ported("the overload plane", "module-port step 8")
     if cfg.coordination is not None:
@@ -276,6 +273,11 @@ class EpochDriver:
         self.directory = directory
         self.load_reg = torch.zeros(cfg.num_nodes, dtype=torch.int64,
                                     device=self.device)
+        # the (n_slots, r_max) version/dirty register file (and the
+        # (n_slots, F) key filter), device-resident; chain and craq advance
+        # it every epoch
+        self.repl = RPL.make_state(n_slots, cfg.r_max, cfg.craq_filter_bits,
+                                   device=self.device)
         self.sketch = make_sketch(cfg.sketch_width, cfg.sketch_depth,
                                   device=self.device)
         self.key = prng.PRNGKey(cfg.seed)
@@ -358,11 +360,28 @@ class EpochDriver:
         self._ovf_node_last = ovf
 
     # -- the device step -----------------------------------------------------
+    def _route_chunk(self, q: R.QueryBatch, rng: np.ndarray, dirty, kf):
+        """Route one (sub-)batch by the replication mode: ``(decision,
+        picked, bounced)``, the last two None outside craq."""
+        mp = self.mode_plan
+        if mp.dirty_reads:
+            dec, self.directory, self.load_reg, picked, bounced = (
+                R.route_load_aware_dirty(self.directory, q, self.load_reg,
+                                         dirty, rng, key_filter=kf))
+            return dec, picked, bounced
+        if mp.spread:
+            dec, self.directory, self.load_reg = R.route_load_aware(
+                self.directory, q, self.load_reg, rng)
+        else:
+            dec, self.directory = R.route(self.directory, q)
+        return dec, None, None
+
     def _step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool):
         """One epoch's device work (shared verbatim by the per-epoch and
         the fused loops).  ``scans``: the batch holds a SCAN (known on the
         host from the generated opcodes).  Updates the carries in place or
-        by rebinding; returns ``(plan, node_ops)``."""
+        by rebinding; returns ``(plan, node_ops, bounced)``, ``bounced``
+        None outside craq."""
         cfg = self.cfg
         N = cfg.num_nodes
         mp = self.mode_plan
@@ -370,29 +389,33 @@ class EpochDriver:
         chunks = cfg.p2c_chunks if spread else 1
         r_route, r_plan = prng.split(rng)
         B = q.batch
-        if spread and chunks > 1:
+        # reads consult the PRE-epoch dirty state, as they observe the
+        # pre-batch store
+        dirty = RPL.dirty_bits(self.repl) if mp.dirty_reads else None
+        kf = (self.repl.key_filter
+              if mp.dirty_reads and cfg.craq_filter_bits else None)
+        if chunks > 1:
             # intra-epoch p2c freshness: route the batch in sub-chunks with
             # load-register updates between them
             csize = B // chunks
-            decs = []
+            parts = []
             for ci in range(chunks):
                 sl = slice(ci * csize, (ci + 1) * csize)
                 qs = R.QueryBatch(q.opcode[sl], q.key[sl], q.end_key[sl],
                                   q.value[sl])
-                dec, self.directory, self.load_reg = R.route_load_aware(
-                    self.directory, qs, self.load_reg, prng.fold_in(r_route, ci)
-                )
-                decs.append(dec)
+                parts.append(self._route_chunk(
+                    qs, prng.fold_in(r_route, ci), dirty, kf))
+            decs = [p[0] for p in parts]
             decision = R.RoutingDecision(*[
                 torch.cat([getattr(d, f.name) for d in decs], dim=0)
                 for f in dataclasses.fields(R.RoutingDecision)
             ])
-        elif spread:
-            decision, self.directory, self.load_reg = R.route_load_aware(
-                self.directory, q, self.load_reg, r_route
-            )
+            picked = bounced = None
+            if mp.dirty_reads:
+                picked = torch.cat([p[1] for p in parts])
+                bounced = torch.cat([p[2] for p in parts])
         else:
-            decision, self.directory = R.route(self.directory, q)
+            decision, picked, bounced = self._route_chunk(q, r_route, dirty, kf)
         node_ops = _node_ops(decision, q.opcode, N)
         if not spread:
             # tail-read path: registers tracked in the same units
@@ -400,12 +423,19 @@ class EpochDriver:
         self.sketch = sketch_update(self.sketch, q.key)
         apply_routed(self.store, q, decision,
                      max_scan_results=cfg.max_scan_results, scans=scans)
+        bounce_kw = (dict(read_via=picked, read_bounce=bounced)
+                     if mp.dirty_reads else {})
         plan = plan_hops(
             q, decision, cfg.mode, cfg.latency, rng=r_plan, num_nodes=N,
             write_chain_cap=mp.write_cap_spread if spread else None,
-            service_model=cfg.service_model,
+            service_model=cfg.service_model, **bounce_kw,
         )
-        return plan, node_ops
+        if mp.track_state:
+            is_write = (q.opcode == K.OP_PUT) | (q.opcode == K.OP_DEL)
+            self.repl = RPL.advance(
+                self.repl, decision.ridx, is_write,
+                keys=q.key if cfg.craq_filter_bits else None)
+        return plan, node_ops, bounced
 
     # -- control -----------------------------------------------------------
     def _handle_events(self, e: int) -> tuple[list[str], int, int]:
@@ -437,10 +467,18 @@ class EpochDriver:
                 events.append(f"recover:{node}")
             elif kind not in COORD_EVENT_KINDS:
                 raise ValueError(f"unknown scenario event {kind!r}")
-        # eventual mode tracks no version/dirty state: the journal is
-        # drained so it cannot grow without bound
-        self.controller.drain_repl_log()
+        self._sync_repl()
         return events, mig_entries, mig_bytes
+
+    def _sync_repl(self) -> None:
+        """Replay the controller's reconfiguration journal onto the
+        register file (``replication.apply_events``).  The journal is
+        always drained, so it cannot grow without bound; only chain and
+        craq pay the host round trip, and only when there are events."""
+        events = self.controller.drain_repl_log()
+        if events and self.mode_plan.track_state:
+            self.host_syncs += 1   # apply_events pulls the register file
+            self.repl = RPL.apply_events(self.repl, events)
 
     def _control_pull(self, now: int) -> tuple[list[str], int, int]:
         """The period-boundary pull: harvest + reset counters, run the
@@ -480,7 +518,7 @@ class EpochDriver:
             execute_migrations(self.store, ops)
             events.extend(f"{op.kind}:{op.src}->{op.dst}" for op in ops)
         self.directory = self.controller.refresh(self.directory)
-        self.controller.drain_repl_log()
+        self._sync_repl()
         if self.auto_period and now < self.scenario.cfg.n_epochs:
             nl = np.asarray(report.node_load, np.float64)
             if self.mode_plan.spread:
@@ -524,9 +562,10 @@ class EpochDriver:
 
     def _rows(self, e0: int, lat: np.ndarray, mks: np.ndarray,
               node_ops_h: np.ndarray, ovf_h: np.ndarray, opcodes_h: np.ndarray,
-              head: tuple) -> list[EpochMetrics]:
+              bounced_h: np.ndarray | None, head: tuple) -> list[EpochMetrics]:
         """EpochMetrics rows for a segment of ``L`` epochs, computed before
-        the period's pull (the live mask is the segment's); ``head``
+        the period's pull (the live mask is the segment's); ``bounced_h``
+        is the (L, B) craq tail-bounce mask (None outside craq); ``head``
         carries the segment-start events and migration traffic."""
         cfg = self.cfg
         scfg = self.scenario.cfg
@@ -534,9 +573,11 @@ class EpochDriver:
         p50s, p99s = latency_percentiles_batch(lat)
         p999s = p999_batch(lat)
         is_read = (opcodes_h == K.OP_GET) | (opcodes_h == K.OP_SCAN)
-        # eventual mode: no CRAQ tail bounces
+        if bounced_h is None:
+            bounced_h = np.zeros_like(is_read)
         read_p99s = masked_p99_batch(lat, is_read)
-        clean_p99s = masked_p99_batch(lat, is_read)
+        clean_p99s = masked_p99_batch(lat, is_read & ~bounced_h)
+        dirty_counts = bounced_h.sum(axis=1)
         imbs, covs = imbalance_stats_batch(node_ops_h, self._live_mask())
         drops = np.diff(ovf_h, prepend=np.int64(self._last_overflow))
         self._last_overflow = int(ovf_h[-1])
@@ -564,7 +605,7 @@ class EpochDriver:
                 p999=float(p999s[i]),
                 read_p99=float(read_p99s[i]),
                 clean_read_p99=float(clean_p99s[i]),
-                dirty_reads=0,
+                dirty_reads=int(dirty_counts[i]),
                 replication=cfg.replication_mode,
                 coordination="none",
             ))
@@ -591,17 +632,18 @@ class EpochDriver:
         t0 = self._stage("control", t0)
         opcodes, q = self._queries(e)
         t0 = self._stage("inject", t0)
-        plan, node_ops = self._timed_step(q, prng.fold_in(self.key, e),
-                                          bool((opcodes == K.OP_SCAN).any()))
+        plan, node_ops, bounced = self._timed_step(
+            q, prng.fold_in(self.key, e), bool((opcodes == K.OP_SCAN).any()))
         t0 = self._stage("route_apply", t0)
         self.host_syncs += 1   # the DES engine pulls the plan to the host
         lat, mks = self._time(plan)
         t0 = self._stage("des", t0)
         node_ops_h = self._sync(node_ops)[None]
         ovf_h = np.array([int(self._sync(self.store.overflow).sum())], np.int64)
+        bounced_h = None if bounced is None else self._sync(bounced)[None]
         self._fold_step_events()
         (row,) = self._rows(e, lat[None], mks, node_ops_h, ovf_h,
-                            opcodes[None], head)
+                            opcodes[None], bounced_h, head)
         pulled = ((e + 1) == self._next_pull if self.auto_period
                   else (e + 1) % self.period == 0)
         if pulled:
@@ -628,26 +670,29 @@ class EpochDriver:
         head = self._handle_events(e0)
         t0 = self._stage("control", t0)
         L = self._segment_len(e0, n)
-        plans, nops, ovfs, op_l = [], [], [], []
+        plans, nops, ovfs, bncs, op_l = [], [], [], [], []
         for i in range(L):
             opcodes, q = self._queries(e0 + i)
             t0 = self._stage("inject", t0)
             op_l.append(opcodes)
-            plan, node_ops = self._timed_step(
+            plan, node_ops, bounced = self._timed_step(
                 q, prng.fold_in(self.key, e0 + i),
                 bool((opcodes == K.OP_SCAN).any()))
             plans.append(plan)
             nops.append(node_ops)
             ovfs.append(self.store.overflow.sum())
+            bncs.append(bounced)
             t0 = self._stage("route_apply", t0)
         # ---- ONE device-to-host copy for the whole segment ----
         self.host_syncs += 1
-        nodes, service, reply, node_ops_h, ovf_h = _to_host([
+        craq = self.mode_plan.dirty_reads
+        nodes, service, reply, node_ops_h, ovf_h, *bounced_h = _to_host([
             torch.stack([p.nodes for p in plans]),
             torch.stack([p.service for p in plans]),
             torch.stack([p.reply_links for p in plans]),
             torch.stack(nops),
             torch.stack(ovfs),
+            *([torch.stack(bncs)] if craq else []),
         ])
         self._fold_step_events()
         lat, mks = self._time(HopPlan(torch.from_numpy(nodes),
@@ -655,7 +700,7 @@ class EpochDriver:
                                       torch.from_numpy(reply)))
         t0 = self._stage("des", t0)
         rows = self._rows(e0, lat, mks, node_ops_h, ovf_h, np.stack(op_l),
-                          head)
+                          bounced_h[0] if craq else None, head)
         pulled = ((e0 + L) == self._next_pull if self.auto_period
                   else (e0 + L) % self.period == 0)
         if pulled:

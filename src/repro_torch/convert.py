@@ -1,8 +1,8 @@
 """Carry state between the JAX reference and the port, as numpy arrays.
 
 The ``*_from_numpy`` functions take the reference's state (a Directory's,
-a StoreState's, a count-min sketch's or the load registers' arrays, each
-converted with ``np.asarray``) and build the port's tensors on a device;
+a StoreState's, a count-min sketch's, the load registers' or the
+replication register file's arrays, each converted with ``np.asarray``) and build the port's tensors on a device;
 the ``*_to_numpy`` inverses return arrays in the reference's dtypes, so a
 test can start both packages from one state and compare the results.
 Nothing here imports the reference: the arrays are duck-typed by field
@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.directory import Directory
 from repro_torch.core.store import StoreState
 from repro_torch.device import resolve_device
+from repro_torch.replication.state import ReplState
 
 DIRECTORY_FIELDS = ("slot_lo", "slot_hi", "live", "chains", "chain_len",
                     "parent", "generation", "node_addr", "read_count",
@@ -83,3 +84,17 @@ def load_reg_from_numpy(load_reg, *, device=None) -> torch.Tensor:
 
 def load_reg_to_numpy(load_reg: torch.Tensor) -> np.ndarray:
     return load_reg.cpu().numpy().astype(np.uint32)
+
+
+def repl_from_numpy(state, *, device=None) -> ReplState:
+    """The replication register file (``version``, ``acked``,
+    ``key_filter`` attributes) on ``device``."""
+    dev = resolve_device(device)
+    return ReplState(version=_t(state.version, dev), acked=_t(state.acked, dev),
+                     key_filter=_t(state.key_filter, dev))
+
+
+def repl_to_numpy(state: ReplState) -> dict[str, np.ndarray]:
+    return {"version": state.version.cpu().numpy().astype(np.uint32),
+            "acked": state.acked.cpu().numpy().astype(np.uint32),
+            "key_filter": state.key_filter.cpu().numpy()}

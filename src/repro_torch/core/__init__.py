@@ -16,7 +16,9 @@ from repro_torch.core.routing import (
     expand_scans,
     make_queries,
     route,
+    route_and_lookup,
     route_load_aware,
+    route_load_aware_dirty,
 )
 from repro_torch.core.store import (
     Responses,
@@ -54,7 +56,8 @@ __all__ = [
     "keys", "OP_GET", "OP_PUT", "OP_DEL", "OP_SCAN", "hash_key",
     "Directory", "make_directory", "lookup_range", "node_load", "range_order",
     "QueryBatch", "RoutingDecision", "route", "route_load_aware",
-    "expand_scans", "make_queries",
+    "route_load_aware_dirty", "route_and_lookup", "expand_scans",
+    "make_queries",
     "StoreState", "Responses", "make_store", "apply_routed", "store_fill",
     "LatencyModel", "ServiceModel", "HopPlan", "plan_hops",
     "simulate", "simulate_closed_loop", "simulate_reference",

@@ -3,7 +3,8 @@
 
 Steps 1-4 (matching value, range match, chain fetch, head/tail or p2c
 target) run in the range_match kernels (:mod:`repro_torch.kernels.
-range_match`: K1 for :func:`route`, K2 for :func:`route_load_aware`);
+range_match`: K1 for :func:`route`, K2 for :func:`route_load_aware`, K3
+for :func:`route_load_aware_dirty`, K4b for :func:`route_and_lookup`);
 the statistics counters and load registers are bumped here in torch
 around the kernel, exactly as the reference's kernel wrappers assume.
 """
@@ -88,6 +89,57 @@ def route_load_aware(directory: D.Directory, q: QueryBatch,
     )
     is_write = _is_write(q.opcode)
     decision = _decision(directory, ridx, target, chain, is_write)
+    directory = D.bump_counters(directory, decision.ridx, is_write)
+    load_reg = _bump_load(load_reg, decision.chain, decision.chain_len,
+                          is_write, decision.target)
+    return decision, directory, load_reg
+
+
+def route_load_aware_dirty(
+    directory: D.Directory, q: QueryBatch, load_reg: torch.Tensor,
+    dirty: torch.Tensor, rng: np.ndarray, *,
+    key_filter: torch.Tensor | None = None,
+) -> tuple[RoutingDecision, D.Directory, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """CRAQ apportioned reads (K3): the p2c pick of
+    :func:`route_load_aware` plus the dirty-bit tail bounce.  ``dirty`` is
+    the (S, r_max) bool table of ``repro_torch.replication``; the optional
+    (S, F) bool ``key_filter`` bounces only reads whose key hashes onto a
+    set bit.  Returns ``(decision, directory', load_reg', picked,
+    bounced)``: ``decision.target`` is the serving node (the tail when
+    bounced), ``picked`` the p2c winner the read visits first."""
+    ridx, target, chain, picked, bounced = RM.range_match_spread_dirty(
+        directory, q.key, q.opcode, load_reg, dirty, rng,
+        key_filter=key_filter,
+    )
+    return (*_craq_bumps(directory, q, load_reg, ridx, target, chain, bounced),
+            picked.to(torch.int64), bounced)
+
+
+def route_and_lookup(directory: D.Directory, q: QueryBatch,
+                     store_keys: torch.Tensor, load_reg: torch.Tensor,
+                     dirty: torch.Tensor, rng: np.ndarray):
+    """Fused route and slab probe (K4b): :func:`route_load_aware_dirty`
+    (no key filter) followed by the searchsorted-left probe of each key in
+    its serving node's row of the (N, C) ``store_keys`` table.  Returns
+    ``(decision, directory', load_reg', picked, bounced, slot, found)``;
+    ``slot`` is clamped into ``[0, C)``, ``found`` is the point hit (off
+    for EMPTY keys and unrouted packets)."""
+    ridx, target, chain, picked, bounced, slot, found = RM.range_match_apply(
+        directory, q.key, q.opcode, load_reg, dirty, store_keys, rng,
+    )
+    return (*_craq_bumps(directory, q, load_reg, ridx, target, chain, bounced),
+            picked.to(torch.int64), bounced, slot, found)
+
+
+def _craq_bumps(directory, q, load_reg, ridx, target, chain, bounced):
+    """The decision of a CRAQ route, with the counter and load-register
+    bumps: ``(decision, directory', load_reg')``."""
+    is_write = _is_write(q.opcode)
+    decision = _decision(directory, ridx, target, chain, is_write)
+    # writes walk the chain then reply; clean reads pay 2 hops, bounced 3
+    decision = dataclasses.replace(decision, clength=torch.where(
+        is_write, decision.chain_len + 1, torch.where(bounced, 3, 2)))
     directory = D.bump_counters(directory, decision.ridx, is_write)
     load_reg = _bump_load(load_reg, decision.chain, decision.chain_len,
                           is_write, decision.target)

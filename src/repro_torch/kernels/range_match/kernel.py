@@ -33,7 +33,9 @@ _BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernel
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
-launches = {"range_match": 0, "range_match_spread": 0, "slab_lookup": 0}
+launches = {"range_match": 0, "range_match_spread": 0,
+            "range_match_spread_dirty": 0, "range_match_apply": 0,
+            "slab_lookup": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -90,9 +92,18 @@ def _load() -> ctypes.CDLL:
             lib.rm_range_match_spread.argtypes = (
                 [_P] * 9 + [_I64, _I32, _I32, _I32, _I32, _I32] + [_P] * 4
             )
+            lib.rm_range_match_spread_dirty.argtypes = (
+                [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _I32, _I32]
+                + [_P] * 6
+            )
+            lib.rm_range_match_apply.argtypes = (
+                [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _I64, _I64, _I32]
+                + [_P] * 8
+            )
             lib.rm_slab_lookup.argtypes = [_P] * 3 + [_I64] * 3 + [_P] * 3
             for fn in (lib.rm_range_match, lib.rm_range_match_spread,
-                       lib.rm_slab_lookup):
+                       lib.rm_range_match_spread_dirty,
+                       lib.rm_range_match_apply, lib.rm_slab_lookup):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -151,9 +162,7 @@ def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
     _check("chains", chains, torch.int32, (r_max, S), dev)
     if not 1 <= num_slots <= S:
         raise ValueError(f"num_slots {num_slots} outside [1, {S}]")
-    ridx = torch.empty(B, dtype=torch.int32, device=dev)
-    target = torch.empty(B, dtype=torch.int32, device=dev)
-    chain = torch.empty((r_max, B), dtype=torch.int32, device=dev)
+    ridx, target, chain = _route_outputs(B, r_max, dev)
     if B == 0:
         return ridx, target, chain
     rc = _load().rm_range_match(
@@ -179,6 +188,28 @@ def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
             mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
             loads, num_slots=num_slots,
         )
+    dev, B, r_max, S, n = _check_spread(mvals, opcodes, u1, u2, slot_lo,
+                                        slot_hi, chains, chain_len, loads,
+                                        num_slots)
+    ridx, target, chain = _route_outputs(B, r_max, dev)
+    if B == 0:
+        return ridx, target, chain
+    rc = _load().rm_range_match_spread(
+        mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+        slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
+        chain_len.data_ptr(), loads.data_ptr(), B, S, r_max, num_slots, n,
+        _grid(B, dev), ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "range_match_spread")
+    launches["range_match_spread"] += 1
+    return ridx, target, chain
+
+
+def _check_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
+                  chain_len, loads, num_slots):
+    """Checks shared by K2, K3 and K4b; returns ``(device, B, r_max, S,
+    n_loads)``."""
     dev = mvals.device
     B = mvals.shape[0]
     r_max, S = chains.shape
@@ -193,21 +224,99 @@ def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     _check("loads", loads, torch.int32, (n,), dev)
     if not 1 <= num_slots <= S:
         raise ValueError(f"num_slots {num_slots} outside [1, {S}]")
-    ridx = torch.empty(B, dtype=torch.int32, device=dev)
-    target = torch.empty(B, dtype=torch.int32, device=dev)
-    chain = torch.empty((r_max, B), dtype=torch.int32, device=dev)
+    return dev, B, r_max, S, n
+
+
+def _route_outputs(B: int, r_max: int, dev, dirty: bool = False):
+    """Empty ``(ridx, target, chain)`` and, for K3/K4b, ``(picked,
+    bounced)`` output tensors."""
+    out = (torch.empty(B, dtype=torch.int32, device=dev),
+           torch.empty(B, dtype=torch.int32, device=dev),
+           torch.empty((r_max, B), dtype=torch.int32, device=dev))
+    if dirty:
+        out += (torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+    return out
+
+
+def range_match_spread_dirty(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
+                             chain_len, loads, dirty, keys=None,
+                             key_filter=None, *, num_slots: int):
+    """K3 (replaces ``range_match_spread_dirty_pallas``): K2 plus the CRAQ
+    tail bounce.  dirty (r_max, S) uint8; with the hashed key filter,
+    keys (B,) int64 raw keys and key_filter (S, F) bool (F = 0 or None
+    turns it off).  Returns int32 ``ridx``, ``target``, ``chain (r_max,
+    B)``, ``picked`` and bool ``bounced``."""
+    F = 0 if key_filter is None else key_filter.shape[1]
+    extra = (keys, key_filter) if F else ()
+    if _on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+               loads, dirty, *extra):
+        return ref.range_match_spread_dirty_ref(
+            mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+            loads, dirty, keys, key_filter, num_slots=num_slots,
+        )
+    dev, B, r_max, S, n = _check_spread(mvals, opcodes, u1, u2, slot_lo,
+                                        slot_hi, chains, chain_len, loads,
+                                        num_slots)
+    _check("dirty", dirty, torch.uint8, (r_max, S), dev)
+    if F:
+        _check("keys", keys, torch.int64, (B,), dev)
+        _check("key_filter", key_filter, torch.bool, (S, F), dev)
+    out = _route_outputs(B, r_max, dev, dirty=True)
     if B == 0:
-        return ridx, target, chain
-    rc = _load().rm_range_match_spread(
+        return out
+    rc = _load().rm_range_match_spread_dirty(
         mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
         slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
-        chain_len.data_ptr(), loads.data_ptr(), B, S, r_max, num_slots, n,
-        _grid(B, dev), ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
+        chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
+        keys.data_ptr() if F else None, key_filter.data_ptr() if F else None,
+        B, S, r_max, num_slots, n, F, _grid(B, dev),
+        *(t.data_ptr() for t in out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(rc, "range_match_spread")
-    launches["range_match_spread"] += 1
-    return ridx, target, chain
+    _raise_on(rc, "range_match_spread_dirty")
+    launches["range_match_spread_dirty"] += 1
+    return out
+
+
+def range_match_apply(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
+                      chain_len, loads, dirty, qkeys, slabs, *,
+                      num_slots: int):
+    """K4b (replaces ``range_match_apply_pallas``): K3 without the key
+    filter, then K4a's probe of ``qkeys`` (B,) int64 in the serving node's
+    row of ``slabs`` (N, C) int64, in one pass.  Returns K3's five outputs
+    plus int32 ``slot`` and bool ``found``."""
+    if _on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+               loads, dirty, qkeys, slabs):
+        return ref.range_match_apply_ref(
+            mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+            loads, dirty, qkeys, slabs, num_slots=num_slots,
+        )
+    dev, B, r_max, S, n = _check_spread(mvals, opcodes, u1, u2, slot_lo,
+                                        slot_hi, chains, chain_len, loads,
+                                        num_slots)
+    N, C = slabs.shape
+    _check("dirty", dirty, torch.uint8, (r_max, S), dev)
+    _check("qkeys", qkeys, torch.int64, (B,), dev)
+    _check("slabs", slabs, torch.int64, (N, C), dev)
+    if C < 1:
+        raise ValueError("slabs: empty rows")
+    out = _route_outputs(B, r_max, dev, dirty=True) + (
+        torch.empty(B, dtype=torch.int32, device=dev),
+        torch.empty(B, dtype=torch.bool, device=dev))
+    if B == 0:
+        return out
+    rc = _load().rm_range_match_apply(
+        mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+        slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
+        chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
+        qkeys.data_ptr(), slabs.data_ptr(), B, S, r_max, num_slots, n, N, C,
+        _grid(B, dev), *(t.data_ptr() for t in out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "range_match_apply")
+    launches["range_match_apply"] += 1
+    return out
 
 
 def slab_lookup(qkeys, target, slabs):

@@ -62,12 +62,57 @@ def range_match_spread(directory, keys: torch.Tensor, opcodes: torch.Tensor,
     """Route through K2 (p2c read spreading): ``core.routing.
     route_load_aware`` without the counter and load-register bumps, given
     the same ``rng``."""
+    return kernel.range_match_spread(
+        *_spread_inputs(directory, keys, opcodes, load_reg, rng),
+        num_slots=directory.num_slots,
+    )
+
+
+def pack_dirty(dirty: torch.Tensor) -> torch.Tensor:
+    """(S, r_max) bool dirty table -> the kernels' (r_max, S) uint8
+    layout, transposed like the chains."""
+    return dirty.T.to(torch.uint8).contiguous()
+
+
+def _spread_inputs(directory, keys, opcodes, load_reg, rng):
+    """The packet vectors and tables K2, K3 and K4b share: ``(mvals,
+    opcodes, u1, u2, lo, hi, chains, clen, loads)``."""
     u1, u2 = p2c_draws(rng, keys.shape[0], keys.device)
     lo, hi, chains, clen = pack_tables(directory)
     mvals = K.matching_value(keys, hash_partitioned=directory.hash_partitioned)
-    return kernel.range_match_spread(
-        mvals.contiguous(), opcodes.to(torch.int32).contiguous(), u1, u2, lo,
-        hi, chains, clen, to_i32_bits(load_reg), num_slots=directory.num_slots,
+    return (mvals.contiguous(), opcodes.to(torch.int32).contiguous(), u1, u2,
+            lo, hi, chains, clen, to_i32_bits(load_reg))
+
+
+def range_match_spread_dirty(directory, keys: torch.Tensor,
+                             opcodes: torch.Tensor, load_reg: torch.Tensor,
+                             dirty: torch.Tensor, rng: np.ndarray, *,
+                             key_filter: torch.Tensor | None = None):
+    """Route through K3 (CRAQ reads): ``core.routing.
+    route_load_aware_dirty`` without the counter and load-register bumps,
+    given the same ``rng``, the (S, r_max) bool ``dirty`` table and
+    optionally the (S, F) bool ``key_filter``.  Returns ``(ridx, target,
+    chain, picked, bounced)``."""
+    return kernel.range_match_spread_dirty(
+        *_spread_inputs(directory, keys, opcodes, load_reg, rng),
+        pack_dirty(dirty),
+        None if key_filter is None else keys.contiguous(),
+        None if key_filter is None else key_filter.contiguous(),
+        num_slots=directory.num_slots,
+    )
+
+
+def range_match_apply(directory, keys: torch.Tensor, opcodes: torch.Tensor,
+                      load_reg: torch.Tensor, dirty: torch.Tensor,
+                      store_keys: torch.Tensor, rng: np.ndarray):
+    """Route and probe through K4b: :func:`range_match_spread_dirty`
+    followed by the slab-slot lookup of each key in its serving node's
+    row of the (N, C) ``store_keys`` table, in one kernel.  Returns
+    ``(ridx, target, chain, picked, bounced, slot, found)``."""
+    return kernel.range_match_apply(
+        *_spread_inputs(directory, keys, opcodes, load_reg, rng),
+        pack_dirty(dirty), keys.contiguous(), store_keys.contiguous(),
+        num_slots=directory.num_slots,
     )
 
 

@@ -74,6 +74,33 @@ def range_match_spread_ref(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     return ridx.to(torch.int32), target.to(torch.int32), chain.to(torch.int32)
 
 
+def range_match_spread_dirty_ref(mvals, opcodes, u1, u2, slot_lo, slot_hi,
+                                 chains, chain_len, loads, dirty, keys=None,
+                                 key_filter=None, *, num_slots: int):
+    """K3: K2 plus the CRAQ serving rule.  ``dirty`` (r_max, S) uint8; the
+    optional ``key_filter`` (S, F) bool is indexed at bit
+    ``hash_key(keys) % F`` of the raw ``keys`` (B,) int64.  A read whose
+    pick is dirty (and, with the filter, whose bit is set), is not the
+    tail and is a real node bounces to the tail.  Returns ``(ridx, target,
+    chain, picked, bounced)``; ``target`` is the serving node."""
+    ridx = _slot_match(mvals, slot_lo, slot_hi, num_slots)
+    chain, clen = _fetch(chains, chain_len, ridx)
+    picked, ppos = p2c_ref(chain, clen, u1, u2, loads)
+    tail = torch.gather(chain, 0, torch.clamp(clen - 1, min=0)[None, :])[0]
+    d_pick = dirty[ppos, ridx] != 0
+    if key_filter is not None and key_filter.shape[1] > 0:
+        # imported here: repro_torch.core imports this package
+        from repro_torch.core.keys import hash_key
+
+        hb = hash_key(keys) % key_filter.shape[1]
+        d_pick = d_pick & key_filter[ridx, hb]
+    is_write = (opcodes == 1) | (opcodes == 2)
+    bounced = ~is_write & d_pick & (ppos != clen - 1) & (picked >= 0)
+    target = torch.where(is_write, chain[0], torch.where(bounced, tail, picked))
+    return (ridx.to(torch.int32), target.to(torch.int32), chain.to(torch.int32),
+            picked.to(torch.int32), bounced)
+
+
 # Row offset of the node-offset concatenation below: larger than every
 # uint32 key, so row n's keys land in [n * _ROW, (n + 1) * _ROW).
 _ROW = 1 << 33
@@ -110,3 +137,16 @@ def slab_lookup_ref(qkeys, target, slabs):
     probe = slabs.reshape(-1)[ts * C + slot]
     found = (probe == q) & (q != _EMPTY_KEY) & (t >= 0)
     return slot.to(torch.int32), found
+
+
+def range_match_apply_ref(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
+                          chain_len, loads, dirty, qkeys, slabs, *,
+                          num_slots: int):
+    """K4b: K3 (no key filter) then K4a's probe of ``qkeys`` in the serving
+    node's slab row.  Returns ``(ridx, target, chain, picked, bounced,
+    slot, found)``."""
+    ridx, target, chain, picked, bounced = range_match_spread_dirty_ref(
+        mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len, loads,
+        dirty, num_slots=num_slots)
+    slot, found = slab_lookup_ref(qkeys, target, slabs)
+    return ridx, target, chain, picked, bounced, slot, found

@@ -1,6 +1,12 @@
-"""Consistency modes over the replica chains (only ``eventual`` runs in
-the port so far; ``chain`` and ``craq`` need the version/dirty register
-file, ROADMAP module-port step 7)."""
+"""Consistency modes over the replica chains (``eventual``, ``chain``,
+``craq``) and the version/dirty register file that ``chain`` and ``craq``
+thread through the epoch step (counterpart of ``repro.replication``).
+
+    protocol.py - mode semantics and driver wiring (ModePlan)
+    state.py    - ReplState register file: advance / dirty_bits /
+                  apply_events
+    bench.py    - the three-mode tail-latency comparison and its gates
+"""
 
 from repro_torch.replication.protocol import (
     CHAIN,
@@ -10,6 +16,17 @@ from repro_torch.replication.protocol import (
     ModePlan,
     resolve_mode,
 )
+from repro_torch.replication.state import (
+    ReplState,
+    advance,
+    apply_events,
+    dirty_bits,
+    make_state,
+    summary,
+)
 
-__all__ = ["CHAIN", "CRAQ", "EVENTUAL", "REPLICATION_MODES", "ModePlan",
-           "resolve_mode"]
+__all__ = [
+    "CHAIN", "CRAQ", "EVENTUAL", "REPLICATION_MODES", "ModePlan",
+    "resolve_mode", "ReplState", "make_state", "advance", "apply_events",
+    "dirty_bits", "summary",
+]

@@ -72,12 +72,70 @@ def test_route_kernels_match_plain(dev, B, n_slots):
     assert RMK.launches["range_match"] == before["range_match"] + (B > 0)
     assert (RMK.launches["range_match_spread"]
             == before["range_match_spread"] + (B > 0))
-    dc = D.Directory(**{f: getattr(d, f).cpu() for f in (
-        "slot_lo", "slot_hi", "live", "chains", "chain_len", "parent",
-        "generation", "node_addr", "read_count", "write_count")})
+    dc = _cpu(d)
     _same(got1, OPS.range_match(dc, keys.cpu(), ops.cpu()))
     _same(got2, OPS.range_match_spread(dc, keys.cpu(), ops.cpu(), loads.cpu(),
                                        rng_key))
+
+
+def _cpu(d):
+    return D.Directory(**{f: getattr(d, f).cpu() for f in (
+        "slot_lo", "slot_hi", "live", "chains", "chain_len", "parent",
+        "generation", "node_addr", "read_count", "write_count")})
+
+
+@pytest.mark.parametrize("B", [0, 1, 777, 70000])
+@pytest.mark.parametrize("filter_bits", [0, 64])
+def test_dirty_route_kernel_matches_plain(dev, B, filter_bits):
+    """K3 with and without the hashed key filter."""
+    d = _directory(B + 7, 1024, 2048, dev)
+    rng = np.random.default_rng(B + filter_bits)
+    keys = torch.tensor(rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64),
+                        device=dev)
+    ops = torch.tensor(rng.integers(0, 4, B).astype(np.int32), device=dev)
+    loads = torch.tensor(rng.integers(0, 2**32, 8, dtype=np.uint64).astype(np.int64),
+                         device=dev)
+    dirty = torch.tensor(rng.random((2048, 4)) < 0.5, device=dev)
+    kf = (torch.tensor(rng.random((2048, filter_bits)) < 0.3, device=dev)
+          if filter_bits else None)
+    rng_key = np.array([1, B], np.uint32)
+    before = RMK.launches["range_match_spread_dirty"]
+    got = OPS.range_match_spread_dirty(d, keys, ops, loads, dirty, rng_key,
+                                       key_filter=kf)
+    assert RMK.launches["range_match_spread_dirty"] == before + (B > 0)
+    want = OPS.range_match_spread_dirty(
+        _cpu(d), keys.cpu(), ops.cpu(), loads.cpu(), dirty.cpu(), rng_key,
+        key_filter=None if kf is None else kf.cpu())
+    _same(got, want)
+    if B > 1000:
+        assert bool(got[4].any())
+
+
+@pytest.mark.parametrize("B", [0, 777, 70000])
+@pytest.mark.parametrize("C", [1, 200, 100_003])
+def test_apply_kernel_matches_plain(dev, B, C):
+    """K4b: the CRAQ route and the slab probe in one kernel."""
+    N = 8
+    d = _directory(B + C, 512, 1024, dev)
+    rng = np.random.default_rng(B + C)
+    slabs = np.full((N, C), 0xFFFFFFFF, np.int64)
+    for n in range(N):
+        m = int(rng.integers(0, C + 1))
+        slabs[n, :m] = np.sort(rng.choice(2**32 - 1, m, replace=False))
+    resident = slabs[rng.integers(0, N, B), rng.integers(0, C, B)]
+    fresh = rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64)
+    keys = torch.tensor(np.where(rng.random(B) < 0.6, resident, fresh), device=dev)
+    ops = torch.tensor(rng.integers(0, 3, B).astype(np.int32), device=dev)
+    loads = torch.tensor(rng.integers(0, 50, N), device=dev)
+    dirty = torch.tensor(rng.random((1024, 4)) < 0.5, device=dev)
+    store_keys = torch.tensor(slabs, device=dev)
+    rng_key = np.array([2, B], np.uint32)
+    before = RMK.launches["range_match_apply"]
+    got = OPS.range_match_apply(d, keys, ops, loads, dirty, store_keys, rng_key)
+    assert RMK.launches["range_match_apply"] == before + (B > 0)
+    want = OPS.range_match_apply(_cpu(d), keys.cpu(), ops.cpu(), loads.cpu(),
+                                 dirty.cpu(), store_keys.cpu(), rng_key)
+    _same(got, want)
 
 
 def test_route_kernel_raises_when_tables_exceed_shared_memory(dev):

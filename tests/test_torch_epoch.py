@@ -5,7 +5,8 @@ equality), the final store ``keys`` / ``values`` / ``overflow`` and
 ``directory.chains`` — on ``shifting_hotspot`` x {``frozen``,
 ``full_adaptive``} (plus hot-subset splitting, a mid-period node
 failure, a rack failure, chunked p2c routing and the adaptive pull
-cadence).  Also: the port's fused period loop equals its per-epoch loop
+cadence) and on ``ycsb_a`` under the ``chain`` and ``craq`` replication
+modes (with and without the CRAQ key filter; the register file too).  Also: the port's fused period loop equals its per-epoch loop
 with fewer host syncs, ``device=None`` never falls back to the CPU, and
 the features not ported yet raise."""
 
@@ -57,6 +58,18 @@ CASES = {
     "shifting_full_adaptive_auto_period": ("shifting_hotspot", "full_adaptive",
                                            "auto", dict(theta=1.2, shift_every=2),
                                            dict(auto_band=(1, 4))),
+    # the replication modes on YCSB-A (50 % updates): chain's tail reads
+    # and full-chain writes (K1), craq's p2c reads with dirty-bit tail
+    # bounces (K3), and craq with the hashed per-key dirty filter
+    "ycsb_a_chain_frozen": ("ycsb_a", "frozen", 2, {},
+                            dict(replication_mode="chain")),
+    "ycsb_a_craq_full_adaptive": ("ycsb_a", "full_adaptive", 2, {},
+                                  dict(replication_mode="craq")),
+    "ycsb_a_craq_filter8_full_adaptive": ("ycsb_a", "full_adaptive", 2, {},
+                                          dict(replication_mode="craq",
+                                               craq_filter_bits=8)),
+    "ycsb_a_craq_p2c_chunks": ("ycsb_a", "replicate", 3, {},
+                               dict(replication_mode="craq", p2c_chunks=2)),
 }
 
 
@@ -110,6 +123,12 @@ def test_port_matches_reference(case):
     if case == "shifting_full_adaptive":
         # the control loop actually acted: splits, widenings, moves
         assert any(r.migration_entries > 0 for r in trows)
+    if tdrv.mode_plan.track_state:
+        # the version/dirty register file and the key filter
+        for f, got in convert.repl_to_numpy(tdrv.repl).items():
+            assert np.array_equal(np.asarray(getattr(jdrv.repl, f)), got), f
+    if tdrv.mode_plan.dirty_reads:
+        assert sum(r.dirty_reads for r in trows) > 0
 
 
 @pytest.mark.parametrize("case", ["shifting_frozen", "shifting_full_adaptive"])
@@ -183,8 +202,7 @@ def test_device_none_means_cuda_and_never_the_cpu():
 
 
 @pytest.mark.parametrize("override", [
-    dict(replication_mode="chain"), dict(replication_mode="craq"),
-    dict(craq_filter_bits=8), dict(overload=object()),
+    dict(overload=object()),
     dict(telemetry=object()), dict(coordination=object()),
     dict(metrics=object()), dict(split_overflow=True),
 ])

@@ -1,7 +1,9 @@
 """The range_match kernels' plain versions (what every wrapper runs on a
 CPU tensor, and what ``chip_smoke.py`` holds the CUDA kernels to on the
 card) against the reference's jnp refs and its Pallas kernels run in
-interpret mode — bit for bit, on the same packed tables."""
+interpret mode — bit for bit, on the same packed tables: K1, K2, K3 (with
+the key filter against the reference's jnp route, which the Pallas K3
+lacks), K4a and K4b."""
 
 import sys
 
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from repro import core as JC
+from repro.core import routing as JR
 from repro.kernels.range_match import kernel as JKer
 from repro.kernels.range_match import ops as JOps
 from repro.kernels.range_match import ref as JRef
@@ -234,10 +237,133 @@ def test_wrappers_reject_mixed_devices():
         TKer.slab_lookup(keys, keys.to("meta"), torch.zeros(2, 8, dtype=torch.int64))
 
 
+def _dirty_packed(jd, seed):
+    """A random (S, r_max) dirty table, lane-padded for the reference
+    ((r_max, Spad) int32) and in the port's (r_max, S) uint8 layout."""
+    dirty = np.random.default_rng(seed + 3).random((jd.num_slots, jd.r_max)) < 0.4
+    return dirty, JOps.pack_dirty(jd, jnp.asarray(dirty))
+
+
+def _dirty_torch(dirty_p, S):
+    return torch.tensor(np.asarray(dirty_p)[:, :S].astype(np.uint8))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k3_plain_matches_jnp_ref_on_padded_tables(seed):
+    jd, _ = _directory(seed)
+    keys, ops = _packets(seed)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2**31 - 1, (2, B)).astype(np.int32)
+    loads = rng.integers(0, 2**31 - 1, 128).astype(np.int32)
+    _, dirty_p = _dirty_packed(jd, seed)
+    packed = _packed_jax(jd)
+    ref = JRef.range_match_spread_dirty_ref(
+        jnp.asarray(keys), jnp.asarray(ops), jnp.asarray(u[0]),
+        jnp.asarray(u[1]), *packed, jnp.asarray(loads), dirty_p,
+        num_slots=jd.num_slots)
+    lo, hi, chains, clen = _packed_torch(packed)
+    got = TKer.range_match_spread_dirty(
+        _t64(keys), torch.as_tensor(ops), torch.as_tensor(u[0]),
+        torch.as_tensor(u[1]), lo, hi, chains, clen, torch.as_tensor(loads),
+        torch.tensor(np.asarray(dirty_p).astype(np.uint8)),
+        num_slots=jd.num_slots)
+    for a, b in zip(ref, got):
+        assert _eq(a, b)
+    assert got[4].any()
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_k3_wrapper_matches_pallas_interpret(seed):
+    jd, td = _directory(seed)
+    keys, ops = _packets(seed)
+    load = np.random.default_rng(seed).integers(0, 100, 6).astype(np.uint32)
+    dirty, _ = _dirty_packed(jd, seed)
+    pal = JOps.range_match_spread_dirty(
+        jd, jnp.asarray(keys), jnp.asarray(ops), jnp.asarray(load),
+        jnp.asarray(dirty), jax.random.PRNGKey(seed), use_pallas=True,
+        interpret=True)
+    got = TOps.range_match_spread_dirty(
+        td, _t64(keys), torch.as_tensor(ops),
+        convert.load_reg_from_numpy(load, device="cpu"), torch.tensor(dirty),
+        prng.PRNGKey(seed))
+    for a, b in zip(pal, got):
+        assert _eq(a, b)
+
+
+@pytest.mark.parametrize("filter_bits", [8, 64])
+def test_k3_key_filter_is_the_reference_route(filter_bits):
+    """K3 with the key filter (which the Pallas kernel lacks) against the
+    reference's jnp ``route_load_aware_dirty(key_filter=)``; a zero-width
+    filter is no filter."""
+    jd, td = _directory(1)
+    keys, ops = _packets(1)
+    rng = np.random.default_rng(filter_bits)
+    load = rng.integers(0, 100, 6).astype(np.uint32)
+    dirty = rng.random((jd.num_slots, jd.r_max)) < 0.6
+    kf = rng.random((jd.num_slots, filter_bits)) < 0.3
+    jdec, _, _, jp, jb = JR.route_load_aware_dirty(
+        jd, JC.make_queries(jnp.asarray(keys), jnp.asarray(ops)),
+        jnp.asarray(load), jnp.asarray(dirty), jax.random.PRNGKey(2),
+        key_filter=jnp.asarray(kf))
+    tload = convert.load_reg_from_numpy(load, device="cpu")
+    got = TOps.range_match_spread_dirty(
+        td, _t64(keys), torch.as_tensor(ops), tload, torch.tensor(dirty),
+        prng.PRNGKey(2), key_filter=torch.tensor(kf))
+    for a, b in zip((jdec.ridx, jdec.target, np.asarray(jdec.chain).T, jp, jb),
+                    got):
+        assert _eq(a, b)
+    plain = TOps.range_match_spread_dirty(
+        td, _t64(keys), torch.as_tensor(ops), tload, torch.tensor(dirty),
+        prng.PRNGKey(2))
+    empty = TOps.range_match_spread_dirty(
+        td, _t64(keys), torch.as_tensor(ops), tload, torch.tensor(dirty),
+        prng.PRNGKey(2), key_filter=torch.zeros((jd.num_slots, 0), dtype=bool))
+    for a, b in zip(plain, empty):
+        assert torch.equal(a, b)
+    assert (plain[4] & ~got[4]).any()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k4b_plain_matches_jnp_ref_on_padded_tables(seed):
+    jd, _ = _directory(seed)
+    keys, ops = _packets(seed)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2**31 - 1, (2, B)).astype(np.int32)
+    loads = rng.integers(0, 6, 128).astype(np.int32)
+    _, dirty_p = _dirty_packed(jd, seed)
+    N, C = 6, 200
+    slabs = _slabs(seed, N, C)
+    qkeys = np.where(rng.random(B) < 0.5,
+                     slabs[rng.integers(0, N, B), rng.integers(0, C, B)],
+                     keys).astype(np.uint32)
+    packed = _packed_jax(jd)
+    ref = JRef.range_match_apply_ref(
+        jnp.asarray(keys), jnp.asarray(ops), jnp.asarray(u[0]),
+        jnp.asarray(u[1]), *packed, jnp.asarray(loads), dirty_p,
+        jnp.asarray(qkeys), JOps.pack_slabs(jnp.asarray(slabs)),
+        num_slots=jd.num_slots, slab_len=C)
+    lo, hi, chains, clen = _packed_torch(packed)
+    got = TKer.range_match_apply(
+        _t64(keys), torch.as_tensor(ops), torch.as_tensor(u[0]),
+        torch.as_tensor(u[1]), lo, hi, chains, clen, torch.as_tensor(loads),
+        torch.tensor(np.asarray(dirty_p).astype(np.uint8)), _t64(qkeys),
+        _t64(slabs), num_slots=jd.num_slots)
+    for a, b in zip(ref, got):
+        assert _eq(a, b)
+    assert got[6].any()
+
+
 def test_plain_versions_do_not_count_launches():
     TKer.reset_launches()
     jd, td = _directory(0)
     keys, ops = _packets(0)
-    TR.route(td, TR.make_queries(keys, ops, device="cpu"))
+    q = TR.make_queries(keys, ops, device="cpu")
+    load = torch.zeros(6, dtype=torch.int64)
+    dirty = torch.ones((jd.num_slots, jd.r_max), dtype=torch.bool)
+    TR.route(td, q)
+    TR.route_load_aware_dirty(td, q, load, dirty, prng.PRNGKey(0))
+    TR.route_and_lookup(td, q, _t64(_slabs(0, 6, 16)), load, dirty,
+                        prng.PRNGKey(0))
     assert TKer.launches == {"range_match": 0, "range_match_spread": 0,
-                             "slab_lookup": 0}
+                             "range_match_spread_dirty": 0,
+                             "range_match_apply": 0, "slab_lookup": 0}
