@@ -12,27 +12,36 @@ exits non-zero):
 2. kernels     each range_match kernel (K1 ``range_match``, K2
                ``range_match_spread``, K3 ``range_match_spread_dirty`` without
                and with the 64-bit key filter, K4a ``slab_lookup``, K4b
-               ``range_match_apply``) against its plain PyTorch version on
-               the card at the full-width shapes of the main path, bitwise,
-               with CUDA-event timings and its bound;
+               ``range_match_apply``, K5 ``range_match_stale`` over four
+               perturbed switch copies of the tables) against its plain
+               PyTorch version on the card at the full-width shapes of the
+               main path, bitwise, with CUDA-event timings and its bound;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
-               chains and replication register file bit-identical), and
-               fused == per-epoch on the card, for eventual replication
-               (``shifting_hotspot``) and for ``chain`` / ``craq`` / craq
-               with an 8-bit key filter (``ycsb_a``); then the replication
-               bench (``repro_torch.replication.bench``) on the card, whose
-               gates must come back empty;
+               chains, replication register file and coordination-tier
+               state bit-identical), and fused == per-epoch on the card, for
+               eventual replication (``shifting_hotspot``), for ``chain`` /
+               ``craq`` / craq with an 8-bit key filter (``ycsb_a``), and
+               with the lag-1 coordination tier (``shifting_hotspot``,
+               ``split_brain`` with and without quorum, craq on
+               ``ycsb_a``); then the replication bench
+               (``repro_torch.replication.bench``) and the coordination-tier
+               bench (``repro_torch.coordination_tier.bench``) on the card
+               at their full sizes, whose gates must come back empty;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
                — ``shifting_hotspot`` with replication 2 under ``frozen``
                and ``full_adaptive``, and YCSB workload A with replication 3
-               under ``craq``/``full_adaptive`` and ``chain``/``frozen``;
-               the kernels' launch counts are read around each run, and
-               every acknowledged write is read back from every live
-               replica.  After the craq run, ``route_and_lookup`` (K4b) runs
-               on its live state, held against K3 followed by K4a.
+               under ``craq``/``full_adaptive`` and ``chain``/``frozen``, and
+               the four-switch lag-1 coordination tier under
+               ``full_adaptive`` (``shifting_hotspot``) and ``frozen``
+               (``split_brain``); the kernels' launch counts are read around
+               each run, every acknowledged write is read back from every
+               live replica, and the tier runs must redirect, mis-serve
+               nothing and conserve ``routed == direct + redirected`` on
+               every epoch.  After the craq run, ``route_and_lookup`` (K4b)
+               runs on its live state, held against K3 followed by K4a.
 
 It then prints the kernel table (``{"kernels": [...]}``), the card line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -161,6 +170,33 @@ def _slabs(rng, dev):
     return torch.tensor(slabs, device=dev)
 
 
+W_FULL = 4                 # switches of the coordination tier
+
+
+def _perturbed_coord(directory, dev):
+    """The tier's W switch copies of ``directory``'s tables, perturbed as
+    the reference's kernel test perturbs them: divergent versions on two
+    switches, chain ownership rotated on one, a dead row retired on one
+    switch only, a shifted bound."""
+    import dataclasses
+
+    from repro_torch import coordination_tier as CT
+
+    tables = {f: getattr(directory, f).cpu().numpy()
+              for f in ("slot_lo", "slot_hi", "live", "chains", "chain_len")}
+    c = CT.make_state(tables, W_FULL, device=dev)
+    ver = c.version.clone()
+    ver[1, ::2] = 7
+    ver[3, :] = 3
+    ch = c.chains.clone()
+    ch[1] = torch.where(ch[1] >= 0, (ch[1] + 1) % N_FULL, ch[1])
+    lv = c.live.clone()
+    lv[2, int(torch.nonzero(lv[2])[5])] = False
+    lo = c.slot_lo.clone()
+    lo[3, 2] += 3
+    return dataclasses.replace(c, version=ver, chains=ch, live=lv, slot_lo=lo)
+
+
 def phase_kernels(seed: int = 0) -> list[dict]:
     from repro_torch.kernels.range_match import kernel as RMK
     from repro_torch.kernels.range_match import ops as OPS
@@ -233,6 +269,14 @@ def phase_kernels(seed: int = 0) -> list[dict]:
     K4bp = lambda: REF.range_match_apply_ref(
         ckeys, ops_w, u1, u2, lo, hi, chains, clen, loads, dirty, ckeys, slabs,
         num_slots=directory.num_slots)
+    # K5: each packet against its ingress switch's copy; reads, writes
+    # and deletes, the raw keys matched under range partitioning
+    coord = _perturbed_coord(directory, dev)
+    packed = OPS.pack_coord_tables(coord)
+    ops5 = torch.tensor(rng.choice([0, 1, 2], B_FULL).astype(np.int32),
+                        device=dev)
+    K5 = lambda: RMK.range_match_stale(mvals, ops5, *packed, num_slots=S)
+    K5p = lambda: REF.range_match_stale_ref(mvals, ops5, *packed, num_slots=S)
     # the one-call yardstick for K4a: torch.searchsorted over the
     # node-offset concatenation of the slabs (built outside the timing)
     flat = REF.offset_rows(slabs)
@@ -276,6 +320,12 @@ def phase_kernels(seed: int = 0) -> list[dict]:
          dirty_bytes + probe_bytes - B_FULL * 4,   # the key is the mval
          "kernel.py:481", "range_match_apply_pallas",
          {"dependent_loads": probes, "C": C_FULL}),
+        # key and opcode in; sridx, server and divergent out; the W copies
+        # of lo, hi, clen, version and chains, and committed, once each
+        ("range_match_stale", K5, K5p, None,
+         B_FULL * (4 + 4 + 4 + 4 + 1) + W_FULL * S * (4 * 4 + 4 * R_MAX)
+         + 4 * S,
+         "kernel.py:406", "range_match_stale_pallas", {"W": W_FULL}),
     ]
     rows = []
     for name, fn, plain, lib, nbytes, replaces, replaces_fn, extra in specs:
@@ -304,6 +354,8 @@ def phase_kernels(seed: int = 0) -> list[dict]:
             row["bounced"] = int(got[4].sum())
         if name == "range_match_apply":
             row["found"] = int(got[6].sum())
+        if name == "range_match_stale":
+            row["divergent"] = int(got[2].sum())
         emit({"phase": "kernels", **row})
         rows.append(row)
     return rows
@@ -315,17 +367,23 @@ def phase_kernels(seed: int = 0) -> list[dict]:
 
 
 def _parity_driver(policy: str, device: str, fused: bool = True,
-                   scenario: str = "shifting_hotspot", **ckw):
+                   scenario: str = "shifting_hotspot", skw=None, n_epochs=6,
+                   period=2, coord=None, **ckw):
     from repro_torch import cluster as TC
+    from repro_torch import coordination_tier as CT
 
-    skw = dict(theta=1.2, shift_every=2) if scenario == "shifting_hotspot" else {}
+    if skw is None:
+        skw = (dict(theta=1.2, shift_every=2)
+               if scenario == "shifting_hotspot" else {})
     scen = TC.make_scenario(
         scenario,
-        TC.ScenarioConfig(n_epochs=6, epoch_ops=256, n_records=512,
+        TC.ScenarioConfig(n_epochs=n_epochs, epoch_ops=256, n_records=512,
                           value_dim=2, seed=3), **skw)
     cfg = TC.ClusterConfig(num_nodes=8, num_ranges=32, replication=2, r_max=4,
-                           n_clients=16, report_every=2,
+                           n_clients=16, report_every=period,
                            imbalance_threshold=1.1, max_moves_per_round=6,
+                           coordination=(None if coord is None
+                                         else CT.CoordConfig(**coord)),
                            **ckw)
     drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=fused,
                          device=device)
@@ -346,9 +404,23 @@ def _same_run(a, b) -> None:
     for f in ("version", "acked", "key_filter"):
         if not torch.equal(getattr(da.repl, f).cpu(), getattr(db.repl, f).cpu()):
             raise AssertionError(f"replication register {f} differs")
+    if (da.coord is None) != (db.coord is None):
+        raise AssertionError("one run has the coordination tier")
+    if da.coord is not None:
+        for f in dataclasses.fields(da.coord):
+            if not torch.equal(getattr(da.coord, f.name).cpu(),
+                               getattr(db.coord, f.name).cpu()):
+                raise AssertionError(f"coordination state {f.name} differs")
+        if da.coord_mgr.summary() != db.coord_mgr.summary():
+            raise AssertionError("coordination manager summaries differ")
 
 
-# (label, policy, scenario, ClusterConfig overrides) of the parity phase
+LAG1 = dict(n_switches=4, lag_per_hop=1)
+SPLIT = dict(skw=dict(split_epoch=2, heal_epoch=7, switch=1), n_epochs=10,
+             period=1)
+
+# (label, policy, scenario, driver overrides) of the parity phase; the
+# coordination runs are those of tests/test_torch_coordination_tier.py
 PARITY_RUNS = (
     ("frozen", "frozen", "shifting_hotspot", {}),
     ("full_adaptive", "full_adaptive", "shifting_hotspot", {}),
@@ -357,10 +429,19 @@ PARITY_RUNS = (
      dict(replication_mode="craq")),
     ("craq_f8/full_adaptive", "full_adaptive", "ycsb_a",
      dict(replication_mode="craq", craq_filter_bits=8)),
+    ("coord/full_adaptive", "full_adaptive", "shifting_hotspot",
+     dict(coord=LAG1)),
+    ("coord/split_brain_quorum", "frozen", "split_brain",
+     dict(SPLIT, coord=dict(LAG1, quorum=True))),
+    ("coord/split_brain_no_quorum", "frozen", "split_brain",
+     dict(SPLIT, coord=dict(LAG1, quorum=False))),
+    ("coord/craq/full_adaptive", "full_adaptive", "ycsb_a",
+     dict(replication_mode="craq", coord=LAG1)),
 )
 
 
 def phase_parity() -> dict:
+    from repro_torch.coordination_tier import bench as CB
     from repro_torch.replication import bench as RB
 
     out = {"phase": "parity"}
@@ -381,6 +462,16 @@ def phase_parity() -> dict:
                        host_syncs_per_epoch=cuda_e[0].host_syncs)
         if ckw.get("replication_mode") == "craq" and not res["dirty_reads"]:
             raise AssertionError(f"{label}: no dirty-read bounces")
+        if "coord" in ckw:
+            rows = cuda_f[1]
+            red = sum(r.redirected for r in rows)
+            mis = sum(r.mis_served for r in rows)
+            if not all(r.routed == r.direct + r.redirected == 256 for r in rows):
+                raise AssertionError(f"{label}: conservation broke")
+            quorum = ckw["coord"].get("quorum", True)
+            if not ((red > 0 and mis == 0) if quorum else (mis > 0 and red == 0)):
+                raise AssertionError(f"{label}: redirected {red}, mis-served {mis}")
+            res.update(redirected=red, mis_served=mis)
         out[label] = res
     # the three-mode replication bench on the card, at the size of its
     # committed reference rows (BENCH_replication.json); at its quick size
@@ -399,6 +490,23 @@ def phase_parity() -> dict:
                         if r["replication"] == "craq"},
         "filter_dirty_reads": {r["filter_bits"]: r["total_dirty_reads"]
                                for r in frows},
+    }
+    # the coordination-tier bench at its full size (that of the committed
+    # BENCH_coord_tier.json): staleness sweep, zero-lag parity, fault arms
+    t0 = time.perf_counter()
+    crows = (CB.run_sweep(False, verbose=False, device="cuda")
+             + CB.run_parity(False, verbose=False, device="cuda")
+             + CB.run_faults(False, verbose=False, device="cuda"))
+    problems = CB.check_coordination(crows)
+    if problems:
+        raise AssertionError(f"coordination bench gates: {problems}")
+    out["coordination_bench"] = {
+        "runs": len(crows), "seconds": time.perf_counter() - t0,
+        "gates": "empty",
+        "rows": [{k: r.get(k) for k in (
+            "bench", "scenario", "lag", "arm", "total_routed",
+            "total_redirected", "total_mis_served", "redirect_share",
+            "max_stale_switches", "mean_p999")} for r in crows],
     }
     emit(out)
     return out
@@ -452,18 +560,29 @@ def _read_back(drv, keys: np.ndarray, expected: np.ndarray) -> dict:
 
 
 # (label, scenario, its knobs, policy, replication, mode, kernels that must
-# launch) of the full-width phase: the eventual main path of the first
-# slice, then YCSB workload A (Zipf 0.99, 50 % updates) over chains of 3,
-# the length CRAQ's paper evaluates
+# launch, CoordConfig knobs or None) of the full-width phase: the eventual
+# main path of the first slice, then YCSB workload A (Zipf 0.99, 50 %
+# updates) over chains of 3, the length CRAQ's paper evaluates, then the
+# four-switch lag-1 quorum tier of the reference's coordination bench
+# (its sweep and its split-brain fault arm)
+COORD_FULL = dict(n_switches=4, lag_per_hop=1, quorum=True)
 FULL_RUNS = (
     ("frozen", "shifting_hotspot", dict(theta=1.2, shift_every=2), "frozen",
-     2, "eventual", ("range_match", "slab_lookup")),
+     2, "eventual", ("range_match", "slab_lookup"), None),
     ("full_adaptive", "shifting_hotspot", dict(theta=1.2, shift_every=2),
-     "full_adaptive", 2, "eventual", ("range_match_spread", "slab_lookup")),
+     "full_adaptive", 2, "eventual", ("range_match_spread", "slab_lookup"),
+     None),
     ("craq/full_adaptive", "ycsb_a", {}, "full_adaptive", 3, "craq",
-     ("range_match_spread_dirty", "slab_lookup")),
+     ("range_match_spread_dirty", "slab_lookup"), None),
     ("chain/frozen", "ycsb_a", {}, "frozen", 3, "chain",
-     ("range_match", "slab_lookup")),
+     ("range_match", "slab_lookup"), None),
+    ("coord/full_adaptive", "shifting_hotspot", dict(theta=1.2, shift_every=2),
+     "full_adaptive", 2, "eventual",
+     ("range_match_spread", "slab_lookup", "range_match_stale"), COORD_FULL),
+    ("coord/split_brain", "split_brain",
+     dict(theta=1.2, shift_every=2, split_epoch=2, heal_epoch=5, switch=1),
+     "frozen", 2, "eventual",
+     ("range_match", "slab_lookup", "range_match_stale"), COORD_FULL),
 )
 
 
@@ -507,18 +626,21 @@ def _route_and_lookup_check(drv, scen) -> dict:
 
 def phase_full_width() -> dict:
     from repro_torch import cluster as TC
+    from repro_torch import coordination_tier as CT
     from repro_torch.kernels.range_match import kernel as RMK
 
     out = {"phase": "full_width"}
     main_launches = {k: 0 for k in RMK.launches}
-    for label, sname, skw, policy, rep, mode, need in FULL_RUNS:
-        read_ratio = {"read_ratio": 0.9} if sname == "shifting_hotspot" else {}
+    for label, sname, skw, policy, rep, mode, need, coord in FULL_RUNS:
+        read_ratio = {"read_ratio": 0.9} if sname != "ycsb_a" else {}
         scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
                                  epoch_ops=B_FULL, n_epochs=6, seed=0,
                                  **read_ratio)
         cfg = TC.ClusterConfig(num_nodes=N_FULL, num_ranges=RANGES_FULL,
                                replication=rep, r_max=R_MAX, n_clients=64,
-                               replication_mode=mode)
+                               replication_mode=mode,
+                               coordination=(None if coord is None
+                                             else CT.CoordConfig(**coord)))
         scen = TC.make_scenario(sname, scfg, **skw)
         torch.cuda.reset_peak_memory_stats()
         RMK.reset_launches()                       # counts of the main path
@@ -572,6 +694,25 @@ def phase_full_width() -> dict:
             "migration_entries": sum(r.migration_entries for r in rows),
             "drops": drops,
         }
+        if coord is not None:
+            # once an epoch, redirects and never a wrong owner, conserved
+            if launches["range_match_stale"] != len(rows):
+                raise AssertionError(f"{label}: range_match_stale launched "
+                                     f"{launches['range_match_stale']}x in "
+                                     f"{len(rows)} epochs")
+            if not all(r.routed == r.direct + r.redirected == B_FULL
+                       for r in rows):
+                raise AssertionError(f"{label}: conservation broke")
+            red = [r.redirected for r in rows]
+            mis = [r.mis_served for r in rows]
+            if sum(red) <= 0 or any(mis):
+                raise AssertionError(f"{label}: redirected {red}, "
+                                     f"mis-served {mis}")
+            res.update(redirected=red, mis_served=mis,
+                       stale_switches=[r.stale_switches for r in rows],
+                       host_coord_control_s=ss.get("coord_control", 0.0),
+                       coord_summary=drv.coord_mgr.summary(),
+                       converged=drv.coord_mgr.converged(drv.coord))
         if mode == "craq":
             rl = _route_and_lookup_check(drv, scen)
             main_launches["range_match_apply"] += rl["launches"]["range_match_apply"]

@@ -1,6 +1,6 @@
 """The closed-loop epoch driver on PyTorch (counterpart of
 ``repro.cluster.epoch``, oracle backend, ``eventual`` / ``chain`` /
-``craq`` replication).
+``craq`` replication, with or without the coordination tier).
 
 One *epoch* is one device step —
 
@@ -11,13 +11,17 @@ One *epoch* is one device step —
        sketch updates in torch)
     -> apply to the store (``apply_routed``; GET/DEL probes through K4a
        ``slab_lookup``)
+    -> with the coordination tier, install the switches' staged tables
+       and route the batch through each query's ingress switch copy (K5
+       ``range_match_stale``): a divergent row takes a versioned redirect
     -> build the DES hop plan (a bounced read visits its pick, then the
-       tail)
+       tail; a redirected query visits the stale server first)
     -> advance the version/dirty register file (chain and craq)
 
 — and the host closes the loop at each control period: pull the
 statistics report, run the balancing policy, execute its migration plan,
-graft the refreshed tables onto the live directory, and time the period's
+graft the refreshed tables onto the live directory, stage the control
+writes along the switch chain (coordination tier), and time the period's
 traffic on the DES engine.
 
 ``fused=True`` (default) runs a control period's epochs back to back
@@ -30,8 +34,10 @@ carries are updated in place (the store slabs are the big allocation).
 Capturing the period as one CUDA graph is later work.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the dist backend, the overload plane, telemetry, the coordination
-tier, the metrics plane, and ``split_overflow`` slot-pool growth.
+item): the dist backend, the overload plane, telemetry, the metrics plane,
+and ``split_overflow`` slot-pool growth.  The coordination tier's fault
+events (``coordination_tier.EVENT_KINDS``) are ignored without the tier,
+so the same scenario is the no-tier baseline.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import coordination_tier as CT
 from repro_torch import prng
 from repro_torch.cluster.metrics import (
     EpochMetrics,
@@ -70,11 +77,6 @@ from repro_torch.core.stats import make_sketch, pull_report, sketch_query, sketc
 from repro_torch.core.store import apply_routed, make_store
 from repro_torch.device import resolve_device
 from repro_torch import replication as RPL
-
-# coordination-tier fault events: without the tier the reference ignores
-# them, so the same scenario is the no-tier baseline
-COORD_EVENT_KINDS = ("lease_expire", "lease_renew", "split_brain",
-                     "heal_split", "quorum_drift")
 
 
 @dataclasses.dataclass
@@ -109,7 +111,7 @@ class ClusterConfig:
     standby_nodes: tuple = ()
     split_overflow: bool = False
     telemetry: object | None = None
-    coordination: object | None = None
+    coordination: CT.CoordConfig | None = None
     metrics: object | None = None
     craq_filter_bits: int = 0
     seed: int = 0
@@ -128,8 +130,6 @@ def _check_supported(cfg: ClusterConfig, backend: str) -> None:
         raise ValueError(f"unknown backend {backend!r}")
     if cfg.overload is not None:
         raise _not_ported("the overload plane", "module-port step 8")
-    if cfg.coordination is not None:
-        raise _not_ported("the coordination tier", "module-port step 9")
     if cfg.telemetry is not None:
         raise _not_ported("telemetry", "module-port step 10")
     if cfg.metrics is not None:
@@ -278,6 +278,22 @@ class EpochDriver:
         # it every epoch
         self.repl = RPL.make_state(n_slots, cfg.r_max, cfg.craq_filter_bits,
                                    device=self.device)
+        # the coordination tier: per-switch table copies and version
+        # registers on the device; the host CoordManager stages control
+        # writes along the switch chain between segments
+        self.coord_cfg = cfg.coordination
+        if self.coord_cfg is not None:
+            self.coord_mgr = CT.CoordManager(
+                self.coord_cfg, self.controller.table_snapshot(),
+                num_nodes=cfg.num_nodes, device=self.device,
+            )
+            self.coord = self.coord_mgr.make_state()
+        else:
+            self.coord_mgr = None
+            self.coord = None
+        # the previous period's redirect share (redirected / routed): the
+        # policy-facing convergence signal behind redirect_backoff
+        self._last_redirect_share = 0.0
         self.sketch = make_sketch(cfg.sketch_width, cfg.sketch_depth,
                                   device=self.device)
         self.key = prng.PRNGKey(cfg.seed)
@@ -299,15 +315,16 @@ class EpochDriver:
         self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + t1 - t0
         return t1
 
-    def _timed_step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool):
+    def _timed_step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool,
+                    eid: int):
         """:meth:`_step` between two CUDA events on the current stream
         (recording them does not block the host)."""
         if self.device.type != "cuda":
-            return self._step(q, rng, scans)
+            return self._step(q, rng, scans, eid)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self._step(q, rng, scans)
+        out = self._step(q, rng, scans, eid)
         end.record()
         self._step_events.append((start, end))
         return out
@@ -376,12 +393,14 @@ class EpochDriver:
             dec, self.directory = R.route(self.directory, q)
         return dec, None, None
 
-    def _step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool):
+    def _step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool, eid: int):
         """One epoch's device work (shared verbatim by the per-epoch and
         the fused loops).  ``scans``: the batch holds a SCAN (known on the
-        host from the generated opcodes).  Updates the carries in place or
-        by rebinding; returns ``(plan, node_ops, bounced)``, ``bounced``
-        None outside craq."""
+        host from the generated opcodes); ``eid``: the epoch, at which the
+        tier's staged tables install.  Updates the carries in place or by
+        rebinding; returns ``(plan, node_ops, bounced, cstats)``,
+        ``bounced`` None outside craq, ``cstats`` (5,) None without the
+        tier."""
         cfg = self.cfg
         N = cfg.num_nodes
         mp = self.mode_plan
@@ -425,6 +444,16 @@ class EpochDriver:
                      max_scan_results=cfg.max_scan_results, scans=scans)
         bounce_kw = (dict(read_via=picked, read_bounce=bounced)
                      if mp.dirty_reads else {})
+        # the switch tier observes the batch against its (possibly stale)
+        # copies: accounting only, the decision above followed the true
+        # tables, so the tier reprices hops and counts
+        cstats = None
+        if self.coord_cfg is not None:
+            self.coord, redirect, redirect_via, cstats = CT.observe_epoch(
+                self.coord, q, decision, eid, quorum=self.coord_cfg.quorum,
+                hash_partitioned=self.directory.hash_partitioned,
+            )
+            bounce_kw.update(redirect=redirect, redirect_via=redirect_via)
         plan = plan_hops(
             q, decision, cfg.mode, cfg.latency, rng=r_plan, num_nodes=N,
             write_chain_cap=mp.write_cap_spread if spread else None,
@@ -435,7 +464,7 @@ class EpochDriver:
             self.repl = RPL.advance(
                 self.repl, decision.ridx, is_write,
                 keys=q.key if cfg.craq_filter_bits else None)
-        return plan, node_ops, bounced
+        return plan, node_ops, bounced, cstats
 
     # -- control -----------------------------------------------------------
     def _handle_events(self, e: int) -> tuple[list[str], int, int]:
@@ -443,6 +472,7 @@ class EpochDriver:
         scfg = self.scenario.cfg
         events: list[str] = []
         mig_entries = mig_bytes = 0
+        tables_changed = False
         for kind, node in self.scenario.events(e):
             if kind == "fail":
                 nl = self._sync(D.node_load(self.directory))
@@ -452,6 +482,7 @@ class EpochDriver:
                 self.directory = self.controller.refresh(self.directory)
                 mig_entries += en
                 mig_bytes += by
+                tables_changed = True
                 events.append(f"fail:{node}")
             elif kind == "rack_fail":
                 rack = [int(n) for n in node]
@@ -461,14 +492,37 @@ class EpochDriver:
                 self.directory = self.controller.refresh(self.directory)
                 mig_entries += en
                 mig_bytes += by
+                tables_changed = True
                 events.append("rack_fail:" + "+".join(map(str, rack)))
             elif kind == "recover":
                 self.controller.recover_node(node)
                 events.append(f"recover:{node}")
-            elif kind not in COORD_EVENT_KINDS:
+            elif kind in CT.EVENT_KINDS:
+                # coordination-plane faults, ignored without the tier
+                if self.coord_mgr is not None:
+                    events.extend(self._coord_control(
+                        self.coord_mgr.on_event, kind, node, now=e))
+            else:
                 raise ValueError(f"unknown scenario event {kind!r}")
         self._sync_repl()
+        if self.coord_mgr is not None and tables_changed:
+            # a failure splice is a control write like any other: it
+            # propagates along the switch chain
+            events.extend(self._coord_control(self.coord_mgr.on_control,
+                                              now=e))
         return events, mig_entries, mig_bytes
+
+    def _coord_control(self, method, *args, now: int) -> list[str]:
+        """Run a CoordManager control call on the current tables and state
+        (timed as the ``coord_control`` part of the control stage); returns
+        its notes."""
+        t0 = time.perf_counter()
+        self.coord, notes = method(*args, self.coord,
+                                   self.controller.table_snapshot(), now=now)
+        self.stage_seconds["coord_control"] = (
+            self.stage_seconds.get("coord_control", 0.0)
+            + time.perf_counter() - t0)
+        return notes
 
     def _sync_repl(self) -> None:
         """Replay the controller's reconfiguration journal onto the
@@ -506,7 +560,15 @@ class EpochDriver:
                 budget_scale=float(span) / float(self.cfg.auto_band[0]),
             )
         events: list[str] = []
-        ops = self.policy.on_report(self.controller, report)
+        rb = getattr(self.policy.config, "redirect_backoff", 0.0)
+        if rb > 0 and self._last_redirect_share > rb:
+            # the switch fabric is still digesting the last
+            # reconfiguration: skip this round's policy consult, so control
+            # churn stops widening the stale window
+            ops = []
+            events.append(f"redirect_backoff:{self._last_redirect_share:.3f}")
+        else:
+            ops = self.policy.on_report(self.controller, report)
         notes = getattr(self.policy, "notes", None)
         if notes:
             events.extend(notes)
@@ -519,6 +581,12 @@ class EpochDriver:
             events.extend(f"{op.kind}:{op.src}->{op.dst}" for op in ops)
         self.directory = self.controller.refresh(self.directory)
         self._sync_repl()
+        if self.coord_mgr is not None:
+            # the period's control writes enter the switch chain: commit
+            # now, install per switch with its chain-position lag (pool
+            # growth, which would rebuild the tier, raises in the port)
+            events.extend(self._coord_control(self.coord_mgr.on_control,
+                                              now=now))
         if self.auto_period and now < self.scenario.cfg.n_epochs:
             nl = np.asarray(report.node_load, np.float64)
             if self.mode_plan.spread:
@@ -562,14 +630,25 @@ class EpochDriver:
 
     def _rows(self, e0: int, lat: np.ndarray, mks: np.ndarray,
               node_ops_h: np.ndarray, ovf_h: np.ndarray, opcodes_h: np.ndarray,
-              bounced_h: np.ndarray | None, head: tuple) -> list[EpochMetrics]:
+              bounced_h: np.ndarray | None, cst_h: np.ndarray | None,
+              head: tuple) -> list[EpochMetrics]:
         """EpochMetrics rows for a segment of ``L`` epochs, computed before
         the period's pull (the live mask is the segment's); ``bounced_h``
-        is the (L, B) craq tail-bounce mask (None outside craq); ``head``
-        carries the segment-start events and migration traffic."""
+        is the (L, B) craq tail-bounce mask (None outside craq), ``cst_h``
+        the (L, 5) tier counters (None without the tier), which also set
+        the redirect share the pull's backoff reads; ``head`` carries the
+        segment-start events and migration traffic."""
         cfg = self.cfg
         scfg = self.scenario.cfg
         L = lat.shape[0]
+        if cst_h is None:
+            cst_h = np.zeros((L, len(CT.CSTAT_FIELDS)), np.int64)
+        else:
+            cst_h = cst_h.astype(np.int64)
+            seg_routed = int(cst_h[:, 0].sum())
+            if seg_routed > 0:
+                self._last_redirect_share = (float(cst_h[:, 2].sum())
+                                             / seg_routed)
         p50s, p99s = latency_percentiles_batch(lat)
         p999s = p999_batch(lat)
         is_read = (opcodes_h == K.OP_GET) | (opcodes_h == K.OP_SCAN)
@@ -607,9 +686,20 @@ class EpochDriver:
                 clean_read_p99=float(clean_p99s[i]),
                 dirty_reads=int(dirty_counts[i]),
                 replication=cfg.replication_mode,
-                coordination="none",
+                routed=int(cst_h[i, 0]),
+                direct=int(cst_h[i, 1]),
+                redirected=int(cst_h[i, 2]),
+                mis_served=int(cst_h[i, 3]),
+                stale_switches=int(cst_h[i, 4]),
+                coordination=self._coord_label(),
             ))
         return rows
+
+    def _coord_label(self) -> str:
+        """The row's coordination arm ("none" when the tier is off)."""
+        if self.coord_cfg is None:
+            return "none"
+        return "quorum" if self.coord_cfg.quorum else "no-quorum"
 
     def _time(self, plan: HopPlan):
         cfg = self.cfg
@@ -632,8 +722,9 @@ class EpochDriver:
         t0 = self._stage("control", t0)
         opcodes, q = self._queries(e)
         t0 = self._stage("inject", t0)
-        plan, node_ops, bounced = self._timed_step(
-            q, prng.fold_in(self.key, e), bool((opcodes == K.OP_SCAN).any()))
+        plan, node_ops, bounced, cstats = self._timed_step(
+            q, prng.fold_in(self.key, e), bool((opcodes == K.OP_SCAN).any()),
+            e)
         t0 = self._stage("route_apply", t0)
         self.host_syncs += 1   # the DES engine pulls the plan to the host
         lat, mks = self._time(plan)
@@ -641,9 +732,10 @@ class EpochDriver:
         node_ops_h = self._sync(node_ops)[None]
         ovf_h = np.array([int(self._sync(self.store.overflow).sum())], np.int64)
         bounced_h = None if bounced is None else self._sync(bounced)[None]
+        cst_h = None if cstats is None else self._sync(cstats)[None]
         self._fold_step_events()
         (row,) = self._rows(e, lat[None], mks, node_ops_h, ovf_h,
-                            opcodes[None], bounced_h, head)
+                            opcodes[None], bounced_h, cst_h, head)
         pulled = ((e + 1) == self._next_pull if self.auto_period
                   else (e + 1) % self.period == 0)
         if pulled:
@@ -670,37 +762,42 @@ class EpochDriver:
         head = self._handle_events(e0)
         t0 = self._stage("control", t0)
         L = self._segment_len(e0, n)
-        plans, nops, ovfs, bncs, op_l = [], [], [], [], []
+        plans, nops, ovfs, bncs, csts, op_l = [], [], [], [], [], []
         for i in range(L):
             opcodes, q = self._queries(e0 + i)
             t0 = self._stage("inject", t0)
             op_l.append(opcodes)
-            plan, node_ops, bounced = self._timed_step(
+            plan, node_ops, bounced, cstats = self._timed_step(
                 q, prng.fold_in(self.key, e0 + i),
-                bool((opcodes == K.OP_SCAN).any()))
+                bool((opcodes == K.OP_SCAN).any()), e0 + i)
             plans.append(plan)
             nops.append(node_ops)
             ovfs.append(self.store.overflow.sum())
             bncs.append(bounced)
+            csts.append(cstats)
             t0 = self._stage("route_apply", t0)
         # ---- ONE device-to-host copy for the whole segment ----
         self.host_syncs += 1
         craq = self.mode_plan.dirty_reads
-        nodes, service, reply, node_ops_h, ovf_h, *bounced_h = _to_host([
+        tier = self.coord is not None
+        nodes, service, reply, node_ops_h, ovf_h, *extra = _to_host([
             torch.stack([p.nodes for p in plans]),
             torch.stack([p.service for p in plans]),
             torch.stack([p.reply_links for p in plans]),
             torch.stack(nops),
             torch.stack(ovfs),
             *([torch.stack(bncs)] if craq else []),
+            *([torch.stack(csts)] if tier else []),
         ])
+        bounced_h = extra.pop(0) if craq else None
+        cst_h = extra.pop(0) if tier else None
         self._fold_step_events()
         lat, mks = self._time(HopPlan(torch.from_numpy(nodes),
                                       torch.from_numpy(service),
                                       torch.from_numpy(reply)))
         t0 = self._stage("des", t0)
         rows = self._rows(e0, lat, mks, node_ops_h, ovf_h, np.stack(op_l),
-                          bounced_h[0] if craq else None, head)
+                          bounced_h, cst_h, head)
         pulled = ((e0 + L) == self._next_pull if self.auto_period
                   else (e0 + L) % self.period == 0)
         if pulled:

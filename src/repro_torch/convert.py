@@ -1,8 +1,9 @@
 """Carry state between the JAX reference and the port, as numpy arrays.
 
 The ``*_from_numpy`` functions take the reference's state (a Directory's,
-a StoreState's, a count-min sketch's, the load registers' or the
-replication register file's arrays, each converted with ``np.asarray``) and build the port's tensors on a device;
+a StoreState's, a count-min sketch's, the load registers', the
+replication register file's or the coordination tier's arrays, each
+converted with ``np.asarray``) and build the port's tensors on a device;
 the ``*_to_numpy`` inverses return arrays in the reference's dtypes, so a
 test can start both packages from one state and compare the results.
 Nothing here imports the reference: the arrays are duck-typed by field
@@ -11,9 +12,12 @@ name.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.coordination_tier.state import CoordState
 from repro_torch.core.directory import Directory
 from repro_torch.core.store import StoreState
 from repro_torch.device import resolve_device
@@ -98,3 +102,27 @@ def repl_to_numpy(state: ReplState) -> dict[str, np.ndarray]:
     return {"version": state.version.cpu().numpy().astype(np.uint32),
             "acked": state.acked.cpu().numpy().astype(np.uint32),
             "key_filter": state.key_filter.cpu().numpy()}
+
+
+COORD_FIELDS = tuple(f.name for f in dataclasses.fields(CoordState))
+_COORD_DTYPES = {
+    "slot_lo": np.uint32, "slot_hi": np.uint32, "live": np.bool_,
+    "chains": np.int32, "chain_len": np.int32, "version": np.uint32,
+    "committed": np.uint32, "pend_lo": np.uint32, "pend_hi": np.uint32,
+    "pend_live": np.bool_, "pend_chains": np.int32, "pend_clen": np.int32,
+    "pend_version": np.uint32, "install_at": np.int32,
+}
+
+
+def coord_from_numpy(state, *, device=None) -> CoordState:
+    """The coordination tier's state (the reference's ``CoordState`` or a
+    mapping of its fourteen leaves) on ``device``."""
+    dev = resolve_device(device)
+    get = state.__getitem__ if isinstance(state, dict) else (
+        lambda k: getattr(state, k))
+    return CoordState(**{f: _t(get(f), dev) for f in COORD_FIELDS})
+
+
+def coord_to_numpy(state: CoordState) -> dict[str, np.ndarray]:
+    return {f: getattr(state, f).cpu().numpy().astype(_COORD_DTYPES[f])
+            for f in COORD_FIELDS}

@@ -1,4 +1,4 @@
-// The switch match-action hot path on Hopper: five CUDA kernels with a
+// The switch match-action hot path on Hopper: six CUDA kernels with a
 // plain C interface (built with nvcc into a shared library, bound with
 // ctypes from repro_torch/kernels/range_match/kernel.py).
 //
@@ -16,6 +16,9 @@
 //                             (_kernel_apply)
 //   slab_lookup               replaces kernel.py: slab_lookup_pallas
 //                             (_kernel_lookup / _slab_lookup_tile)
+//   range_match_stale         replaces kernel.py: range_match_stale_pallas
+//                             (_kernel_stale), the per-switch table match
+//                             of the replicated directory tier
 //
 // What each computes is the Pallas body's contract, not its 128-lane
 // one-hot tiling: the TPU contracted one-hot matrices because dynamic
@@ -42,6 +45,14 @@
 //   loads from the (N, C) slab in device memory.  One thread per packet
 //   keeps many searches in flight so the card overlaps their latencies.
 //   Both kernels call the one __device__ probe_slab.
+// * range_match_stale is bound like the routing kernels, by the packet
+//   vectors and the W switches' tables.  Its W copies at full width (lo,
+//   hi, clen, version, chains, committed: 270 KB at W = 4, S = 2,048,
+//   r_max = 4) exceed a block's shared memory, so a block stages only the
+//   W copies of the spans (8 W S bytes) and reads the matched slot's
+//   chain word, clen, version and committed word from device memory.  The
+//   ingress switch and, under hash partitioning, the matching value are
+//   the reference's hash_key of the raw key, computed in the kernel.
 //
 // Integer conventions (shared with the plain PyTorch versions in ref.py):
 // keys, matching values, targets and slab words arrive as the port's int64
@@ -227,6 +238,57 @@ __global__ void route_kernel(Packets in, Tables t, int64_t B, int S,
     }
 }
 
+// K5: each packet matches against its ingress switch's private copy of
+// the spans.  The W copies' spans are staged slot-major, one (lo, hi) pair
+// per (slot, switch): the threads of a warp scan the rows of different
+// switches in step, so at each slot they read W neighbouring 8-byte words
+// (no bank conflict) instead of W words one row (a multiple of 32 words)
+// apart.  After the match, the packet's one chain word, clen, version and
+// committed word come from device memory (the tables are L2-resident).
+__global__ void stale_kernel(const int64_t* __restrict__ keys,
+                             const int32_t* __restrict__ opcodes,
+                             const uint32_t* __restrict__ lo_w,
+                             const uint32_t* __restrict__ hi_w,
+                             const int32_t* __restrict__ chains_w,
+                             const int32_t* __restrict__ clen_w,
+                             const int32_t* __restrict__ version_w,
+                             const int32_t* __restrict__ committed, int64_t B,
+                             int S, int W, int r_max, int num_slots,
+                             int hash_partitioned, int32_t* __restrict__ sridx,
+                             int32_t* __restrict__ server,
+                             uint8_t* __restrict__ divergent) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint2* s_span = reinterpret_cast<uint2*>(smem);   // (S, W) of (lo, hi)
+    for (int j = threadIdx.x; j < W * S; j += blockDim.x) {
+        const int w = j / S, i = j - w * S;
+        s_span[i * W + w] = make_uint2(lo_w[j], hi_w[j]);
+    }
+    __syncthreads();
+
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; b < B;
+         b += stride) {
+        const uint32_t key = (uint32_t)(uint64_t)keys[b];
+        const uint32_t h = hash_key(key);
+        const int w = (int)(h % (uint32_t)W);             // ingress switch
+        const uint32_t v = hash_partitioned ? h : key;    // matching value
+        int r = S;
+        for (int i = 0; i < S; ++i) {
+            const uint2 sp = s_span[i * W + w];
+            if (v >= sp.x && v <= sp.y) { r = i; break; }
+        }
+        if (r > num_slots - 1) r = num_slots - 1;   // total miss clamps
+        const int32_t op = opcodes[b];
+        const bool is_write = (op == 1) || (op == 2);
+        const int64_t ws = (int64_t)w * S + r;
+        const int c = clen_w[ws];
+        const int pos = is_write ? 0 : (c - 1 > 0 ? c - 1 : 0);
+        sridx[b] = r;
+        server[b] = chains_w[((int64_t)w * r_max + pos) * S + r];
+        divergent[b] = version_w[ws] != committed[r];
+    }
+}
+
 __global__ void slab_lookup_kernel(
     const int64_t* __restrict__ qkeys, const int64_t* __restrict__ target,
     const int64_t* __restrict__ slabs, int64_t B, int64_t N, int64_t C,
@@ -340,6 +402,42 @@ int rm_range_match_apply(
     return launch_route<kApply>(in, tables(lo, hi, chains, clen, loads, dirty),
                                 B, S, r_max, num_slots, n_loads, grid, out,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// The shared memory a block of this device may opt in to (the wrapper
+// refuses K5's staged spans above it).
+int rm_max_smem_optin(int device) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    return v;
+}
+
+int rm_range_match_stale(const void* keys, const void* opcodes,
+                         const void* lo_w, const void* hi_w,
+                         const void* chains_w, const void* clen_w,
+                         const void* version_w, const void* committed,
+                         int64_t B, int32_t S, int32_t W, int32_t r_max,
+                         int32_t num_slots, int32_t hash_partitioned,
+                         int32_t grid, void* sridx, void* server,
+                         void* divergent, void* stream) {
+    const size_t smem = (size_t)W * S * sizeof(uint2);
+    cudaFuncSetAttribute(stale_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    if (B > 0) {
+        stale_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int64_t*>(keys),
+            static_cast<const int32_t*>(opcodes),
+            static_cast<const uint32_t*>(lo_w),
+            static_cast<const uint32_t*>(hi_w),
+            static_cast<const int32_t*>(chains_w),
+            static_cast<const int32_t*>(clen_w),
+            static_cast<const int32_t*>(version_w),
+            static_cast<const int32_t*>(committed), B, S, W, r_max, num_slots,
+            hash_partitioned, static_cast<int32_t*>(sridx),
+            static_cast<int32_t*>(server), static_cast<uint8_t*>(divergent));
+    }
+    return (int)cudaGetLastError();
 }
 
 int rm_slab_lookup(const void* qkeys, const void* target, const void* slabs,

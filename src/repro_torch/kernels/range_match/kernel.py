@@ -35,7 +35,7 @@ _lib: ctypes.CDLL | None = None
 
 launches = {"range_match": 0, "range_match_spread": 0,
             "range_match_spread_dirty": 0, "range_match_apply": 0,
-            "slab_lookup": 0}
+            "slab_lookup": 0, "range_match_stale": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -101,9 +101,15 @@ def _load() -> ctypes.CDLL:
                 + [_P] * 8
             )
             lib.rm_slab_lookup.argtypes = [_P] * 3 + [_I64] * 3 + [_P] * 3
+            lib.rm_range_match_stale.argtypes = (
+                [_P] * 8 + [_I64, _I32, _I32, _I32, _I32, _I32, _I32]
+                + [_P] * 4
+            )
+            lib.rm_max_smem_optin.argtypes = [ctypes.c_int]
             for fn in (lib.rm_range_match, lib.rm_range_match_spread,
                        lib.rm_range_match_spread_dirty,
-                       lib.rm_range_match_apply, lib.rm_slab_lookup):
+                       lib.rm_range_match_apply, lib.rm_slab_lookup,
+                       lib.rm_range_match_stale, lib.rm_max_smem_optin):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -317,6 +323,65 @@ def range_match_apply(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     _raise_on(rc, "range_match_apply")
     launches["range_match_apply"] += 1
     return out
+
+
+def range_match_stale(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
+                      committed, *, num_slots: int,
+                      hash_partitioned: bool = False):
+    """K5 (replaces ``range_match_stale_pallas``): each packet matched
+    against its ingress switch's table copy.  ``(sridx, server,
+    divergent)``.
+
+    keys (B,) int64 raw keys (the ingress switch is ``hash_key(key) % W``
+    and, with ``hash_partitioned``, the matching value is the hash);
+    opcodes (B,) int32; lo_w / hi_w (W, S) int32 (uint32 bits,
+    dead-masked); chains_w (W * r_max, S) int32 switch-major; clen_w (W, S)
+    int32; version_w (W, S) and committed (S,) int32 (uint32 bits).
+    Returns int32 ``sridx``, int32 ``server`` (chain head for PUT/DEL, tail
+    otherwise) and bool ``divergent``.  Raises when the W copies of the
+    spans (8 W S bytes) exceed a block's shared memory."""
+    if _on_cpu(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
+               committed):
+        return ref.range_match_stale_ref(
+            keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w, committed,
+            num_slots=num_slots, hash_partitioned=hash_partitioned)
+    dev = keys.device
+    B = keys.shape[0]
+    W, S = lo_w.shape
+    r_max = chains_w.shape[0] // max(W, 1)
+    _check("keys", keys, torch.int64, (B,), dev)
+    _check("opcodes", opcodes, torch.int32, (B,), dev)
+    for name, t in (("lo_w", lo_w), ("hi_w", hi_w), ("clen_w", clen_w),
+                    ("version_w", version_w)):
+        _check(name, t, torch.int32, (W, S), dev)
+    _check("chains_w", chains_w, torch.int32, (W * r_max, S), dev)
+    _check("committed", committed, torch.int32, (S,), dev)
+    if W < 1 or r_max < 1 or not 1 <= num_slots <= S:
+        raise ValueError(f"bad tables: W {W}, r_max {r_max}, "
+                         f"num_slots {num_slots}, S {S}")
+    lib = _load()
+    smem, limit = 8 * W * S, lib.rm_max_smem_optin(
+        torch.cuda.current_device() if dev.index is None else dev.index)
+    if smem > limit:
+        raise ValueError(f"range_match_stale: the {W} switches' spans need "
+                         f"{smem} B of shared memory, over the {limit} B a "
+                         "block may opt in to")
+    sridx = torch.empty(B, dtype=torch.int32, device=dev)
+    server = torch.empty(B, dtype=torch.int32, device=dev)
+    divergent = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return sridx, server, divergent
+    rc = lib.rm_range_match_stale(
+        keys.data_ptr(), opcodes.data_ptr(), lo_w.data_ptr(), hi_w.data_ptr(),
+        chains_w.data_ptr(), clen_w.data_ptr(), version_w.data_ptr(),
+        committed.data_ptr(), B, S, W, r_max, num_slots,
+        int(bool(hash_partitioned)), _grid(B, dev), sridx.data_ptr(),
+        server.data_ptr(), divergent.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "range_match_stale")
+    launches["range_match_stale"] += 1
+    return sridx, server, divergent
 
 
 def slab_lookup(qkeys, target, slabs):

@@ -4,8 +4,9 @@
 ``pack_tables`` turns a :class:`~repro_torch.core.directory.Directory`
 into the kernels' table layout: the live mask baked into the spans (dead
 slots get the inert ``lo = MAX_KEY > hi = 0`` sentinel) as uint32 bits
-in int32 tensors, chains transposed to ``(r_max, S)``.  No lane padding:
-the CUDA kernels index the tables directly.
+in int32 tensors, chains transposed to ``(r_max, S)``; ``pack_coord_tables``
+does the same for the W switch copies of the coordination tier.  No lane
+padding: the CUDA kernels index the tables directly.
 """
 
 from __future__ import annotations
@@ -113,6 +114,41 @@ def range_match_apply(directory, keys: torch.Tensor, opcodes: torch.Tensor,
         *_spread_inputs(directory, keys, opcodes, load_reg, rng),
         pack_dirty(dirty), keys.contiguous(), store_keys.contiguous(),
         num_slots=directory.num_slots,
+    )
+
+
+def pack_coord_tables(coord):
+    """A ``coordination_tier.CoordState`` (duck-typed) -> K5's tables
+    ``(lo_w, hi_w, chains_w, clen_w, version_w, committed)``: each switch's
+    live mask baked into its spans (dead slots get the ``lo = MAX_KEY >
+    hi = 0`` sentinel), chains switch-major ``(W * r_max, S)``, the uint32
+    spans and versions as int32 bits (only equality is tested on the
+    versions).  No lane padding."""
+    W, S = coord.slot_lo.shape
+    r_max = coord.chains.shape[2]
+    lo = torch.where(coord.live, coord.slot_lo, K.MAX_KEY)
+    hi = torch.where(coord.live, coord.slot_hi, 0)
+    return (
+        to_i32_bits(lo),
+        to_i32_bits(hi),
+        coord.chains.transpose(1, 2).reshape(W * r_max, S).to(torch.int32)
+        .contiguous(),
+        coord.chain_len.to(torch.int32).contiguous(),
+        to_i32_bits(coord.version),
+        to_i32_bits(coord.committed),
+    )
+
+
+def range_match_stale(coord, keys: torch.Tensor, opcodes: torch.Tensor, *,
+                      hash_partitioned: bool = False):
+    """Route each packet through its ingress switch's (possibly stale)
+    table copy with K5: ``(sridx, server, divergent)`` — the lookup,
+    serving-node rule and divergence bit of ``coordination_tier.
+    observe_epoch``."""
+    return kernel.range_match_stale(
+        keys.to(torch.int64).contiguous(), opcodes.to(torch.int32).contiguous(),
+        *pack_coord_tables(coord), num_slots=coord.slot_lo.shape[1],
+        hash_partitioned=hash_partitioned,
     )
 
 

@@ -101,6 +101,38 @@ def range_match_spread_dirty_ref(mvals, opcodes, u1, u2, slot_lo, slot_hi,
             picked.to(torch.int32), bounced)
 
 
+def range_match_stale_ref(keys, opcodes, lo_w, hi_w, chains_w, clen_w,
+                          version_w, committed, *, num_slots: int,
+                          hash_partitioned: bool = False):
+    """K5: each packet matched against its ingress switch's table copy.
+    The switch is ``hash_key(key) % W``; the matching value is that hash
+    under hash partitioning, else the key.  The match runs once per switch
+    over the whole batch and is selected by switch id (as the Pallas kernel
+    does; a per-packet (B, S) gather of the rows would not fit at full
+    width).  Returns ``(sridx, server, divergent)``: the serving node is
+    the chain head for PUT/DEL and ``chain[max(clen - 1, 0)]`` otherwise,
+    ``divergent`` the slot's version against the committed one."""
+    # imported here: repro_torch.core imports this package
+    from repro_torch.core.keys import hash_key
+
+    W, S = lo_w.shape
+    r_max = chains_w.shape[0] // W
+    h = hash_key(keys)
+    sw = h % W
+    v = h if hash_partitioned else _u32(keys)
+    sridx = torch.zeros_like(sw)
+    for w in range(W):
+        sridx = torch.where(sw == w, _slot_match(v, lo_w[w], hi_w[w], num_slots),
+                            sridx)
+    ws = sw * S + sridx
+    clen = clen_w.reshape(-1)[ws].to(torch.int64)
+    is_write = (opcodes == 1) | (opcodes == 2)
+    pos = torch.where(is_write, 0, torch.clamp(clen - 1, min=0))
+    server = chains_w.reshape(-1)[(sw * r_max + pos) * S + sridx]
+    divergent = version_w.reshape(-1)[ws] != committed[sridx]
+    return sridx.to(torch.int32), server.to(torch.int32), divergent
+
+
 # Row offset of the node-offset concatenation below: larger than every
 # uint32 key, so row n's keys land in [n * _ROW, (n + 1) * _ROW).
 _ROW = 1 << 33

@@ -8,10 +8,13 @@ first use); without a card they skip.  Run them on the GPU machine with
 They import torch and the port only, never jax.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import coordination_tier as CT
 from repro_torch.core import directory as D
 from repro_torch.core import routing as R
 from repro_torch.core import store as S
@@ -146,6 +149,71 @@ def test_route_kernel_raises_when_tables_exceed_shared_memory(dev):
     ops = torch.zeros(16, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="launch failed"):
         OPS.range_match(d, keys, ops)
+
+
+def _coord_state(d, W, device, seed):
+    """A W-switch tier state over ``d``'s tables, perturbed as the
+    reference's kernel test perturbs it: divergent versions on two
+    switches, rotated chains on one, a dead row retired on one switch
+    only, a shifted bound, and chain length 0 on some rows."""
+    tables = {f: getattr(d, f).cpu().numpy()
+              for f in ("slot_lo", "slot_hi", "live", "chains", "chain_len")}
+    c = CT.make_state(tables, W, device=device)
+    rng = np.random.default_rng(seed)
+    ver = c.version.clone()
+    ver[1 % W, ::2] = 7
+    ver[W - 1, :] = 3
+    ch = c.chains.clone()
+    ch[1 % W] = torch.where(ch[1 % W] >= 0, (ch[1 % W] + 1) % 8, ch[1 % W])
+    lv = c.live.clone()
+    lv[2 % W, int(torch.nonzero(lv[0])[0])] = False
+    lo = c.slot_lo.clone()
+    lo[W - 1, 0] += 3
+    cl = c.chain_len.clone()
+    cl[:, torch.tensor(rng.random(cl.shape[1]) < 0.05, device=device)] = 0
+    return dataclasses.replace(c, version=ver, chains=ch, live=lv, slot_lo=lo,
+                               chain_len=cl)
+
+
+@pytest.mark.parametrize("B,n_slots", [(0, 64), (777, 64), (65536, 2048)])
+@pytest.mark.parametrize("hash_partitioned", [False, True])
+def test_stale_kernel_matches_plain(dev, B, n_slots, hash_partitioned):
+    """K5 at a small shape and at the full-width one (W = 4, S = 2,048,
+    r_max = 4, B = 65,536)."""
+    d = _directory(B + n_slots, n_slots // 2, n_slots, dev)
+    coord = _coord_state(d, 4, dev, B)
+    rng = np.random.default_rng(B + 1)
+    keys = torch.tensor(rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64),
+                        device=dev)
+    ops = torch.tensor(rng.integers(0, 4, B).astype(np.int32), device=dev)
+    before = RMK.launches["range_match_stale"]
+    got = OPS.range_match_stale(coord, keys, ops,
+                                hash_partitioned=hash_partitioned)
+    assert RMK.launches["range_match_stale"] == before + (B > 0)
+    cpu = CT.CoordState(*(getattr(coord, f.name).cpu()
+                          for f in dataclasses.fields(CT.CoordState)))
+    want = OPS.range_match_stale(cpu, keys.cpu(), ops.cpu(),
+                                 hash_partitioned=hash_partitioned)
+    _same(got, want)
+    if B > 1000:
+        assert bool(got[2].any()) and not bool(got[2].all())
+
+
+def test_stale_kernel_raises_when_spans_exceed_shared_memory(dev):
+    """8 W S bytes of staged spans over the opt-in limit: the wrapper
+    raises instead of taking the plain path."""
+    W, S = 8, 4096
+    args = [torch.zeros(16, dtype=torch.int64, device=dev),
+            torch.zeros(16, dtype=torch.int32, device=dev)]
+    tables = [torch.zeros((W, S), dtype=torch.int32, device=dev)] * 2 + [
+        torch.zeros((W * 4, S), dtype=torch.int32, device=dev),
+        torch.ones((W, S), dtype=torch.int32, device=dev),
+        torch.zeros((W, S), dtype=torch.int32, device=dev),
+        torch.zeros(S, dtype=torch.int32, device=dev)]
+    before = RMK.launches["range_match_stale"]
+    with pytest.raises(ValueError, match="shared memory"):
+        RMK.range_match_stale(*args, *tables, num_slots=S)
+    assert RMK.launches["range_match_stale"] == before
 
 
 @pytest.mark.parametrize("C", [1, 200, 100_003])

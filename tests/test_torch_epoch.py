@@ -203,7 +203,7 @@ def test_device_none_means_cuda_and_never_the_cpu():
 
 @pytest.mark.parametrize("override", [
     dict(overload=object()),
-    dict(telemetry=object()), dict(coordination=object()),
+    dict(telemetry=object()),
     dict(metrics=object()), dict(split_overflow=True),
 ])
 def test_features_not_ported_yet_raise(override):

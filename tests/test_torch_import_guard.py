@@ -52,6 +52,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch, repro_torch.core, repro_torch.cluster\n"
         "import repro_torch.convert, repro_torch.prng\n"
         "import repro_torch.kernels.range_match\n"
+        "import repro_torch.coordination_tier, repro_torch.core.hierarchy\n"
+        "import repro_torch.coordination_tier.bench\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -68,5 +70,7 @@ def test_port_modules_found():
     # the scan above must see the whole package, kernels and C core included
     assert "repro_torch/cluster/epoch.py" in MODULES
     assert "repro_torch/kernels/range_match/kernel.py" in MODULES
+    assert "repro_torch/coordination_tier/state.py" in MODULES
+    assert "repro_torch/core/hierarchy.py" in MODULES
     assert (PORT / "kernels/range_match/csrc/range_match.cu").exists()
     assert (PORT / "core/des_core.c").exists()

@@ -29,6 +29,8 @@ from repro.kernels.range_match import kernel as JKer
 from repro.kernels.range_match import ops as JOps
 from repro.kernels.range_match import ref as JRef
 from repro_torch import convert, prng
+from repro_torch import coordination_tier as TCT
+from repro_torch.core import controller as TCtl
 from repro_torch.core import routing as TR
 from repro_torch.kernels.range_match import kernel as TKer
 from repro_torch.kernels.range_match import ops as TOps
@@ -364,6 +366,10 @@ def test_plain_versions_do_not_count_launches():
     TR.route_load_aware_dirty(td, q, load, dirty, prng.PRNGKey(0))
     TR.route_and_lookup(td, q, _t64(_slabs(0, 6, 16)), load, dirty,
                         prng.PRNGKey(0))
+    coord = TCT.make_state(TCtl.Controller(td).table_snapshot(), 4,
+                           device="cpu")
+    TOps.range_match_stale(coord, q.key, q.opcode)
     assert TKer.launches == {"range_match": 0, "range_match_spread": 0,
                              "range_match_spread_dirty": 0,
-                             "range_match_apply": 0, "slab_lookup": 0}
+                             "range_match_apply": 0, "slab_lookup": 0,
+                             "range_match_stale": 0}
