@@ -7,8 +7,9 @@ Phases, each printing one JSON line (any failure raises and the script
 exits non-zero):
 
 1. device      the card (``nvidia-smi`` name and power limit), and the
-               build of the CUDA kernels and the DES core from the sources
-               in this checkout (build seconds);
+               build of the CUDA kernels (range_match, decode_attn) and the
+               DES core from the sources in this checkout, one compiler
+               process each, all started together (build seconds);
 2. kernels     each range_match kernel (K1 ``range_match``, K2
                ``range_match_spread``, K3 ``range_match_spread_dirty`` without
                and with the 64-bit key filter, K4a ``slab_lookup``, K4b
@@ -16,6 +17,12 @@ exits non-zero):
                perturbed switch copies of the tables) against its plain
                PyTorch version on the card at the full-width shapes of the
                main path, bitwise, with CUDA-event timings and its bound;
+               then K6 ``decode_attn`` against its plain version within a
+               stated tolerance (f32 1e-4; bf16 two bf16 steps of each
+               output, ``K6_TOL``): (a) qwen2-1.5b's heads in bf16 at
+               ``decode_32k`` cut to a batch of 32, (b) gemma3-1b's heads
+               in f32 with its 512 window, (c) lengths past S (F8), each
+               with SDPA's time as the library yardstick;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
                chains, replication register file and coordination-tier
@@ -27,7 +34,13 @@ exits non-zero):
                ``ycsb_a``); then the replication bench
                (``repro_torch.replication.bench``) and the coordination-tier
                bench (``repro_torch.coordination_tier.bench``) on the card
-               at their full sizes, whose gates must come back empty;
+               at their full sizes, whose gates must come back empty; then
+               the serving engine on the card against itself on the CPU
+               (reduced qwen2-1.5b and gemma3-1b in f32, TF32 off: 7
+               requests, 4 slots, a 64-position cache, 4 shards, a
+               rebalance every 2 steps and a shard failure at step 3):
+               equal tokens, shards, migrations and failovers, every picked
+               logits row within 1e-4, K6 and K1 launched;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
@@ -41,9 +54,26 @@ exits non-zero):
                live replica, and the tier runs must redirect, mis-serve
                nothing and conserve ``routed == direct + redirected`` on
                every epoch.  After the craq run, ``route_and_lookup`` (K4b)
-               runs on its live state, held against K3 followed by K4a.
+               runs on its live state, held against K3 followed by K4a;
+5. serving     the serving path at full width: ``ServingEngine`` on
+               qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
+               151,936, bf16 weights from the port's seeded init), 32 slots
+               of an 8,192-position cache (7.5 GB), 4 shards of replication
+               2, 64 requests of 256-2,048 prompt tokens and 128 new tokens
+               each, greedy, a rebalance every 6 steps and the most-loaded
+               shard failed at step 8; every request must finish and no
+               sequence may sit on the dead shard afterwards; K6 is held
+               against its plain version on layer 0's live cache mid-run;
+               tokens/s, prefill seconds and decode-step milliseconds
+               (CUDA events), launches, migrations and peak memory.
 
-It then prints the kernel table (``{"kernels": [...]}``), the card line,
+Two more phases run only when named in ``--phases``: ``profile``
+(``torch.profiler`` over two full-width epochs of the epoch driver) and
+``serving_profile`` (over two full-width decode steps with every slot busy,
+and one prefill of 2,048 tokens).
+
+It then prints the kernel table (``{"kernels": [...]}``, with each main
+path's launch counts in ``launches_by_path``), the card line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
 non-zero before printing any result.
 """
@@ -64,8 +94,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PHASES = ("device", "kernels", "parity", "full_width")
-EXTRA_PHASES = ("profile",)   # run only when named in --phases
+PHASES = ("device", "kernels", "parity", "full_width", "serving")
+EXTRA_PHASES = ("profile", "serving_profile")  # run only when named
 
 
 def emit(obj: dict) -> None:
@@ -104,22 +134,25 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def phase_device() -> dict:
     from repro_torch.core import _des_native
+    from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.range_match import kernel as RMK
 
     t0 = time.perf_counter()
     # one compiler process per source, all started together
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        cu = ex.submit(RMK.build, True)
-        des = ex.submit(_des_native.load)
-        lib = cu.result()
-        des.result()
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        futures = [ex.submit(RMK.build, True), ex.submit(DAK.build, True),
+                   ex.submit(_des_native.load)]
+        libs = [f.result() for f in futures]
     build_s = time.perf_counter() - t0
     RMK._load()
+    DAK._load()
+    here = Path(__file__).parent
     out = {"phase": "device", "card": card_line(),
            "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(),
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "kernel_library": os.path.relpath(lib, Path(__file__).parent),
+           "kernel_library": os.path.relpath(libs[0], here),
+           "decode_attn_library": os.path.relpath(libs[1], here),
            "build_s": build_s}
     emit(out)
     return out
@@ -358,6 +391,128 @@ def phase_kernels(seed: int = 0) -> list[dict]:
             row["divergent"] = int(got[2].sum())
         emit({"phase": "kernels", **row})
         rows.append(row)
+    return rows + _decode_attn_rows(seed)
+
+
+# (case, B, S, Hq, Hkv, D, dtype, window, lengths or None for uniform in
+# [1, S]) of K6: decode_32k (S 32,768) with its batch of 128 cut to 32 at
+# qwen2-1.5b's heads in bf16, the sliding window at gemma3-1b's heads in
+# f32, and lengths past S (F8)
+K6_CASES = (
+    ("decode_32k/qwen2-1.5b/bf16", 32, 32768, 12, 2, 128, torch.bfloat16,
+     None, None),
+    ("decode_32k/gemma3-1b/f32/window512", 32, 32768, 4, 1, 256,
+     torch.float32, 512, None),
+    ("length_past_S/qwen2-1.5b/f32", 4, 300, 12, 2, 128, torch.float32, None,
+     (305, 400, 300, 1000)),
+)
+# K6 against its plain version, |got - want| <= atol + rtol * |want| for
+# every output: f32 at 1e-4; bf16 at two bf16 steps of each output (both
+# sides accumulate in f32 and round once, so they may differ by one step).
+# Outputs are softmax means over up to S rows, so a typical |want| at
+# decode_32k is ~1e-2: an absolute bf16 limit of 3e-2 would pass zeros.
+K6_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0 ** -6)}
+
+
+def _k6_compare(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Elementwise check of K6's output against its plain version; the
+    ratio is the worst |got - want| over its limit (<= 1 passes)."""
+    atol, rtol = K6_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ratio = float((diff / (atol + rtol * w.abs())).max())
+    return {"max_abs_err": float(diff.max()), "tolerance":
+            f"|err| <= {atol:g} + {rtol:g} * |want|", "tol_ratio": ratio,
+            "want_abs_median": float(w.abs().median()),
+            "want_abs_max": float(w.abs().max()),
+            "ok": got.dtype == want.dtype and got.shape == want.shape
+            and ratio <= 1.0}
+
+
+def _valid_rows(lengths: np.ndarray, S: int, window) -> int:
+    """Cache rows the attention reads: p < min(length, S) and, with a
+    window, p >= length - window (all S rows when none is valid)."""
+    hi = np.minimum(lengths, S)
+    lo = np.zeros_like(hi) if window is None else np.maximum(lengths - window, 0)
+    n = hi - lo
+    return int(np.where(n > 0, n, S).sum())
+
+
+def _decode_attn_rows(seed: int) -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+
+    dev = torch.device("cuda")
+    gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    rows = []
+    for i, (case, B, S, Hq, Hkv, D, dtype, window, lengths) in \
+            enumerate(K6_CASES):
+        rng = np.random.default_rng(seed + i)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + i)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+        L = (rng.integers(1, S + 1, B) if lengths is None
+             else np.asarray(lengths)).astype(np.int32)
+        lengths_t = torch.tensor(L, device=dev)
+        fn = lambda: DAK.decode_attn(q, k, v, lengths_t, window=window)
+        plain = lambda: DAR.decode_attn_ref(q, k, v, lengths_t, window=window)
+        before = DAK.launches["decode_attn"]
+        got = fn()
+        want = plain()
+        torch.cuda.synchronize()
+        cmp = _k6_compare(got, want)
+        if got.dtype != dtype or not cmp.pop("ok"):
+            raise AssertionError(f"decode_attn {case}: {cmp}")
+        # the library yardstick: one SDPA call over the same cache with a
+        # boolean length / window mask (heads-major copies made outside the
+        # timing; before torch 2.5, which added enable_gqa, the kv heads
+        # are repeated there too)
+        kT = k.transpose(1, 2).contiguous()
+        vT = v.transpose(1, 2).contiguous()
+        if not gqa:
+            kT = kT.repeat_interleave(Hq // Hkv, dim=1)
+            vT = vT.repeat_interleave(Hq // Hkv, dim=1)
+        pos = torch.arange(S, device=dev)[None]
+        lc = lengths_t.long()[:, None]
+        mask = pos < lc
+        if window is not None:
+            mask &= pos >= lc - window
+        mask = mask[:, None, None, :]
+        q4 = q[:, :, None, :]
+        kw = {"enable_gqa": True} if gqa else {}
+        lib = lambda: F.scaled_dot_product_attention(q4, kT, vT,
+                                                     attn_mask=mask, **kw)
+        lib_err = float((lib()[:, :, 0].float() - want.float()).abs().max())
+        ms = time_cuda(fn)
+        plain_ms = time_cuda(plain, reps=5, warmup=1)
+        lib_ms = time_cuda(lib)
+        DAK.launches["decode_attn"] = before   # comparison launches do not count
+        esz = torch.finfo(dtype).bits // 8
+        rows_read = _valid_rows(L, S, window)
+        # the valid K and V rows, q and the output once each, the lengths
+        nbytes = rows_read * Hkv * D * 2 * esz + 2 * B * Hq * D * esz + 4 * B
+        row = {"name": "decode_attn", "route": "cuda",
+               "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+               "replaces": "src/repro/kernels/decode_attn/kernel.py:88",
+               "replaces_fn": "decode_attn_pallas", "case": case,
+               **cmp, "parity": cmp["tolerance"], "ms": ms,
+               "plain_ms": plain_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "bound_bytes": nbytes,
+               "library_ms": lib_ms,
+               "library": "scaled_dot_product_attention, boolean mask"
+                          + (", enable_gqa" if gqa else ", repeated kv heads"),
+               "library_max_abs_err": lib_err,
+               "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D},
+               "dtype": str(dtype).replace("torch.", ""), "window": window,
+               "valid_rows": rows_read}
+        emit({"phase": "kernels", **row})
+        rows.append(row)
+        del q, k, v, kT, vT, got, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -508,8 +663,97 @@ def phase_parity() -> dict:
             "total_redirected", "total_mis_served", "redirect_share",
             "max_stale_switches", "mean_p999")} for r in crows],
     }
+    out["serving"] = {arch: _serving_parity(arch) for arch in SERVING_PARITY}
     emit(out)
     return out
+
+
+SERVING_PARITY = ("qwen2-1.5b", "gemma3-1b")
+
+
+def _to(tree: dict, device) -> dict:
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _serve_reduced(cfg, params, device) -> tuple:
+    """The reduced engine on ``device``: 7 requests of 4-40 prompt tokens
+    (past gemma3's 32 window) and 8 new tokens, 4 slots, a 64-position
+    cache, 4 shards, a rebalance every 2 steps, the most-loaded shard
+    failed at step 3.  Returns the trace (ops as tuples), the token
+    streams, the picked logits rows and the K6 / K1 launches."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(cfg, _to(params, device), n_slots=4, cache_len=64,
+                        n_shards=4, device=device)
+    picked = []
+    pick = eng._pick
+
+    def record(logits):
+        picked.append(logits[: cfg.vocab_size].copy())
+        return pick(logits)
+
+    eng._pick = record
+    rng = np.random.default_rng(1)
+    for _ in range(7):
+        eng.submit(rng.integers(0, cfg.vocab_size, int(rng.integers(4, 41))),
+                   max_new_tokens=8)
+    DAK.reset_launches()
+    RMK.reset_launches()
+    trace = serve_loop(eng, rebalance_every=2, fail_shard_at=3)
+    for rec in trace:
+        if "rebalance" in rec:
+            moved, ops = rec["rebalance"]
+            rec["rebalance"] = (moved, [(o.lo, o.hi, o.src, o.dst, o.kind)
+                                        for o in ops])
+    tokens = {rid: r.out_tokens for rid, r in eng.finished.items()}
+    return (trace, tokens, picked, DAK.launches["decode_attn"],
+            RMK.launches["range_match"])
+
+
+def _serving_parity(arch: str) -> dict:
+    """The port's serving engine on the card against itself on the CPU, on
+    one set of weights, with TF32 off."""
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, 0, device="cpu")
+        card = _serve_reduced(cfg, params, torch.device("cuda"))
+        host = _serve_reduced(cfg, params, torch.device("cpu"))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (trace, tokens, picked, k6, k1), (htrace, htokens, hpicked, _, _) = card, host
+    if tokens != htokens or len(tokens) != 7:
+        raise AssertionError(f"serving {arch}: token streams differ")
+    if trace != htrace:
+        raise AssertionError(f"serving {arch}: shards, migrations or "
+                             "failovers differ")
+    if len(picked) != len(hpicked):
+        raise AssertionError(f"serving {arch}: pick counts differ")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(picked, hpicked))
+    if not err <= 1e-4:
+        raise AssertionError(f"serving {arch}: logits differ by {err}")
+    if k6 != cfg.n_layers * len(trace) or k1 <= 0:
+        raise AssertionError(f"serving {arch}: K6 launched {k6}x in "
+                             f"{len(trace)} steps, K1 {k1}x")
+    failed = [r["failed"] for r in trace if "failed" in r]
+    return {"cuda_vs_cpu": "equal tokens, shards, migrations, failovers",
+            "steps": len(trace), "picks": len(picked),
+            "logits_max_abs_err": err, "launches": {"decode_attn": k6,
+                                                    "range_match": k1},
+            "moved": sum(r["rebalance"][0] for r in trace
+                         if "rebalance" in r),
+            "failed_over": failed}
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +977,132 @@ def phase_full_width() -> dict:
     return out
 
 
+# the full-width serving run: decode_32k's batch of 128 and context of
+# 32,768 cut to 32 slots of 8,192 positions (the bf16 KV cache is then
+# 7.5 GB); 64 requests of 256-2,048 prompt tokens and 128 new tokens each
+SERVE_ARCH = "qwen2-1.5b"
+SERVE_SLOTS, SERVE_CACHE, SERVE_SHARDS = 32, 8192, 4
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 64, 128, (256, 2048)
+SERVE_REBALANCE_EVERY, SERVE_FAIL_AT = 6, 8
+SERVE_K6_CHECK_STEP = 64
+
+
+def phase_serving(seed: int = 0) -> dict:
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.serving.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    eng = ServingEngine(cfg, params, n_slots=SERVE_SLOTS,
+                        cache_len=SERVE_CACHE, n_shards=SERVE_SHARDS,
+                        device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    plens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    for n in plens:
+        eng.submit(rng.integers(0, cfg.vocab_size, int(n)),
+                   max_new_tokens=SERVE_NEW)
+    k6_check: dict = {}
+
+    def on_step(step, e):
+        # K6 against its plain version on layer 0's live cache, at the
+        # lengths of the step just run (a check, not a main-path launch;
+        # its time is taken out of the run's)
+        if step != SERVE_K6_CHECK_STEP:
+            return
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q = torch.randn((SERVE_SLOTS, cfg.n_heads, cfg.head_dim),
+                        generator=gen, device=dev).to(torch.bfloat16)
+        k, v = e.cache["g0"]["k"][0], e.cache["g0"]["v"][0]
+        lengths = e.cache["length"]
+        before = DAK.launches["decode_attn"]
+        got = DAK.decode_attn(q, k, v, lengths)
+        want = DAR.decode_attn_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        DAK.launches["decode_attn"] = before
+        cmp = _k6_compare(got, want)
+        if not cmp.pop("ok"):
+            raise AssertionError(f"serving: K6 off its plain version at step "
+                                 f"{step}: {cmp}")
+        k6_check.update(step=step, **cmp, lengths=lengths.cpu().tolist())
+        k6_check["seconds"] = time.perf_counter() - tc
+
+    DAK.reset_launches()
+    RMK.reset_launches()                       # counts of the main path
+    t1 = time.perf_counter()
+    records = serve_loop(eng, rebalance_every=SERVE_REBALANCE_EVERY,
+                         fail_shard_at=SERVE_FAIL_AT, on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1 - k6_check.get("seconds", 0.0)
+    launches = {"decode_attn": DAK.launches["decode_attn"],
+                "range_match": RMK.launches["range_match"]}
+    decode_ms = eng.decode_ms()
+    # gates: every request finished with its tokens; the failover moved
+    # every sequence off the dead shard and none sat on it afterwards
+    done = eng.finished
+    short = [r for r in done.values() if len(r.out_tokens) != SERVE_NEW]
+    if len(done) != SERVE_REQUESTS or short:
+        raise AssertionError(f"serving: {len(done)} of {SERVE_REQUESTS} "
+                             f"finished, {len(short)} short")
+    (victim, failed_over), = [r["failed"] for r in records if "failed" in r]
+    # (a step's record holds its seats before that step's failure)
+    seated = sum(sh == victim for r in records if r["step"] > SERVE_FAIL_AT
+                 for sh in r["slot_shard"])
+    stayed = sum(done[rid].shard == victim for rid in failed_over)
+    if not failed_over or seated or stayed:
+        raise AssertionError(f"serving: shard {victim} failed over "
+                             f"{len(failed_over)}; {seated} seats and "
+                             f"{stayed} failed-over requests on it after")
+    if launches["decode_attn"] != cfg.n_layers * len(decode_ms) \
+            or launches["range_match"] <= 0 or not k6_check:
+        raise AssertionError(f"serving: launches {launches} over "
+                             f"{len(decode_ms)} decode steps, K6 check "
+                             f"{k6_check}")
+    tokens = sum(len(r.out_tokens) for r in done.values())
+    rebal = [r["rebalance"] for r in records if "rebalance" in r]
+    out = {
+        "phase": "serving", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+        "params": M.param_count(params), "param_bytes": M.param_bytes(params),
+        "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+        "shards": SERVE_SHARDS, "replication": 2,
+        "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+        "prompt_tokens": int(plens.sum()),
+        "reduced": {"batch": "decode_32k's 128 -> 32 slots",
+                    "cache_len": "decode_32k's 32,768 -> 8,192"},
+        "setup_s": setup_s, "run_s": run_s, "steps": len(records),
+        "tokens": tokens, "tokens_per_s": tokens / run_s,
+        "prefill_s_p50": float(np.percentile(eng.prefill_seconds, 50)),
+        "prefill_s_p99": float(np.percentile(eng.prefill_seconds, 99)),
+        "prefill_s_total": float(sum(eng.prefill_seconds)),
+        "decode_steps": len(decode_ms),
+        "decode_ms_p50": float(np.percentile(decode_ms, 50)),
+        "decode_ms_p99": float(np.percentile(decode_ms, 99)),
+        "decode_ms_total": float(sum(decode_ms)),
+        "launches": launches, "k6_check": k6_check,
+        "rebalances": len(rebal),
+        "migration_ops": sum(len(ops) for _, ops in rebal),
+        "moved_sequences": sum(m for m, _ in rebal),
+        "failed_shard": victim, "failed_over": len(failed_over),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(out)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_profile() -> dict:
     """``torch.profiler`` over a two-epoch full-width ``frozen`` run (after
     its preload): device time by kernel name and the device's busy share
@@ -756,6 +1126,18 @@ def phase_profile() -> dict:
         drv.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    out = {"phase": "profile", "epochs": 2, **_device_summary(prof, wall)}
+    emit(out)
+    del drv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _device_summary(prof, wall: float, top: int = 12) -> dict:
+    """A profiler window's device busy time and share of ``wall``, its
+    device-side event count (kernels and copies) and the ``top`` events by
+    device time."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -764,21 +1146,63 @@ def phase_profile() -> dict:
                 return float(v)
         return 0.0
 
-    from torch.autograd import DeviceType
-
-    # device-side events only (kernels and copies): the operator rows of
-    # key_averages() repeat their kernels' time
+    # device-side events only: the operator rows of key_averages() repeat
+    # their kernels' time
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == DeviceType.CUDA
               and dev_us(e) > 0]
     events.sort(key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e6
-    out = {"phase": "profile", "epochs": 2, "wall_s": wall,
-           "device_busy_s": busy, "device_busy_share": busy / wall,
-           "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
-                    "calls": e.count} for e in events[:12]]}
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "device_events": sum(e.count for e in events),
+            "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
+                     "calls": e.count} for e in events[:top]]}
+
+
+def phase_serving_profile(seed: int = 0) -> dict:
+    """``torch.profiler`` over the full-width serving engine: two decode
+    steps with all 32 slots busy (after a warm-up step), then one prefill
+    of 2,048 tokens, each window ending in its logits' copy to the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    params = M.init_params(cfg, seed, device=dev)
+    eng = ServingEngine(cfg, params, n_slots=SERVE_SLOTS,
+                        cache_len=SERVE_CACHE, n_shards=SERVE_SHARDS,
+                        device=dev)
+    rng = np.random.default_rng(seed)
+    for n in rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_SLOTS):
+        eng.submit(rng.integers(0, cfg.vocab_size, int(n)),
+                   max_new_tokens=SERVE_NEW)
+    eng.step()                                  # admit all, one decode step
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    decode = _device_summary(prof, wall)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT[1])),
+                          device=dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(params, cfg, {"tokens": tokens},
+                              cache_len=SERVE_CACHE)
+        logits.float().cpu()
+        wall = time.perf_counter() - t0
+    out = {"phase": "serving_profile", "decode_steps": 2, "decode": decode,
+           "prefill_tokens": SERVE_PROMPT[1],
+           "prefill": _device_summary(prof, wall)}
     emit(out)
-    del drv
+    del eng, params
     torch.cuda.empty_cache()
     return out
 
@@ -805,19 +1229,30 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     full = phase_full_width() if "full_width" in phases else None
+    serving = phase_serving() if "serving" in phases else None
     if "profile" in phases:
         phase_profile()
+    if "serving_profile" in phases:
+        phase_serving_profile()
     if kernels is not None:
-        # one row a kernel: K3 as the main path runs it (no key filter);
-        # its filtered variant is in the kernels phase's own line
-        main_rows = [r for r in kernels if not r.get("filter_bits")]
+        # one row a kernel: K3 as the main path runs it (no key filter) and
+        # K6 at decode_32k; their other cases are in the kernels phase's
+        # own lines.  Launches: each main path's count, read after its own
+        # run (the epoch driver's full-width runs, the serving run), in
+        # launches_by_path; launches is their sum
+        paths = {name: p["launches"] for name, p in
+                 (("full_width", full), ("serving", serving)) if p is not None}
+        main_rows = [r for r in kernels if not r.get("filter_bits")
+                     and r.get("case", K6_CASES[0][0]) == K6_CASES[0][0]]
         for row in main_rows:
-            row["launches"] = (full["launches"][row["name"]]
-                               if full is not None else None)
+            row["launches_by_path"] = {name: p.get(row["name"], 0)
+                                       for name, p in paths.items()}
+            row["launches"] = (sum(row["launches_by_path"].values())
+                               if paths else None)
         emit({"kernels": [{k: r[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "parity", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for r in main_rows]})
+            "name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "parity", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")} for r in main_rows]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(dev_info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,11 @@ control loop (:class:`repro_torch.cluster.EpochDriver`), written as plain
 functions on tensors.  The match-action and slab-probe hot path runs as
 hand-written CUDA kernels on an NVIDIA Hopper card
 (:mod:`repro_torch.kernels.range_match`); on CPU tensors the kernels'
-plain PyTorch versions run instead.
+plain PyTorch versions run instead.  The same directory routes the KV
+cache of a continuous-batching LLM serving engine
+(:mod:`repro_torch.serving`) over the dense decoder-only models
+(:mod:`repro_torch.models`), whose decode attention is a CUDA kernel too
+(:mod:`repro_torch.kernels.decode_attn`).
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.
 """

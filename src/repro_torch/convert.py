@@ -2,8 +2,9 @@
 
 The ``*_from_numpy`` functions take the reference's state (a Directory's,
 a StoreState's, a count-min sketch's, the load registers', the
-replication register file's or the coordination tier's arrays, each
-converted with ``np.asarray``) and build the port's tensors on a device;
+replication register file's or the coordination tier's arrays, a model's
+parameter pytree or its decode cache, each converted with
+``np.asarray``) and build the port's tensors on a device;
 the ``*_to_numpy`` inverses return arrays in the reference's dtypes, so a
 test can start both packages from one state and compare the results.
 Nothing here imports the reference: the arrays are duck-typed by field
@@ -126,3 +127,53 @@ def coord_from_numpy(state, *, device=None) -> CoordState:
 def coord_to_numpy(state: CoordState) -> dict[str, np.ndarray]:
     return {f: getattr(state, f).cpu().numpy().astype(_COORD_DTYPES[f])
             for f in COORD_FIELDS}
+
+
+def _float_tensor(a, device, dtype: torch.dtype | None) -> torch.Tensor:
+    """A float array (bfloat16 arrives as numpy's ml_dtypes extension
+    type, which torch cannot read: it goes through float32, exactly) as a
+    tensor of ``dtype`` (default: the array's own)."""
+    a = np.asarray(a)
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.tensor(a.astype(np.float32) if bf16 else a, device=device)
+    if dtype is None:
+        dtype = torch.bfloat16 if bf16 else t.dtype
+    return t.to(dtype)
+
+
+def _tree_from_numpy(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.kind in "iub":
+        return torch.tensor(a, device=device)
+    return _float_tensor(a, device, dtype)
+
+
+def params_from_numpy(cfg, tree, device=None, dtype: torch.dtype | None = None):
+    """The reference's parameter pytree (nested dicts of numpy arrays) ->
+    the port's dict of tensors, leaf for leaf, every float leaf cast to
+    ``dtype`` (default ``cfg.dtype``, the dtype the model serves in: the
+    reference's float32 master weights do not serve under a bfloat16
+    config, ROADMAP F7)."""
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    return _tree_from_numpy(tree, resolve_device(device), dtype)
+
+
+def cache_from_numpy(tree, device=None) -> dict:
+    """The reference's decode cache (``length`` and each group's stacked
+    ``k`` / ``v``) as the port's tensors, in the arrays' own dtypes."""
+    return _tree_from_numpy(tree, resolve_device(device), None)
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """The port's decode cache as numpy arrays: ``length`` int32, K/V in
+    their dtype (bfloat16 as float32, which holds it exactly).  Copies:
+    ``decode_step`` writes into the cache's tensors in place."""
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return host(cache)

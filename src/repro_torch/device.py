@@ -21,3 +21,15 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (a kernel wrapper then runs
+    its plain version), False when all lie on CUDA devices; tensors on
+    mixed devices raise."""
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+    return False

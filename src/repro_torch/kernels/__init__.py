@@ -1,1 +1,2 @@
-"""Hand-written Hopper kernels of the port (see ``range_match``)."""
+"""Hand-written Hopper kernels of the port (``range_match``: K1-K5;
+``decode_attn``: K6)."""

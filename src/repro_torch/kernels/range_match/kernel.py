@@ -3,8 +3,9 @@
 ``csrc/range_match.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/repro_torch_kernels/`` at the root of the checkout (one library
-per source hash), and bound with :mod:`ctypes`.  Nothing is built or
-imported at module import time: the CPU tests import this module.
+per source hash, :mod:`repro_torch.kernels._build`), and bound with
+:mod:`ctypes`.  Nothing is built or imported at module import time: the
+CPU tests import this module.
 
 Each wrapper takes the plain PyTorch version (:mod:`.ref`) when its
 tensors lie on the CPU, and launches its kernel for CUDA tensors — or
@@ -16,20 +17,16 @@ not count), so a run can show that the main path went through the card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.device import on_cpu
+from repro_torch.kernels import _build
 from repro_torch.kernels.range_match import ref
 
 _SRC = Path(__file__).parent / "csrc" / "range_match.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
@@ -47,38 +44,10 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).exists():
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels (if this source hash is not built yet) and
-    return the library path."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD_DIR / f"librange_match_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(_BUILD_DIR))
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(_SRC)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stderr.strip())
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    """Compile ``csrc/range_match.cu`` (if this source hash is not built
+    yet) and return the library path."""
+    return _build.build(_SRC, verbose)
 
 
 def _load() -> ctypes.CDLL:
@@ -137,15 +106,6 @@ def _grid(B: int, device: torch.device) -> int:
     return max(1, min((B + 255) // 256, 4 * sms))
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"}:
-        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
-    return False
-
-
 def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
                 num_slots: int):
     """K1 (replaces ``range_match_pallas``): ``(ridx, target, chain)``.
@@ -154,7 +114,7 @@ def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
     (uint32 bits, dead-masked); chains (r_max, S) int32; chain_len (S,)
     int32.  Returns int32 ``ridx (B,)``, ``target (B,)``, ``chain
     (r_max, B)``."""
-    if _on_cpu(mvals, opcodes, slot_lo, slot_hi, chains, chain_len):
+    if on_cpu(mvals, opcodes, slot_lo, slot_hi, chains, chain_len):
         return ref.range_match_ref(mvals, opcodes, slot_lo, slot_hi, chains,
                                    chain_len, num_slots=num_slots)
     dev = mvals.device
@@ -188,7 +148,7 @@ def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     """K2 (replaces ``range_match_spread_pallas``): K1 plus the p2c read
     pick.  u1 / u2 (B,) int32 non-negative draws; loads (N,) int32 (uint32
     bits of the load registers)."""
-    if _on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+    if on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
                loads):
         return ref.range_match_spread_ref(
             mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
@@ -255,7 +215,7 @@ def range_match_spread_dirty(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     B)``, ``picked`` and bool ``bounced``."""
     F = 0 if key_filter is None else key_filter.shape[1]
     extra = (keys, key_filter) if F else ()
-    if _on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+    if on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
                loads, dirty, *extra):
         return ref.range_match_spread_dirty_ref(
             mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
@@ -292,7 +252,7 @@ def range_match_apply(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     filter, then K4a's probe of ``qkeys`` (B,) int64 in the serving node's
     row of ``slabs`` (N, C) int64, in one pass.  Returns K3's five outputs
     plus int32 ``slot`` and bool ``found``."""
-    if _on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
+    if on_cpu(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
                loads, dirty, qkeys, slabs):
         return ref.range_match_apply_ref(
             mvals, opcodes, u1, u2, slot_lo, slot_hi, chains, chain_len,
@@ -340,7 +300,7 @@ def range_match_stale(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
     Returns int32 ``sridx``, int32 ``server`` (chain head for PUT/DEL, tail
     otherwise) and bool ``divergent``.  Raises when the W copies of the
     spans (8 W S bytes) exceed a block's shared memory."""
-    if _on_cpu(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
+    if on_cpu(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
                committed):
         return ref.range_match_stale_ref(
             keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w, committed,
@@ -388,7 +348,7 @@ def slab_lookup(qkeys, target, slabs):
     """K4a (replaces ``slab_lookup_pallas``): ``(slot int32, found bool)``.
 
     qkeys (B,) int64; target (B,) int64; slabs (N, C) int64 sorted rows."""
-    if _on_cpu(qkeys, target, slabs):
+    if on_cpu(qkeys, target, slabs):
         return ref.slab_lookup_ref(qkeys, target, slabs)
     dev = qkeys.device
     B = qkeys.shape[0]

@@ -1,0 +1,14 @@
+"""Model zoo on PyTorch: the dense decoder-only family (counterpart of
+``repro.models``)."""
+
+from repro_torch.models.model import (
+    decode_step,
+    empty_cache,
+    init_params,
+    param_bytes,
+    param_count,
+    prefill,
+)
+
+__all__ = ["init_params", "prefill", "decode_step", "empty_cache",
+           "param_count", "param_bytes"]

@@ -1,0 +1,29 @@
+"""Feed-forward variants: SwiGLU (LM standard) and biased MLP (whisper)
+(counterpart of ``repro.models.ffn``)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import activation, dense_init
+
+
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype: torch.dtype, n_layers: int) -> dict:
+    L = (n_layers,)
+    return {
+        "wg": dense_init(gen, L + (d_model, d_ff), dtype),
+        "wu": dense_init(gen, L + (d_model, d_ff), dtype),
+        "wo": dense_init(gen, L + (d_ff, d_model), dtype),
+    }
+
+
+def swiglu(x, p, cfg: ArchConfig):
+    act = activation(cfg.act)
+    return (act(x @ p["wg"]) * (x @ p["wu"])) @ p["wo"]
+
+
+def mlp(x, p, cfg: ArchConfig):
+    act = activation(cfg.act)
+    return act(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]

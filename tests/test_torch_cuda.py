@@ -259,3 +259,132 @@ def test_apply_routed_card_matches_cpu(dev):
         _same((a.value, a.found, a.scan_values, a.scan_keys, a.scan_count),
               (b.value, b.found, b.scan_values, b.scan_keys, b.scan_count))
     assert int(sg.overflow.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K6 decode_attn and the serving path
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(seed, B, S, Hq, Hkv, D, dtype, lengths, dev):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.normal(size=s).astype(np.float32), device=dev)
+               .to(dtype) for s in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    return q, k, v, torch.tensor(np.asarray(lengths, np.int32), device=dev)
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("G", [5, 6])
+@pytest.mark.parametrize("window", [None, 48])
+def test_decode_attn_kernel_matches_plain(dev, no_tf32, dtype, D, G, window):
+    """Lengths 1, inside, at and above S (F8), over a cache of several
+    chunks with a ragged last one; with the window, a length whose window
+    ends before the cache (uniform softmax over the S rows)."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+
+    S, Hkv = 1300, 2
+    lengths = [1, 37, 700, 1300, 1301, 5000, 1300 + 48 + 3]
+    q, k, v, L = _attn_inputs(D + G, len(lengths), S, Hkv * G, Hkv, D, dtype,
+                              lengths, dev)
+    before = DAK.launches["decode_attn"]
+    got = DAK.decode_attn(q, k, v, L, window=window)
+    assert DAK.launches["decode_attn"] == before + 1
+    want = DAR.decode_attn_ref(q, k, v, L, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    # bf16: two bf16 steps of each output (both sides accumulate in f32 and
+    # round once); an absolute 3e-2 would pass zeros on the long rows
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-5, 2.0 ** -6)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("G", [1, 8])
+def test_decode_attn_kernel_group_edges(dev, no_tf32, G):
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+
+    q, k, v, L = _attn_inputs(G, 3, 512, G, 1, 128, torch.float32,
+                              [1, 300, 512], dev)
+    torch.testing.assert_close(DAK.decode_attn(q, k, v, L),
+                               DAR.decode_attn_ref(q, k, v, L),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_decode_attn_kernel_refuses_what_it_lacks(dev):
+    from repro_torch.kernels.decode_attn import kernel as DAK
+
+    q, k, v, L = _attn_inputs(0, 2, 64, 4, 2, 128, torch.float32, [3, 9], dev)
+    with pytest.raises(TypeError):
+        DAK.decode_attn(q, k.to(torch.bfloat16), v, L)
+    with pytest.raises(TypeError):
+        DAK.decode_attn(*(t.half() for t in (q, k, v)), L)
+    with pytest.raises(ValueError, match="head dim"):
+        DAK.decode_attn(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous(), L)   # D 32: no instance
+    with pytest.raises(ValueError, match="contiguous"):
+        DAK.decode_attn(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, L)
+    with pytest.raises(ValueError, match="query heads"):
+        q9, k9, v9, _ = _attn_inputs(0, 2, 64, 9, 1, 64, torch.float32, [3, 9],
+                                     dev)
+        DAK.decode_attn(q9, k9, v9, L)
+    with pytest.raises(ValueError, match="lengths"):
+        DAK.decode_attn(q, k, v, L.long())
+
+
+def test_serving_card_matches_cpu(dev, no_tf32):
+    """The reduced qwen2 engine (f32) on the card against itself on the
+    CPU, with a rebalance every 2 steps and a shard failure at step 3:
+    equal tokens and traces, every picked logits row within 1e-4, and the
+    card's run through K6 and K1."""
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = M.init_params(cfg, 0, device="cpu")
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        eng = ServingEngine(cfg, _to(params, device), n_slots=4, cache_len=64,
+                            n_shards=4, device=device)
+        picked = []
+        pick = eng._pick
+        eng._pick = lambda lg, pick=pick, picked=picked: (
+            picked.append(lg[: cfg.vocab_size].copy()), pick(lg))[1]
+        for i in range(7):
+            eng.submit(np.arange(4) + i, max_new_tokens=5)
+        DAK.reset_launches()
+        RMK.reset_launches()
+        trace = serve_loop(eng, rebalance_every=2, fail_shard_at=3)
+        for rec in trace:
+            if "rebalance" in rec:
+                rec["rebalance"] = (rec["rebalance"][0],
+                                    [tuple(vars(o).values())
+                                     for o in rec["rebalance"][1]])
+        runs.append((trace, {r: q.out_tokens for r, q in eng.finished.items()},
+                     picked, DAK.launches["decode_attn"],
+                     RMK.launches["range_match"]))
+    (tc, kc, pc, k6c, k1c), (tp, kp, pp, k6p, k1p) = runs
+    assert kc == kp and tc == tp and len(pc) == len(pp)
+    for a, b in zip(pc, pp):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert k6c == cfg.n_layers * len(tc) and k1c > 0 and k6p == k1p == 0
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

@@ -54,6 +54,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.range_match\n"
         "import repro_torch.coordination_tier, repro_torch.core.hierarchy\n"
         "import repro_torch.coordination_tier.bench\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.kernels.decode_attn, repro_torch.serving.engine\n"
+        "import repro_torch.launch.serve\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -72,5 +75,10 @@ def test_port_modules_found():
     assert "repro_torch/kernels/range_match/kernel.py" in MODULES
     assert "repro_torch/coordination_tier/state.py" in MODULES
     assert "repro_torch/core/hierarchy.py" in MODULES
+    for mod in ("configs/qwen2_1_5b.py", "models/transformer.py",
+                "kernels/decode_attn/kernel.py", "serving/engine.py",
+                "launch/serve.py"):
+        assert f"repro_torch/{mod}" in MODULES
     assert (PORT / "kernels/range_match/csrc/range_match.cu").exists()
+    assert (PORT / "kernels/decode_attn/csrc/decode_attn.cu").exists()
     assert (PORT / "core/des_core.c").exists()
