@@ -7,9 +7,10 @@ Phases, each printing one JSON line (any failure raises and the script
 exits non-zero):
 
 1. device      the card (``nvidia-smi`` name and power limit), and the
-               build of the CUDA kernels (range_match, decode_attn) and the
-               DES core from the sources in this checkout, one compiler
-               process each, all started together (build seconds);
+               build of the CUDA kernels (range_match, decode_attn,
+               ssd_chunk) and the DES core from the sources in this
+               checkout, one compiler process each, all started together
+               (build seconds);
 2. kernels     each range_match kernel (K1 ``range_match``, K2
                ``range_match_spread``, K3 ``range_match_spread_dirty`` without
                and with the 64-bit key filter, K4a ``slab_lookup``, K4b
@@ -22,7 +23,13 @@ exits non-zero):
                output, ``K6_TOL``): (a) qwen2-1.5b's heads in bf16 at
                ``decode_32k`` cut to a batch of 32, (b) gemma3-1b's heads
                in f32 with its 512 window, (c) lengths past S (F8), each
-               with SDPA's time as the library yardstick;
+               with SDPA's time as the library yardstick; then K7
+               ``ssd_chunk`` against its plain version within
+               |err| <= 2e-4 (1 + |want|) on y and the final state
+               (``K7_TOL``): (a) mamba2-370m's heads over a 32,768-token
+               prefill with the model's dt / A ranges, (b) hymba-1.5b's
+               heads at B 4 over 2,100 tokens (padded), (c) a chunk of 10
+               with G 2; its bound counts operations and bytes;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
                chains, replication register file and coordination-tier
@@ -36,11 +43,13 @@ exits non-zero):
                bench (``repro_torch.coordination_tier.bench``) on the card
                at their full sizes, whose gates must come back empty; then
                the serving engine on the card against itself on the CPU
-               (reduced qwen2-1.5b and gemma3-1b in f32, TF32 off: 7
-               requests, 4 slots, a 64-position cache, 4 shards, a
-               rebalance every 2 steps and a shard failure at step 3):
-               equal tokens, shards, migrations and failovers, every picked
-               logits row within 1e-4, K6 and K1 launched;
+               (reduced qwen2-1.5b, gemma3-1b, mamba2-370m and hymba-1.5b
+               in f32, TF32 off: 7 requests, 4 slots, a 64-position cache,
+               4 shards, a rebalance every 2 steps and a shard failure at
+               step 3): equal tokens, shards, migrations and failovers,
+               every picked logits row within 1e-4, K1 launched, K6 on
+               every attention layer of every decode step and K7 on every
+               SSM layer of every prefill;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
@@ -65,7 +74,14 @@ exits non-zero):
                sequence may sit on the dead shard afterwards; K6 is held
                against its plain version on layer 0's live cache mid-run;
                tokens/s, prefill seconds and decode-step milliseconds
-               (CUDA events), launches, migrations and peak memory.
+               (CUDA events), launches, migrations and peak memory;
+6. serving_ssm the same engine, traffic and gates on mamba2-370m at its
+               published widths (48 layers, d 1024, 32 SSD heads of 64,
+               d_state 128, vocab 50,280, tied embeddings, bf16 weights from
+               the port's seeded init; no KV cache, 48 MiB of f32 decode
+               state a slot): K7 on every layer of every prefill, held
+               against its plain version on layer 0's live scan inputs of
+               the first prefill; decode by the recurrence.
 
 Two more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver) and
@@ -94,7 +110,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PHASES = ("device", "kernels", "parity", "full_width", "serving")
+PHASES = ("device", "kernels", "parity", "full_width", "serving",
+          "serving_ssm")
 EXTRA_PHASES = ("profile", "serving_profile")  # run only when named
 
 
@@ -136,16 +153,18 @@ def phase_device() -> dict:
     from repro_torch.core import _des_native
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
 
     t0 = time.perf_counter()
     # one compiler process per source, all started together
-    with ThreadPoolExecutor(max_workers=3) as ex:
+    with ThreadPoolExecutor(max_workers=4) as ex:
         futures = [ex.submit(RMK.build, True), ex.submit(DAK.build, True),
-                   ex.submit(_des_native.load)]
+                   ex.submit(SSK.build, True), ex.submit(_des_native.load)]
         libs = [f.result() for f in futures]
     build_s = time.perf_counter() - t0
     RMK._load()
     DAK._load()
+    SSK._load()
     here = Path(__file__).parent
     out = {"phase": "device", "card": card_line(),
            "kind": torch.cuda.get_device_name(0),
@@ -153,6 +172,7 @@ def phase_device() -> dict:
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "kernel_library": os.path.relpath(libs[0], here),
            "decode_attn_library": os.path.relpath(libs[1], here),
+           "ssd_chunk_library": os.path.relpath(libs[2], here),
            "build_s": build_s}
     emit(out)
     return out
@@ -391,7 +411,7 @@ def phase_kernels(seed: int = 0) -> list[dict]:
             row["divergent"] = int(got[2].sum())
         emit({"phase": "kernels", **row})
         rows.append(row)
-    return rows + _decode_attn_rows(seed)
+    return rows + _decode_attn_rows(seed) + _ssd_chunk_rows(seed)
 
 
 # (case, B, S, Hq, Hkv, D, dtype, window, lengths or None for uniform in
@@ -508,12 +528,137 @@ def _decode_attn_rows(seed: int) -> list[dict]:
                "library_max_abs_err": lib_err,
                "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D},
                "dtype": str(dtype).replace("torch.", ""), "window": window,
-               "valid_rows": rows_read}
+               "valid_rows": rows_read, "main": i == 0}
         emit({"phase": "kernels", **row})
         rows.append(row)
         del q, k, v, kT, vT, got, want
         torch.cuda.empty_cache()
     return rows
+
+
+# (case, B, T, H, P, N, G, Q, dt and A from the model's ranges) of K7:
+# (a) mamba2-370m's heads over decode_32k's context of 32,768 tokens as
+# one prefill, (b) hymba-1.5b's heads at B 4 over 2,100 tokens (padded to
+# 2,176), (c) a chunk of 10 (not a power of two) with G 2
+K7_CASES = (
+    ("prefill_32k/mamba2-370m", 1, 32768, 32, 64, 128, 1, 128, True),
+    ("hymba-1.5b/B4/T2100", 4, 2100, 50, 64, 16, 1, 128, True),
+    ("Q10/G2", 2, 250, 8, 16, 16, 2, 10, False),
+)
+# K7 against its plain version, on y and on the final state: tests/
+# test_kernels.py's 2e-4, scaled by the output (both sides sum in f32 in
+# other orders, over chunks whose terms reach |y| ~ 10 at mamba2's widths)
+K7_TOL = 2e-4
+F32_FLOP_PER_S = 67e12             # H100 SXM data sheet, f32 outside the tensor cores
+
+
+def _k7_compare(got, want) -> dict:
+    """The worst |got - want| / (K7_TOL (1 + |want|)) over y and the final
+    state (<= 1 passes)."""
+    out = {"tolerance": f"|err| <= {K7_TOL:g} (1 + |want|)"}
+    ok = True
+    for name, g, w in zip(("y", "state"), got, want):
+        diff = (g - w).abs()
+        out[f"{name}_max_abs_err"] = float(diff.max())
+        out[f"{name}_tol_ratio"] = float((diff / (K7_TOL * (1 + w.abs()))).max())
+        out[f"{name}_want_abs_max"] = float(w.abs().max())
+        ok &= (g.dtype == w.dtype and g.shape == w.shape
+               and bool(torch.isfinite(g).all()))
+    out["max_abs_err"] = max(out["y_max_abs_err"], out["state_max_abs_err"])
+    out["tol_ratio"] = max(out["y_tol_ratio"], out["state_tol_ratio"])
+    out["ok"] = ok and out["tol_ratio"] <= 1.0
+    return out
+
+
+def _k7_work(B, T, H, P, N, G, Q) -> tuple[int, int]:
+    """(multiply-adds, bytes) the chunked scan needs on T real rows: per
+    chunk of r rows C.B^T's r (r + 1) / 2 causal products of N a group, a
+    head's r (r + 1) / 2 P intra-chunk terms and 2 r P N for the state's
+    read and update; x, dt, B, C, the initial state and A read once, y and
+    the final state written once, f32."""
+    macs = 0
+    for c0 in range(0, T, Q):
+        r = min(Q, T - c0)
+        tri = r * (r + 1) // 2
+        macs += G * tri * N + H * (tri * P + 2 * r * P * N)
+    nbytes = 4 * (2 * T * H * P + T * H + 2 * T * G * N + 2 * H * P * N + H)
+    return B * macs, B * nbytes
+
+
+def _k7_inputs(seed, B, T, H, P, N, G, model_ranges, dev):
+    """Inputs on the card: with the model's ranges, dt = softplus(z) (z
+    unit normal, as dt_raw + dt_bias) and A = -linspace(1, 16, H) (its
+    A_log init); else the reference test's dt in [0.001, 0.1], A in
+    [-2, -0.5].  A nonzero initial state."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    if model_ranges:
+        dt = torch.nn.functional.softplus(rn(B, T, H))
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        dt = 0.001 + 0.099 * torch.rand((B, T, H), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    return (rn(B, T, H, P), dt, A, rn(B, T, G, N), rn(B, T, G, N),
+            0.1 * rn(B, H, P, N))
+
+
+def _ssd_chunk_rows(seed: int) -> list[dict]:
+    # the plain version's products in full f32, as the kernel's
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return [_ssd_chunk_row(seed + i, i == 0, *case)
+                for i, case in enumerate(K7_CASES)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
+                   model_ranges) -> dict:
+    """One K7 case: held against the plain version on the same padded
+    inputs, timed (CUDA events) beside it, and its bound."""
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+    from repro_torch.kernels.ssd_chunk import ops as SSO
+    from repro_torch.kernels.ssd_chunk import ref as SSR
+
+    dev = torch.device("cuda")
+    x, dt, A, Bm, Cm, s0 = _k7_inputs(seed, B, T, H, P, N, G, model_ranges,
+                                      dev)
+    xp, dtp, Bp, Cp = (t.contiguous() for t in
+                       SSO.pad_to_chunks(x, dt, Bm, Cm, Q))
+    fn = lambda: SSK.ssd_chunk(xp, dtp, A, Bp, Cp, s0, chunk=Q)
+    plain = lambda: SSR.ssd_chunked_ref(xp, dtp, A, Bp, Cp, s0, chunk=Q)
+    before = SSK.launches["ssd_chunk"]
+    got = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    cmp = _k7_compare(got, want)
+    if not cmp.pop("ok"):
+        raise AssertionError(f"ssd_chunk {case}: {cmp}")
+    ms = time_cuda(fn, reps=10, warmup=2)
+    plain_ms = time_cuda(plain, reps=3, warmup=1)
+    SSK.launches["ssd_chunk"] = before   # comparison launches do not count
+    macs, nbytes = _k7_work(B, T, H, P, N, G, Q)
+    flop_ms = 2 * macs / F32_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"name": "ssd_chunk", "route": "cuda",
+           "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+           "replaces": "src/repro/kernels/ssd_chunk/kernel.py:91",
+           "replaces_fn": "ssd_chunk_pallas", "case": case,
+           **cmp, "parity": cmp["tolerance"], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "bound_flop": 2 * macs, "bound_bytes": nbytes,
+           "bound_flop_ms": flop_ms, "bound_bytes_ms": byte_ms,
+           "library_ms": None, "library": "none: no one call",
+           "shape": {"B": B, "T": T, "T_padded": xp.shape[1], "H": H,
+                     "P": P, "N": N, "G": G, "Q": Q},
+           "main": main}
+    emit({"phase": "kernels", **row})
+    del x, dt, Bm, Cm, xp, dtp, Bp, Cp, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -668,7 +813,7 @@ def phase_parity() -> dict:
     return out
 
 
-SERVING_PARITY = ("qwen2-1.5b", "gemma3-1b")
+SERVING_PARITY = ("qwen2-1.5b", "gemma3-1b", "mamba2-370m", "hymba-1.5b")
 
 
 def _to(tree: dict, device) -> dict:
@@ -681,9 +826,10 @@ def _serve_reduced(cfg, params, device) -> tuple:
     (past gemma3's 32 window) and 8 new tokens, 4 slots, a 64-position
     cache, 4 shards, a rebalance every 2 steps, the most-loaded shard
     failed at step 3.  Returns the trace (ops as tuples), the token
-    streams, the picked logits rows and the K6 / K1 launches."""
+    streams, the picked logits rows and the K6 / K1 / K7 launches."""
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.launch.serve import serve_loop
     from repro_torch.serving.engine import ServingEngine
 
@@ -703,6 +849,7 @@ def _serve_reduced(cfg, params, device) -> tuple:
                    max_new_tokens=8)
     DAK.reset_launches()
     RMK.reset_launches()
+    SSK.reset_launches()
     trace = serve_loop(eng, rebalance_every=2, fail_shard_at=3)
     for rec in trace:
         if "rebalance" in rec:
@@ -711,7 +858,7 @@ def _serve_reduced(cfg, params, device) -> tuple:
                                         for o in ops])
     tokens = {rid: r.out_tokens for rid, r in eng.finished.items()}
     return (trace, tokens, picked, DAK.launches["decode_attn"],
-            RMK.launches["range_match"])
+            RMK.launches["range_match"], SSK.launches["ssd_chunk"])
 
 
 def _serving_parity(arch: str) -> dict:
@@ -732,7 +879,8 @@ def _serving_parity(arch: str) -> dict:
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
-    (trace, tokens, picked, k6, k1), (htrace, htokens, hpicked, _, _) = card, host
+    (trace, tokens, picked, k6, k1, k7), (htrace, htokens, hpicked, *_) = \
+        card, host
     if tokens != htokens or len(tokens) != 7:
         raise AssertionError(f"serving {arch}: token streams differ")
     if trace != htrace:
@@ -743,14 +891,19 @@ def _serving_parity(arch: str) -> dict:
     err = max(float(np.abs(a - b).max()) for a, b in zip(picked, hpicked))
     if not err <= 1e-4:
         raise AssertionError(f"serving {arch}: logits differ by {err}")
-    if k6 != cfg.n_layers * len(trace) or k1 <= 0:
+    # K6 on every attention layer of every decode step, K7 on every SSM
+    # layer of every prefill (7 admissions)
+    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
+    if (k6 != attn * cfg.n_layers * len(trace) or k1 <= 0
+            or k7 != ssm * cfg.n_layers * 7):
         raise AssertionError(f"serving {arch}: K6 launched {k6}x in "
-                             f"{len(trace)} steps, K1 {k1}x")
+                             f"{len(trace)} steps, K1 {k1}x, K7 {k7}x")
     failed = [r["failed"] for r in trace if "failed" in r]
     return {"cuda_vs_cpu": "equal tokens, shards, migrations, failovers",
             "steps": len(trace), "picks": len(picked),
             "logits_max_abs_err": err, "launches": {"decode_attn": k6,
-                                                    "range_match": k1},
+                                                    "range_match": k1,
+                                                    "ssd_chunk": k7},
             "moved": sum(r["rebalance"][0] for r in trace
                          if "rebalance" in r),
             "failed_over": failed}
@@ -977,27 +1130,100 @@ def phase_full_width() -> dict:
     return out
 
 
-# the full-width serving run: decode_32k's batch of 128 and context of
-# 32,768 cut to 32 slots of 8,192 positions (the bf16 KV cache is then
-# 7.5 GB); 64 requests of 256-2,048 prompt tokens and 128 new tokens each
+# the full-width serving runs: decode_32k's batch of 128 cut to 32 slots;
+# for qwen2-1.5b its context of 32,768 cut to an 8,192-position cache (the
+# bf16 KV cache is then 7.5 GB), mamba2-370m keeps no KV cache (its decode
+# state is 48 MiB of f32 a slot); 64 requests of 256-2,048 prompt tokens
+# and 128 new tokens each
 SERVE_ARCH = "qwen2-1.5b"
+SERVE_SSM_ARCH = "mamba2-370m"
 SERVE_SLOTS, SERVE_CACHE, SERVE_SHARDS = 32, 8192, 4
 SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 64, 128, (256, 2048)
 SERVE_REBALANCE_EVERY, SERVE_FAIL_AT = 6, 8
 SERVE_K6_CHECK_STEP = 64
 
 
-def phase_serving(seed: int = 0) -> dict:
+def _k6_live_check(e, cfg, seed) -> dict:
+    """K6 against its plain version on layer 0's live cache, at the lengths
+    of the step just run (a check, not a main-path launch)."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+
+    dev = e.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((SERVE_SLOTS, cfg.n_heads, cfg.head_dim),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    k, v = e.cache["g0"]["k"][0], e.cache["g0"]["v"][0]
+    lengths = e.cache["length"]
+    before = DAK.launches["decode_attn"]
+    got = DAK.decode_attn(q, k, v, lengths)
+    want = DAR.decode_attn_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    DAK.launches["decode_attn"] = before
+    cmp = _k6_compare(got, want)
+    return {**cmp, "lengths": lengths.cpu().tolist()}
+
+
+class _K7Capture:
+    """Keeps a copy of the first SSD scan's inputs that the model runs
+    (layer 0 of the first admission): ``repro_torch.models.ssm.ssd_scan``
+    wrapped while the serving run lasts."""
+
+    def __init__(self):
+        from repro_torch.models import ssm as SSM
+        self.module, self.scan, self.args = SSM, SSM.ssd_scan, None
+
+    def __enter__(self):
+        def scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
+            if self.args is None:
+                self.args = (tuple(t.clone() for t in (x, dt, A, Bm, Cm,
+                                                       init_state)), chunk)
+            return self.scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+        self.module.ssd_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ssd_scan = self.scan
+
+    def check(self) -> dict:
+        """K7 against its plain version on the captured inputs, padded as
+        the wrapper pads them (a check, not a main-path launch)."""
+        from repro_torch.kernels.ssd_chunk import kernel as SSK
+        from repro_torch.kernels.ssd_chunk import ops as SSO
+        from repro_torch.kernels.ssd_chunk import ref as SSR
+
+        (x, dt, A, Bm, Cm, s0), Q = self.args
+        xp, dtp, Bp, Cp = (t.contiguous() for t in
+                           SSO.pad_to_chunks(x, dt, Bm, Cm, Q))
+        before = SSK.launches["ssd_chunk"]
+        got = SSK.ssd_chunk(xp, dtp, A, Bp, Cp, s0, chunk=Q)
+        want = SSR.ssd_chunked_ref(xp, dtp, A, Bp, Cp, s0, chunk=Q)
+        torch.cuda.synchronize()
+        SSK.launches["ssd_chunk"] = before
+        return {**_k7_compare(got, want), "T": x.shape[1], "Q": Q,
+                "dt_range": [float(dt.min()), float(dt.max())]}
+
+
+def _serve_full_width(arch: str, seed: int, check_step: int, check) -> dict:
+    """The serving path at full width: ``ServingEngine`` on ``arch`` with
+    bf16 weights from the port's seeded init, the traffic above, a
+    rebalance every 6 steps and the most-loaded shard failed at step 8.
+    ``check(engine, cfg)`` runs after step ``check_step``; its time is
+    taken out of the run's.  Gates: every request finishes, no sequence
+    stays on the dead shard, and the kernels of the path launch as often as
+    its layers need them: K6 on every attention layer of every decode step,
+    K7 on every SSM layer of every prefill."""
     from repro_torch import models as M
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import kernel as DAK
-    from repro_torch.kernels.decode_attn import ref as DAR
     from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.launch.serve import serve_loop
     from repro_torch.serving.engine import ServingEngine
 
     dev = torch.device("cuda")
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed, device=dev)
@@ -1011,76 +1237,69 @@ def phase_serving(seed: int = 0) -> dict:
     for n in plens:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)),
                    max_new_tokens=SERVE_NEW)
-    k6_check: dict = {}
+    live: dict = {}
 
     def on_step(step, e):
-        # K6 against its plain version on layer 0's live cache, at the
-        # lengths of the step just run (a check, not a main-path launch;
-        # its time is taken out of the run's)
-        if step != SERVE_K6_CHECK_STEP:
+        if step != check_step:
             return
         torch.cuda.synchronize()
         tc = time.perf_counter()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        q = torch.randn((SERVE_SLOTS, cfg.n_heads, cfg.head_dim),
-                        generator=gen, device=dev).to(torch.bfloat16)
-        k, v = e.cache["g0"]["k"][0], e.cache["g0"]["v"][0]
-        lengths = e.cache["length"]
-        before = DAK.launches["decode_attn"]
-        got = DAK.decode_attn(q, k, v, lengths)
-        want = DAR.decode_attn_ref(q, k, v, lengths)
-        torch.cuda.synchronize()
-        DAK.launches["decode_attn"] = before
-        cmp = _k6_compare(got, want)
-        if not cmp.pop("ok"):
-            raise AssertionError(f"serving: K6 off its plain version at step "
-                                 f"{step}: {cmp}")
-        k6_check.update(step=step, **cmp, lengths=lengths.cpu().tolist())
-        k6_check["seconds"] = time.perf_counter() - tc
+        res = check(e, cfg)
+        if not res.pop("ok"):
+            raise AssertionError(f"serving {arch}: kernel off its plain "
+                                 f"version at step {step}: {res}")
+        live.update(step=step, **res, seconds=time.perf_counter() - tc)
 
     DAK.reset_launches()
     RMK.reset_launches()                       # counts of the main path
+    SSK.reset_launches()
     t1 = time.perf_counter()
     records = serve_loop(eng, rebalance_every=SERVE_REBALANCE_EVERY,
                          fail_shard_at=SERVE_FAIL_AT, on_step=on_step)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1 - k6_check.get("seconds", 0.0)
+    run_s = time.perf_counter() - t1 - live.get("seconds", 0.0)
     launches = {"decode_attn": DAK.launches["decode_attn"],
-                "range_match": RMK.launches["range_match"]}
+                "range_match": RMK.launches["range_match"],
+                "ssd_chunk": SSK.launches["ssd_chunk"]}
     decode_ms = eng.decode_ms()
     # gates: every request finished with its tokens; the failover moved
     # every sequence off the dead shard and none sat on it afterwards
     done = eng.finished
     short = [r for r in done.values() if len(r.out_tokens) != SERVE_NEW]
     if len(done) != SERVE_REQUESTS or short:
-        raise AssertionError(f"serving: {len(done)} of {SERVE_REQUESTS} "
-                             f"finished, {len(short)} short")
+        raise AssertionError(f"serving {arch}: {len(done)} of "
+                             f"{SERVE_REQUESTS} finished, {len(short)} short")
     (victim, failed_over), = [r["failed"] for r in records if "failed" in r]
     # (a step's record holds its seats before that step's failure)
     seated = sum(sh == victim for r in records if r["step"] > SERVE_FAIL_AT
                  for sh in r["slot_shard"])
     stayed = sum(done[rid].shard == victim for rid in failed_over)
     if not failed_over or seated or stayed:
-        raise AssertionError(f"serving: shard {victim} failed over "
+        raise AssertionError(f"serving {arch}: shard {victim} failed over "
                              f"{len(failed_over)}; {seated} seats and "
                              f"{stayed} failed-over requests on it after")
-    if launches["decode_attn"] != cfg.n_layers * len(decode_ms) \
-            or launches["range_match"] <= 0 or not k6_check:
-        raise AssertionError(f"serving: launches {launches} over "
-                             f"{len(decode_ms)} decode steps, K6 check "
-                             f"{k6_check}")
+    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
+    if (launches["decode_attn"] != attn * cfg.n_layers * len(decode_ms)
+            or launches["ssd_chunk"] != ssm * cfg.n_layers * SERVE_REQUESTS
+            or launches["range_match"] <= 0 or not live):
+        raise AssertionError(f"serving {arch}: launches {launches} over "
+                             f"{len(decode_ms)} decode steps and "
+                             f"{SERVE_REQUESTS} prefills, check {live}")
     tokens = sum(len(r.out_tokens) for r in done.values())
     rebal = [r["rebalance"] for r in records if "rebalance" in r]
+    reduced = {"batch": "decode_32k's 128 -> 32 slots"}
+    if attn:
+        reduced["cache_len"] = "decode_32k's 32,768 -> 8,192"
     out = {
-        "phase": "serving", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+        "arch": arch, "dtype": cfg.dtype,
         "params": M.param_count(params), "param_bytes": M.param_bytes(params),
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for k, g in eng.cache.items() if k != "length"
+                           for t in g.values()),
         "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
         "shards": SERVE_SHARDS, "replication": 2,
         "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
-        "prompt_tokens": int(plens.sum()),
-        "reduced": {"batch": "decode_32k's 128 -> 32 slots",
-                    "cache_len": "decode_32k's 32,768 -> 8,192"},
+        "prompt_tokens": int(plens.sum()), "reduced": reduced,
         "setup_s": setup_s, "run_s": run_s, "steps": len(records),
         "tokens": tokens, "tokens_per_s": tokens / run_s,
         "prefill_s_p50": float(np.percentile(eng.prefill_seconds, 50)),
@@ -1090,17 +1309,37 @@ def phase_serving(seed: int = 0) -> dict:
         "decode_ms_p50": float(np.percentile(decode_ms, 50)),
         "decode_ms_p99": float(np.percentile(decode_ms, 99)),
         "decode_ms_total": float(sum(decode_ms)),
-        "launches": launches, "k6_check": k6_check,
+        "launches": launches, "live_check": live,
         "rebalances": len(rebal),
         "migration_ops": sum(len(ops) for _, ops in rebal),
         "moved_sequences": sum(m for m, _ in rebal),
         "failed_shard": victim, "failed_over": len(failed_over),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
-    emit(out)
     del eng, params
     torch.cuda.empty_cache()
     return out
+
+
+def phase_serving(seed: int = 0) -> dict:
+    """qwen2-1.5b at full width; K6 held against its plain version on layer
+    0's live cache at step 64."""
+    out = {"phase": "serving", **_serve_full_width(
+        SERVE_ARCH, seed, SERVE_K6_CHECK_STEP,
+        lambda e, cfg: _k6_live_check(e, cfg, seed))}
+    emit(out)
+    return out
+
+
+def phase_serving_ssm(seed: int = 0) -> dict:
+    """mamba2-370m at full width; K7 held against its plain version on
+    layer 0's live scan inputs of the first prefill, after step 1."""
+    with _K7Capture() as cap:
+        out = {"phase": "serving_ssm", **_serve_full_width(
+            SERVE_SSM_ARCH, seed, 1, lambda e, cfg: cap.check())}
+    emit(out)
+    return out
+
 
 
 def phase_profile() -> dict:
@@ -1230,20 +1469,23 @@ def main(argv=None) -> int:
         phase_parity()
     full = phase_full_width() if "full_width" in phases else None
     serving = phase_serving() if "serving" in phases else None
+    serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
     if "profile" in phases:
         phase_profile()
     if "serving_profile" in phases:
         phase_serving_profile()
     if kernels is not None:
-        # one row a kernel: K3 as the main path runs it (no key filter) and
-        # K6 at decode_32k; their other cases are in the kernels phase's
-        # own lines.  Launches: each main path's count, read after its own
-        # run (the epoch driver's full-width runs, the serving run), in
+        # one row a kernel: K3 as the main path runs it (no key filter), K6
+        # at decode_32k and K7 over its 32,768-token prefill; their other
+        # cases are in the kernels phase's own lines.  Launches: each main
+        # path's count, read after its own run (the epoch driver's
+        # full-width runs, the qwen2 and mamba2 serving runs), in
         # launches_by_path; launches is their sum
         paths = {name: p["launches"] for name, p in
-                 (("full_width", full), ("serving", serving)) if p is not None}
+                 (("full_width", full), ("serving", serving),
+                  ("serving_ssm", serving_ssm)) if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
-                     and r.get("case", K6_CASES[0][0]) == K6_CASES[0][0]]
+                     and r.get("main", True)]
         for row in main_rows:
             row["launches_by_path"] = {name: p.get(row["name"], 0)
                                        for name, p in paths.items()}

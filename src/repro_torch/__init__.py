@@ -9,9 +9,11 @@ hand-written CUDA kernels on an NVIDIA Hopper card
 (:mod:`repro_torch.kernels.range_match`); on CPU tensors the kernels'
 plain PyTorch versions run instead.  The same directory routes the KV
 cache of a continuous-batching LLM serving engine
-(:mod:`repro_torch.serving`) over the dense decoder-only models
-(:mod:`repro_torch.models`), whose decode attention is a CUDA kernel too
-(:mod:`repro_torch.kernels.decode_attn`).
+(:mod:`repro_torch.serving`) over the dense, Mamba-2 and Hymba
+decoder-only models (:mod:`repro_torch.models`), whose decode attention
+and SSD chunked scan are CUDA kernels too
+(:mod:`repro_torch.kernels.decode_attn`,
+:mod:`repro_torch.kernels.ssd_chunk`).
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.
 """

@@ -155,21 +155,24 @@ def params_from_numpy(cfg, tree, device=None, dtype: torch.dtype | None = None):
     the port's dict of tensors, leaf for leaf, every float leaf cast to
     ``dtype`` (default ``cfg.dtype``, the dtype the model serves in: the
     reference's float32 master weights do not serve under a bfloat16
-    config, ROADMAP F7)."""
+    config, ROADMAP F7; the SSM's float32 ``A_log``, ``D`` and ``dt_bias``
+    are cast too, as the reference's training step casts them)."""
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
     return _tree_from_numpy(tree, resolve_device(device), dtype)
 
 
 def cache_from_numpy(tree, device=None) -> dict:
     """The reference's decode cache (``length`` and each group's stacked
-    ``k`` / ``v``) as the port's tensors, in the arrays' own dtypes."""
+    ``k`` / ``v`` and Mamba ``conv`` / ``ssm`` states) as the port's
+    tensors, in the arrays' own dtypes."""
     return _tree_from_numpy(tree, resolve_device(device), None)
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    """The port's decode cache as numpy arrays: ``length`` int32, K/V in
-    their dtype (bfloat16 as float32, which holds it exactly).  Copies:
-    ``decode_step`` writes into the cache's tensors in place."""
+    """The port's decode cache as numpy arrays: ``length`` int32, K/V and
+    the states in their dtype (bfloat16 as float32, which holds it
+    exactly).  Copies: ``decode_step`` writes into the cache's tensors in
+    place."""
     def host(t):
         if isinstance(t, dict):
             return {k: host(v) for k, v in t.items()}

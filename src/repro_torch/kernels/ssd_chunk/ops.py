@@ -1,0 +1,64 @@
+"""The public SSD wrappers (counterpart of
+``repro.kernels.ssd_chunk.ops``): the chunked scan, with its padding,
+runs the plain version on CPU tensors and K7 on CUDA tensors (any number
+of B/C groups: K7 takes G > 1, where the reference falls back to jnp);
+the one-token decode step is plain tensor code, as in the reference."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import on_cpu
+from repro_torch.kernels.ssd_chunk import kernel
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunked_ref
+
+
+def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
+    """Run the SSD scan; returns (y (B, T, H, P), final_state (B, H, P, N)).
+
+    x (B, T, H, P), dt (B, T, H) positive, A (H,) negative, Bm / Cm
+    (B, T, N) or (B, T, G, N), init_state (B, H, P, N) or None (zeros).
+    T is padded to a chunk multiple with dt = 0 steps, which leave the
+    state exactly as it is (decay exp(0) = 1, input weight 0); the padded
+    outputs are trimmed."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if init_state is None:
+        init_state = torch.zeros((B, H, P, N), dtype=torch.float32,
+                                 device=x.device)
+    x, dt, Bm, Cm = pad_to_chunks(x, dt, Bm, Cm, chunk)
+    if on_cpu(x, dt, A, Bm, Cm, init_state):
+        y, fs = ssd_chunked_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+    else:
+        if Bm.dim() == 3:
+            Bm, Cm = Bm[:, :, None, :], Cm[:, :, None, :]
+        y, fs = kernel.ssd_chunk(
+            x.contiguous(), dt.contiguous(), A.contiguous(), Bm.contiguous(),
+            Cm.contiguous(), init_state.contiguous(), chunk=chunk)
+    return y[:, :T], fs
+
+
+def pad_to_chunks(x, dt, Bm, Cm, chunk: int):
+    """x, dt, Bm, Cm padded along T (dim 1) with zeros to a multiple of
+    ``chunk``; dt = 0 rows leave the scan's state as it is."""
+    pad = -x.shape[1] % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        pad_bc = (0, 0) * (Bm.dim() - 2) + (0, pad)
+        Bm = F.pad(Bm, pad_bc)
+        Cm = F.pad(Cm, pad_bc)
+    return x, dt, Bm, Cm
+
+
+def ssd_decode_step(x_t, dt_t, A, b_t, c_t, state):
+    """One token of the recurrence for serving (no kernel: O(H P N)).
+
+    x_t (B, H, P), dt_t (B, H), b_t / c_t (B, N), state (B, H, P, N).
+    Returns (y_t (B, H, P), new_state)."""
+    decay = torch.exp(dt_t * A[None, :])                        # (B,H)
+    state = decay[:, :, None, None] * state + (
+        (dt_t[:, :, None] * x_t)[:, :, :, None] * b_t[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", state, c_t)
+    return y, state

@@ -7,6 +7,12 @@ injection):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --requests 24 --fail-shard-at 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --reduced --device cpu
+
+Any ported family serves: dense (qwen2, qwen3, gemma3), ssm (mamba2) and
+hybrid (hymba, whose meta tokens take cache rows: ``--cache-len`` must
+hold them and the prompt).
 
 ``--device`` defaults to the CUDA card; ``--device cpu`` runs the plain
 versions on the host.  The weights come from the port's seeded init, in

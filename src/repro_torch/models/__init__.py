@@ -1,5 +1,5 @@
-"""Model zoo on PyTorch: the dense decoder-only family (counterpart of
-``repro.models``)."""
+"""Model zoo on PyTorch: the dense, SSM and hybrid decoder-only families
+(counterpart of ``repro.models``)."""
 
 from repro_torch.models.model import (
     decode_step,

@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, the ``dense`` layer kind (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer stack, the ``dense``, ``ssm`` and ``hybrid``
+layer kinds (counterpart of ``repro.models.transformer``).
 
 Parameters are a dict of tensors mirroring the reference's pytree: every
 layer leaf is stacked with a leading layer axis under its group's name
@@ -9,15 +9,21 @@ across leaf for leaf.  The reference scans the layer axis with
 layer's ``is_global`` flag a host bool (window or no window).
 
 The cache returned by :func:`prefill` and threaded by :func:`decode_step`
-keeps one stacked ``{"k", "v"}`` entry per group, (L, B, S, Hkv, Dh), and
-the shared ``length`` (B,) int32.  :func:`decode_step` writes the new
-token's K/V into those tensors in place.
+keeps one stacked entry per group and the shared ``length`` (B,) int32:
+``{"k", "v"}`` (L, B, S, Hkv, Dh) for ``dense``; the Mamba states
+``{"conv", "ssm"}``, (L, B, d_conv - 1, conv_ch) in ``cfg.dtype`` and (L,
+B, H, P, N) float32, for ``ssm``; all four for ``hybrid``.  The states are
+not sequence-indexed, so :func:`prefill` pads only K/V.
+:func:`decode_step` writes the new token's K/V and the new states into
+those tensors in place.
 
 Every floating parameter must be in ``cfg.dtype`` (ROADMAP F7): the
 reference's serving path fails on float32 weights under a bfloat16 config,
 and PyTorch does not promote ``bf16 @ f32`` either, so a mismatch raises.
-The ``mla``, ``moe``, ``pair``, ``ssm`` and ``hybrid`` kinds and the
-``vlm`` family are not ported yet and raise ``NotImplementedError``.
+That includes the SSM's ``A_log``, ``D`` and ``dt_bias``, which the
+reference keeps in float32 and its training step casts like the rest.
+The ``mla``, ``moe`` and ``pair`` kinds and the ``vlm`` family are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FF
+from repro_torch.models import hybrid as HY
+from repro_torch.models import ssm as S
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -78,12 +86,16 @@ def global_flags(cfg: ArchConfig, layer_ids: tuple[int, ...]) -> list[bool]:
     return flags
 
 
+PORTED_KINDS = ("dense", "ssm", "hybrid")
+STATE_KEYS = ("conv", "ssm")    # cache entries that are not sequence-indexed
+
+
 def _ported_groups(cfg: ArchConfig) -> list[GroupSpec]:
     groups = layer_groups(cfg)
     if cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: the vlm family is not ported yet")
     for g in groups:
-        if g.kind != "dense":
+        if g.kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {g.kind!r} is not ported yet")
     return groups
@@ -139,8 +151,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     for g in groups:
         L = g.n_layers
         norm = lambda: fill((L, D), dtype=dtype, device=dev)  # noqa: E731
+        if g.kind == "ssm":
+            params[g.name] = {"ln1": norm(),
+                              "ssm": S.init_ssm(gen, cfg, dtype, L)}
+            continue
+        mlp = lambda: FF.init_swiglu(gen, D, cfg.d_ff, dtype, L)  # noqa: E731
+        if g.kind == "hybrid":
+            params[g.name] = {"ln1": norm(),
+                              "mix": HY.init_hybrid(gen, cfg, dtype, L),
+                              "ln2": norm(), "mlp": mlp()}
+            continue
         p = {"ln1": norm(), "attn": A.init_gqa(gen, cfg, dtype, L),
-             "ln2": norm(), "mlp": FF.init_swiglu(gen, D, cfg.d_ff, dtype, L)}
+             "ln2": norm(), "mlp": mlp()}
         if cfg.post_norms:
             p["ln1_post"] = norm()
             p["ln2_post"] = norm()
@@ -180,25 +202,47 @@ def _ffn_seq(x, lp, cfg: ArchConfig):
     return x + cfg.residual_scale * y
 
 
+def _layer_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
+               return_cache: bool):
+    """One layer of ``kind``; returns (x, its cache entry or None)."""
+    if kind == "ssm":
+        h = _norm(x, lp["ln1"], cfg)
+        if return_cache:
+            y, sstate, cstate = S.ssm_seq(h, lp["ssm"], cfg, return_state=True)
+            return x + y, {"conv": cstate, "ssm": sstate}
+        return x + S.ssm_seq(h, lp["ssm"], cfg), None
+    if kind == "hybrid":
+        h = _norm(x, lp["ln1"], cfg)
+        cache = None
+        if return_cache:
+            y, (k, v), (cstate, sstate) = HY.hybrid_seq(
+                h, lp["mix"], cfg, is_global=is_global, return_state=True)
+            cache = {"k": k, "v": v, "conv": cstate, "ssm": sstate}
+        else:
+            y = HY.hybrid_seq(h, lp["mix"], cfg, is_global=is_global)
+        return _ffn_seq(x + y, lp, cfg), cache
+    x, kv = _attn_seq(x, lp, cfg, is_global, return_cache)
+    return _ffn_seq(x, lp, cfg), ({"k": kv[0], "v": kv[1]} if return_cache
+                                  else None)
+
+
 def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
                 return_cache: bool = False):
     """Run all layer groups over x (B, T, D) embeddings (already scaled).
 
-    Returns ``(x, caches)``: caches maps each group to its stacked
-    ``{"k", "v"}`` (L, B, T, Hkv, Dh), or is None."""
+    Returns ``(x, caches)``: caches maps each group to its stacked entries
+    (K/V (L, B, T, Hkv, Dh), the Mamba states (L, B, ...)), or is None."""
     caches = {}
     for g in _ported_groups(cfg):
         flags = global_flags(cfg, g.layer_ids)
-        ks, vs = [], []
+        entries = []
         for l in range(g.n_layers):
             lp = _layer(params[g.name], l)
-            x, kv = _attn_seq(x, lp, cfg, flags[l], return_cache)
-            x = _ffn_seq(x, lp, cfg)
-            if return_cache:
-                ks.append(kv[0])
-                vs.append(kv[1])
+            x, entry = _layer_seq(x, lp, cfg, g.kind, flags[l], return_cache)
+            entries.append(entry)
         if return_cache:
-            caches[g.name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            caches[g.name] = {k: torch.stack([e[k] for e in entries])
+                              for k in entries[0]}
     return x, (caches if return_cache else None)
 
 
@@ -244,7 +288,9 @@ def lm_head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
-    """Full forward building the KV cache sized to ``cache_len``.
+    """Full forward building the cache, K/V sized to ``cache_len`` (or to
+    T when the prompt and its meta tokens are longer); the Mamba states
+    are not sequence-indexed and stay as they are.
 
     Returns (last_logits (B, V), cache dict)."""
     check_param_dtypes(params, cfg)
@@ -255,7 +301,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
     xl = _norm(x[:, -1:], params["final_norm"], cfg)
     logits = lm_head(params, cfg, xl)[:, 0]
     padded: dict = {
-        gname: {k: F.pad(t, (0, 0, 0, 0, 0, cache_len - T))
+        gname: {k: (t if k in STATE_KEYS
+                    else F.pad(t, (0, 0, 0, 0, 0, cache_len - T)))
                 for k, t in cache.items()}
         for gname, cache in caches.items()
     }
@@ -266,7 +313,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
 def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
                 cache: dict):
     """One decode step.  tokens_t (B,) ids; cache from prefill/empty_cache,
-    whose K/V tensors take the new token's rows in place.
+    whose K/V tensors take the new token's rows, and whose Mamba states
+    the new states, in place.
 
     Returns (logits (B, V), new cache)."""
     check_param_dtypes(params, cfg)
@@ -278,9 +326,23 @@ def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
         gc = cache[g.name]
         for l in range(g.n_layers):
             lp = _layer(params[g.name], l)
-            x = _attn_decode(x, lp, cfg, gc["k"][l], gc["v"][l], length,
-                             flags[l])
-            x = _ffn_seq(x, lp, cfg)
+            if g.kind == "dense":
+                x = _attn_decode(x, lp, cfg, gc["k"][l], gc["v"][l], length,
+                                 flags[l])
+                x = _ffn_seq(x, lp, cfg)
+                continue
+            h = _norm(x, lp["ln1"], cfg)
+            if g.kind == "ssm":
+                y, conv, sst = S.ssm_decode(h, lp["ssm"], cfg, gc["conv"][l],
+                                            gc["ssm"][l])
+                x = x + y
+            else:
+                y, _, _, conv, sst = HY.hybrid_decode(
+                    h, lp["mix"], cfg, gc["k"][l], gc["v"][l], length,
+                    gc["conv"][l], gc["ssm"][l], is_global=flags[l])
+                x = _ffn_seq(x + y, lp, cfg)
+            gc["conv"][l].copy_(conv)
+            gc["ssm"][l].copy_(sst)
         new_cache[g.name] = gc
     x = _norm(x, params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)[:, 0]
@@ -299,13 +361,24 @@ def _attn_decode(xc, lp, cfg: ArchConfig, k_cache, v_cache, length,
 
 def empty_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                 length: int = 0, device=None) -> dict:
-    """A zeroed cache of ``batch`` sequences of ``cache_len`` positions."""
+    """A zeroed cache of ``batch`` sequences of ``cache_len`` positions:
+    K/V in ``cfg.dtype``, the conv state in ``cfg.dtype``, the SSM state in
+    float32."""
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
     caches: dict = {"length": torch.full((batch,), length, dtype=torch.int32,
                                          device=dev)}
     for g in _ported_groups(cfg):
-        shape = (g.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        caches[g.name] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                          "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        L, entry = g.n_layers, {}
+        if g.kind in ("dense", "hybrid"):
+            shape = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+            entry["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            entry["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        if g.kind in ("ssm", "hybrid"):
+            H, P, N, _, _, conv_ch, _ = S._dims(cfg)
+            entry["conv"] = torch.zeros((L, batch, cfg.d_conv - 1, conv_ch),
+                                        dtype=dtype, device=dev)
+            entry["ssm"] = torch.zeros((L, batch, H, P, N),
+                                       dtype=torch.float32, device=dev)
+        caches[g.name] = entry
     return caches

@@ -64,6 +64,10 @@ class ServingEngine:
         self.router = SequenceRouter.create(n_shards, device=self.device)
         self.cache = MODEL.empty_cache(cfg, n_slots, cache_len,
                                        device=self.device)
+        # K/V rows are sequence-indexed (the Mamba states are not): a
+        # prompt and its meta tokens must fit the cache
+        self.kv_cache = any("k" in entry for key, entry in self.cache.items()
+                            if key != "length")
         self.slot_shard = np.full((n_slots,), -1, np.int32)
         self.free = list(range(n_slots))
         self.active: dict[int, Request] = {}
@@ -75,10 +79,19 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> int:
+        """Queue a request; with a K/V cache, its prompt and the config's
+        meta tokens must fit ``cache_len`` (the reference has the same
+        limit, where it fails later on the slot's shape)."""
+        prompt = np.asarray(prompt, np.int32)
+        rows = self.cfg.n_meta_tokens + len(prompt)
+        if self.kv_cache and rows > self.cache_len:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens + {self.cfg.n_meta_tokens} "
+                f"meta tokens needs {rows} cache positions; the engine's "
+                f"cache_len is {self.cache_len}")
         rid = self._next_id
         self._next_id += 1
-        self.waiting.append(Request(rid, np.asarray(prompt, np.int32),
-                                    max_new_tokens))
+        self.waiting.append(Request(rid, prompt, max_new_tokens))
         return rid
 
     # ------------------------------------------------------------------
@@ -104,8 +117,8 @@ class ServingEngine:
 
     def _write_slot(self, slot: int, cache1: dict):
         """Copy a batch-1 cache into slot ``slot`` of the engine cache: the
-        length at ``[slot]``, each group's stacked (L, B, ...) K/V at
-        ``[:, slot]``.  (The reference finds the batch axis by its size,
+        length at ``[slot]``, each group's stacked (L, B, ...) K/V and Mamba
+        states at ``[:, slot]``.  (The reference finds the batch axis by its size,
         which picks the layer axis when n_layers == n_slots, ROADMAP F9.)"""
         for key, dst in self.cache.items():
             if key == "length":

@@ -388,3 +388,132 @@ def test_serving_card_matches_cpu(dev, no_tf32):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# K7 ssd_chunk
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(seed, B, T, H, P, N, G, dev, dt_hi=0.1, a_hi=2.0):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    return (f(rng.normal(size=(B, T, H, P))),
+            f(rng.uniform(0.001, dt_hi, (B, T, H))),
+            f(-rng.uniform(0.5, a_hi, H)),
+            f(rng.normal(size=(B, T, G, N))), f(rng.normal(size=(B, T, G, N))),
+            f(rng.normal(size=(B, H, P, N)) * 0.1))
+
+
+def _ssd_close(got, want):
+    """K7 against its plain version: |err| <= 2e-4 (1 + |want|), the
+    tolerance of tests/test_kernels.py scaled by the output."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        err = ((a - b).abs() / (1 + b.abs())).max()
+        assert float(err) <= 2e-4, float(err)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,chunk", [
+    (1, 32, 2, 8, 4, 1, 8), (2, 128, 4, 16, 8, 1, 32),
+    (2, 250, 8, 32, 16, 1, 64),               # test_ssd_sweep's shapes
+    (2, 64, 4, 8, 4, 2, 16),                  # test_ssd_grouped_fallback's
+    (2, 33, 4, 16, 8, 1, 8),                  # test_ssd_decode_matches_scan_tail's
+    (1, 10, 4, 16, 16, 1, 10),                # the reduced configs, Q 10
+    (3, 23, 4, 16, 16, 1, 8),                 # ragged T, padded
+    (1, 300, 32, 64, 128, 1, 128),            # mamba2's heads
+    (2, 230, 50, 64, 16, 1, 100),             # hymba's heads, Q 100
+])
+def test_ssd_chunk_kernel_matches_plain(dev, B, T, H, P, N, G, chunk):
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.kernels.ssd_chunk import ops as SO
+
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(T + N, B, T, H, P, N, G, dev)
+    before = SK.launches["ssd_chunk"]
+    got = SO.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    assert SK.launches["ssd_chunk"] == before + 1
+    cpu = [t.cpu() for t in (x, dt, A, Bm, Cm, s0)]
+    want = SO.ssd_scan(*cpu, chunk=chunk)
+    torch.cuda.synchronize()
+    _ssd_close([t.cpu() for t in got], want)
+
+
+def test_ssd_chunk_kernel_model_ranges(dev):
+    """The model's ranges: dt up to softplus(1) and A down to -16, where the
+    decays within a chunk of 128 reach exp(-1,700)."""
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.kernels.ssd_chunk import ref as SR
+
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(3, 1, 512, 32, 64, 128, 1, dev,
+                                       dt_hi=1.3, a_hi=16.0)
+    got = SK.ssd_chunk(x, dt, A, Bm, Cm, s0, chunk=128)
+    want = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, s0, chunk=128)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _ssd_close(got, want)
+
+
+def test_ssd_chunk_kernel_refuses_what_it_lacks(dev):
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(4, 1, 32, 2, 16, 8, 1, dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.ssd_chunk(*(t.cpu() for t in (x, dt, A, Bm, Cm, s0)), chunk=8)
+    with pytest.raises(TypeError):
+        SK.ssd_chunk(x.half(), dt, A, Bm, Cm, s0, chunk=8)
+    with pytest.raises(TypeError):
+        SK.ssd_chunk(*(t.to(torch.bfloat16) for t in (x, dt, A, Bm, Cm, s0)),
+                     chunk=8)
+    with pytest.raises(ValueError, match="head dim"):
+        x24, dt24, A24, B24, C24, s24 = _ssd_inputs(4, 1, 32, 2, 24, 8, 1, dev)
+        SK.ssd_chunk(x24, dt24, A24, B24, C24, s24, chunk=8)
+    with pytest.raises(ValueError, match="state dim"):
+        x6, dt6, A6, B6, C6, s6 = _ssd_inputs(4, 1, 32, 2, 16, 32, 1, dev)
+        SK.ssd_chunk(x6, dt6, A6, B6, C6, s6, chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        SK.ssd_chunk(x, dt, A, Bm, Cm, s0, chunk=12)          # 32 % 12
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.ssd_chunk(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     Bm, Cm, s0, chunk=8)
+    with pytest.raises(ValueError, match="groups"):
+        SK.ssd_chunk(x, dt, A, torch.cat([Bm] * 3, 2), torch.cat([Cm] * 3, 2),
+                     s0, chunk=8)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_serving_card_matches_cpu(dev, no_tf32, arch):
+    """The reduced mamba2 / hymba engine (f32) on the card against itself on
+    the CPU: equal tokens and traces, every picked logits row within 1e-4,
+    and the card's prefills through K7 (one launch a layer an admission)."""
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, 0, device="cpu")
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        eng = ServingEngine(cfg, _to(params, device), n_slots=3, cache_len=64,
+                            n_shards=4, device=device)
+        picked = []
+        pick = eng._pick
+        eng._pick = lambda lg, pick=pick, picked=picked: (
+            picked.append(lg[: cfg.vocab_size].copy()), pick(lg))[1]
+        for i in range(7):
+            eng.submit(np.arange(4 + 3 * i) % cfg.vocab_size, max_new_tokens=5)
+        SK.reset_launches()
+        trace = serve_loop(eng, rebalance_every=2, fail_shard_at=3)
+        for rec in trace:
+            if "rebalance" in rec:
+                rec["rebalance"] = (rec["rebalance"][0],
+                                    [tuple(vars(o).values())
+                                     for o in rec["rebalance"][1]])
+        runs.append((trace, {r: q.out_tokens for r, q in eng.finished.items()},
+                     picked, SK.launches["ssd_chunk"]))
+    (tc, kc, pc, k7c), (tp, kp, pp, k7p) = runs
+    assert kc == kp and tc == tp and len(pc) == len(pp)
+    for a, b in zip(pc, pp):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert k7c == cfg.n_layers * 7 and k7p == 0

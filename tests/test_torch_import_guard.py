@@ -57,6 +57,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.kernels.decode_attn, repro_torch.serving.engine\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.kernels.ssd_chunk, repro_torch.models.ssm\n"
+        "import repro_torch.models.hybrid\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -77,8 +79,11 @@ def test_port_modules_found():
     assert "repro_torch/core/hierarchy.py" in MODULES
     for mod in ("configs/qwen2_1_5b.py", "models/transformer.py",
                 "kernels/decode_attn/kernel.py", "serving/engine.py",
-                "launch/serve.py"):
+                "launch/serve.py", "kernels/ssd_chunk/kernel.py",
+                "kernels/ssd_chunk/ops.py", "kernels/ssd_chunk/ref.py",
+                "models/ssm.py", "models/hybrid.py"):
         assert f"repro_torch/{mod}" in MODULES
     assert (PORT / "kernels/range_match/csrc/range_match.cu").exists()
     assert (PORT / "kernels/decode_attn/csrc/decode_attn.cu").exists()
+    assert (PORT / "kernels/ssd_chunk/csrc/ssd_chunk.cu").exists()
     assert (PORT / "core/des_core.c").exists()

@@ -2,7 +2,8 @@
 blocks (RMSNorm, RoPE, the blockwise prefill attention, GQA decode and its
 cache write), then prefill + decode of the dense family at the reduced
 sizes, with the reference's weights carried across by
-``convert.params_from_numpy``."""
+``convert.params_from_numpy``; the init layouts and layer groups of every
+family (the ssm and hybrid model path is in ``test_torch_ssm.py``)."""
 
 import sys
 
@@ -248,15 +249,51 @@ def test_port_init_layout_matches_reference():
         assert torch.all(params["final_norm"] == fill)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b",
-                                  "mamba2-370m", "hymba-1.5b",
-                                  "whisper-small", "internvl2-26b"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_family_init_layout_matches_reference(arch):
+    """The port's own init of the ssm and hybrid families gives the
+    reference's tree (leaves and shapes), every float leaf in cfg.dtype
+    (F7), and the reference's formulas for the SSM's constant leaves:
+    A_log = log(linspace(1, 16, H)), D ones, dt_bias zeros."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, 0, device="cpu")
+    jparams = JM.init_params(j_get_config(arch).reduced(),
+                             jax.random.PRNGKey(0))
+    jshapes = jax.tree.map(lambda a: tuple(a.shape), _tree_np(jparams))
+    params = TM.init_params(cfg, 0, device="cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), params) == jshapes
+    TT.check_param_dtypes(params, cfg)
+    ssm = params["g0"]["ssm" if arch == "mamba2-370m" else "mix"]
+    ssm = ssm if arch == "mamba2-370m" else ssm["ssm"]
+    jssm = jparams["g0"]["ssm" if arch == "mamba2-370m" else "mix"]
+    jssm = jssm if arch == "mamba2-370m" else jssm["ssm"]
+    for leaf in ("A_log", "D", "dt_bias", "norm_w", "conv_b"):
+        np.testing.assert_allclose(_np(ssm[leaf]), _np(jssm[leaf]), rtol=1e-6)
+    assert float(ssm["in_proj"].abs().max()) <= 3 * 0.02 + 1e-6
+    assert float(ssm["conv_w"].abs().max()) <= 3 * 0.2 + 1e-6
+    assert 0.18 < float(ssm["conv_w"].std()) < 0.22   # 0.197 at +-3 sigma
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-14b", "minicpm3-4b",
+                                  "qwen2-1.5b", "internvl2-26b", "hymba-1.5b",
+                                  "llama4-maverick-400b-a17b",
+                                  "deepseek-moe-16b", "whisper-small",
+                                  "mamba2-370m"])
+def test_layer_groups_match_reference(arch):
+    """The layer groups of every config, ported or not, equal the
+    reference's."""
+    cfg = get_config(arch).reduced()
     assert TT.layer_groups(cfg) == [
         TT.GroupSpec(**dataclasses.asdict(g))
         for g in __import__("repro.models.transformer",
                             fromlist=["x"]).layer_groups(
                                 j_get_config(arch).reduced())]
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b",
+                                  "whisper-small", "internvl2-26b"])
+def test_unported_families_raise(arch):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError):
+        TM.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TM.empty_cache(cfg, 1, 8, device="cpu")

@@ -2,7 +2,7 @@
 ``tests/test_serving.py`` on the port (its own seeded weights, CPU), and
 the engine against the reference's ``ServingEngine`` on the same requests
 and weights — token streams, logits, slot shards, rebalance ops and
-failovers."""
+failovers — for reduced qwen2 (dense), mamba2 (ssm) and hymba (hybrid)."""
 
 import sys
 
@@ -47,6 +47,19 @@ def ref_model():
     params = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
                                        "cpu")
     return jcfg, jparams, cfg, params
+
+
+@pytest.fixture(scope="module")
+def ssm_models():
+    """The reference's reduced mamba2 and hymba and their weights."""
+    out = {}
+    for arch in ("mamba2-370m", "hymba-1.5b"):
+        jcfg = j_get_config(arch).reduced()
+        jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+        cfg = get_config(arch).reduced()
+        out[arch] = (jcfg, jparams, cfg, convert.params_from_numpy(
+            cfg, jax.tree.map(np.asarray, jparams), "cpu"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +202,25 @@ def test_engine_matches_reference_engine(ref_model, n_slots, loop):
     (A rebalance after a failure differs by design, F10, and
     ``n_slots == n_layers`` trips the reference's slot write, F9: see the
     tests below.)"""
+    _check_engines(ref_model, n_slots, loop)
+
+
+@pytest.mark.parametrize("loop", [dict(rebalance_every=2),
+                                  dict(rebalance_every=0, fail_shard_at=2)],
+                         ids=["rebalance", "failover"])
+@pytest.mark.parametrize("n_slots", [3, 5])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_engine_matches_reference_engine(ssm_models, arch, n_slots, loop):
+    """The same for the ssm family (the slots' conv and SSM states written
+    at ``[:, slot]`` and stepped by the decode recurrence, prefill through
+    the chunked scan) and the hybrid one (K/V and states; 8 meta tokens
+    before each prompt in the 64-position cache)."""
+    _check_engines(ssm_models[arch], n_slots, loop)
+
+
+def _check_engines(model, n_slots, loop):
     (jtrace, jdone, jpicked), (ttrace, tdone, tpicked) = _both(
-        ref_model, n_slots, n_slots, **loop)
+        model, n_slots, n_slots, **loop)
     assert _tokens(tdone) == _tokens(jdone) and len(tdone) == 16
     assert ttrace == jtrace
     if "fail_shard_at" in loop:
@@ -200,6 +230,43 @@ def test_engine_matches_reference_engine(ref_model, n_slots, loop):
     assert len(tpicked) == len(jpicked)
     for i, (a, b) in enumerate(zip(tpicked, jpicked)):
         np.testing.assert_allclose(a, b, atol=1e-4, err_msg=f"pick {i}")
+
+
+def test_submit_refuses_a_prompt_past_the_cache(ssm_models):
+    """hymba's meta tokens take cache rows: a prompt whose meta tokens and
+    tokens exceed ``cache_len`` is refused at ``submit``.  The reference
+    has the same limit and fails at admission, on the slot's shape; a
+    prompt that just fits is served by both alike."""
+    jcfg, jparams, cfg, params = ssm_models["hymba-1.5b"]
+    n_meta = cfg.n_meta_tokens
+    eng = ServingEngine(cfg, params, n_slots=3, cache_len=n_meta + 6,
+                        n_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="cache_len"):
+        eng.submit(np.arange(7), max_new_tokens=2)
+    assert not eng.waiting
+    jeng = JEngine(jcfg, jparams, n_slots=3, cache_len=n_meta + 6, n_shards=2)
+    jeng.submit(np.arange(7), max_new_tokens=2)
+    with pytest.raises((TypeError, ValueError)):
+        jeng.run()
+    fits = np.arange(6, dtype=np.int32) + 3
+    rid = eng.submit(fits, max_new_tokens=3)
+    jeng = JEngine(jcfg, jparams, n_slots=3, cache_len=n_meta + 6, n_shards=2)
+    jrid = jeng.submit(fits, max_new_tokens=3)
+    assert eng.run()[rid].out_tokens == jeng.run()[jrid].out_tokens
+
+
+def test_ssm_engine_serves_prompts_past_the_cache(ssm_models):
+    """mamba2 keeps no K/V: its state does not grow with the prompt, so a
+    prompt longer than ``cache_len`` is served, as by a manual prefill and
+    decode."""
+    _, _, cfg, params = ssm_models["mamba2-370m"]
+    prompt = (np.arange(20, dtype=np.int32) * 7) % cfg.vocab_size
+    eng = ServingEngine(cfg, params, n_slots=3, cache_len=8, n_shards=2,
+                        device="cpu")
+    rid = eng.submit(prompt, max_new_tokens=4)
+    toks = _manual_decode(M.prefill, M.decode_step, params, cfg, prompt, 4,
+                          torch.tensor)
+    assert eng.run()[rid].out_tokens == toks
 
 
 def test_rebalance_after_failure_keeps_off_the_dead_shard_f10(ref_model):

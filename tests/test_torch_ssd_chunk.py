@@ -1,0 +1,194 @@
+"""K7's plain versions against the reference on the CPU: the port's
+``ssd_scan`` (which runs ``ssd_chunked_ref`` on CPU tensors) and
+``ssd_sequential_ref`` against the reference's Pallas kernel in interpret
+mode, its jnp chunked version and its exact recurrence, at the shapes of
+``tests/test_kernels.py`` and at chunk lengths that are not powers of
+two; the padding and the one-token decode step."""
+
+import sys
+
+import jax
+import jax.experimental
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
+    # forget the half-imported `repro` modules that earlier test modules'
+    # failed imports left behind
+    for _m in sorted(m for m in sys.modules if m.startswith("repro.")):
+        if _m.rpartition(".")[0] not in sys.modules:
+            del sys.modules[_m]
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_chunk import ops as JO
+from repro.kernels.ssd_chunk import ref as JR
+from repro_torch.kernels.ssd_chunk import kernel as K
+from repro_torch.kernels.ssd_chunk import ops as O
+from repro_torch.kernels.ssd_chunk import ref as R
+
+TOL = 2e-4      # tests/test_kernels.py's tolerance for ssd_chunk
+
+
+def _inputs(seed, B, T, H, P, N, G=None, zero_state=False):
+    """The reference test's distributions: dt in [0.001, 0.1], A in
+    [-2, -0.5], unit normal x, B, C and a 0.1-scaled initial state."""
+    rng = np.random.default_rng(seed)
+    bc = (B, T, N) if G is None else (B, T, G, N)
+    arrays = {
+        "x": rng.normal(size=(B, T, H, P)),
+        "dt": rng.uniform(0.001, 0.1, (B, T, H)),
+        "A": -rng.uniform(0.5, 2.0, H),
+        "Bm": rng.normal(size=bc),
+        "Cm": rng.normal(size=bc),
+        "s0": (np.zeros((B, H, P, N)) if zero_state
+               else rng.normal(size=(B, H, P, N)) * 0.1),
+    }
+    return {k: v.astype(np.float32) for k, v in arrays.items()}
+
+
+def _j(a):
+    return {k: jnp.asarray(v) for k, v in a.items()}
+
+
+def _t(a):
+    return {k: torch.tensor(v) for k, v in a.items()}
+
+
+def _args(d):
+    return d["x"], d["dt"], d["A"], d["Bm"], d["Cm"], d["s0"]
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=tol)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", [
+    (1, 32, 2, 8, 4, 8), (2, 128, 4, 16, 8, 32), (2, 250, 8, 32, 16, 64),
+])
+def test_ssd_sweep_matches_reference(B, T, H, P, N, chunk):
+    """``test_ssd_sweep``'s shapes: the port's scan within 2e-4 of the
+    reference's Pallas kernel (interpret mode) and of its recurrence."""
+    a = _inputs(B * T + N, B, T, H, P, N)
+    y, fs = O.ssd_scan(*_args(_t(a)), chunk=chunk)
+    jy, jfs = JO.ssd_scan(*_args(_j(a)), chunk=chunk, use_pallas=True,
+                          interpret=True)
+    sy, sfs = JR.ssd_sequential_ref(*_args(_j(a)))
+    assert y.shape == (B, T, H, P) and fs.shape == (B, H, P, N)
+    for got, want in ((y, jy), (fs, jfs), (y, sy), (fs, sfs)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("B,T,H,P,N", [(1, 32, 2, 8, 4), (2, 33, 4, 16, 8)])
+def test_sequential_ref_matches_reference(B, T, H, P, N):
+    a = _inputs(T, B, T, H, P, N)
+    y, fs = R.ssd_sequential_ref(*_args(_t(a)))
+    jy, jfs = JR.ssd_sequential_ref(*_args(_j(a)))
+    _close(y, jy, 1e-5)
+    _close(fs, jfs, 1e-5)
+
+
+def test_ssd_grouped_matches_reference():
+    """G 2 (``test_ssd_grouped_fallback``'s shape): the reference falls
+    back to its jnp chunked version there, and so does its model; the port
+    runs its plain version here and K7 on the card."""
+    B, T, H, P, N, G = 2, 64, 4, 8, 4, 2
+    a = _inputs(5, B, T, H, P, N, G=G, zero_state=True)
+    y, fs = O.ssd_scan(*_args(_t(a)), chunk=16)
+    jy, jfs = JR.ssd_chunked_ref(*_args(_j(a)), chunk=16)
+    _close(y, jy, 1e-5)
+    _close(fs, jfs, 1e-5)
+    # and the recurrence, group by group
+    hg = H // G
+    for g in range(G):
+        sl = slice(g * hg, (g + 1) * hg)
+        sy, sfs = JR.ssd_sequential_ref(
+            a["x"][:, :, sl], a["dt"][:, :, sl], a["A"][sl], a["Bm"][:, :, g],
+            a["Cm"][:, :, g], a["s0"][:, sl])
+        _close(y[:, :, sl], sy)
+        _close(fs[:, sl], sfs)
+
+
+@pytest.mark.parametrize("T,chunk", [(10, 10), (23, 8), (100, 100)],
+                         ids=["Q10", "T23-Q8", "Q100"])
+def test_ssd_chunk_not_a_power_of_two(T, chunk):
+    """The model runs with Q = min(ssm_chunk, max(8, T)): a 10-token
+    reduced prompt at Q 10, a 100-token one at Q 100, and a ragged T that
+    the wrapper pads.  The port equals the reference's jnp chunked path and
+    its Pallas kernel in interpret mode at the same Q."""
+    a = _inputs(T + chunk, 2, T, 4, 16, 16)
+    y, fs = O.ssd_scan(*_args(_t(a)), chunk=chunk)
+    jy, jfs = JO.ssd_scan(*_args(_j(a)), chunk=chunk, use_pallas=False)
+    py, pfs = JO.ssd_scan(*_args(_j(a)), chunk=chunk, use_pallas=True,
+                          interpret=True)
+    sy, sfs = JR.ssd_sequential_ref(*_args(_j(a)))
+    for got, want in ((y, jy), (fs, jfs), (y, py), (fs, pfs), (y, sy),
+                      (fs, sfs)):
+        _close(got, want)
+
+
+def test_padding_leaves_the_state_untouched():
+    """dt = 0 rows are exact no-ops on the state whatever x, B and C hold
+    there: the final state of 23 steps padded to 24 with garbage rows
+    equals that of the 23 steps, and the first 23 outputs are the same."""
+    a = _inputs(9, 2, 23, 4, 16, 8)
+    t = _t(a)
+    y, fs = O.ssd_scan(*_args(t), chunk=8)
+    rng = np.random.default_rng(10)
+    junk = {k: torch.tensor(rng.normal(size=(2, 1) + v.shape[2:])
+                            .astype(np.float32))
+            for k, v in t.items() if k in ("x", "Bm", "Cm")}
+    padded = dict(t)
+    for k, v in junk.items():
+        padded[k] = torch.cat([t[k], v], dim=1)
+    padded["dt"] = torch.cat([t["dt"], torch.zeros(2, 1, 4)], dim=1)
+    py, pfs = R.ssd_chunked_ref(*_args(padded), chunk=8)
+    assert y.shape[1] == 23
+    assert torch.equal(pfs, fs)
+    assert torch.equal(py[:, :23], y)
+    sy, sfs = JR.ssd_sequential_ref(*_args(_j(a)))
+    _close(fs, sfs)
+
+
+def test_ssd_decode_matches_scan_tail():
+    """``test_ssd_decode_matches_scan_tail``: T - 1 steps by the scan, the
+    last by the decode step, against the recurrence (and the reference's
+    decode step on the same state)."""
+    B, T, H, P, N = 2, 33, 4, 16, 8
+    a = _inputs(11, B, T, H, P, N, zero_state=True)
+    t = _t(a)
+    sy, sfs = JR.ssd_sequential_ref(*_args(_j(a)))
+    _, fs_pre = O.ssd_scan(t["x"][:, :-1], t["dt"][:, :-1], t["A"],
+                           t["Bm"][:, :-1], t["Cm"][:, :-1], t["s0"], chunk=8)
+    y_t, fs_t = O.ssd_decode_step(t["x"][:, -1], t["dt"][:, -1], t["A"],
+                                  t["Bm"][:, -1], t["Cm"][:, -1], fs_pre)
+    _close(y_t, np.asarray(sy)[:, -1])
+    _close(fs_t, sfs)
+    jy_t, jfs_t = JO.ssd_decode_step(
+        jnp.asarray(a["x"][:, -1]), jnp.asarray(a["dt"][:, -1]),
+        jnp.asarray(a["A"]), jnp.asarray(a["Bm"][:, -1]),
+        jnp.asarray(a["Cm"][:, -1]), jnp.asarray(fs_pre.numpy()))
+    _close(y_t, jy_t, 1e-5)
+    _close(fs_t, jfs_t, 1e-5)
+
+
+def test_default_init_state_is_zero():
+    a = _inputs(12, 1, 16, 2, 8, 4, zero_state=True)
+    t = _t(a)
+    y0, fs0 = O.ssd_scan(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], chunk=8)
+    y1, fs1 = O.ssd_scan(*_args(t), chunk=8)
+    assert torch.equal(y0, y1) and torch.equal(fs0, fs1)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper launches on CUDA tensors or raises: on CPU
+    tensors it refuses before building anything (``ssd_scan`` is what runs
+    the plain version there)."""
+    t = _t(_inputs(13, 1, 16, 2, 8, 4))
+    before = K.launches["ssd_chunk"]
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ssd_chunk(t["x"], t["dt"], t["A"], t["Bm"][:, :, None],
+                    t["Cm"][:, :, None], t["s0"], chunk=8)
+    assert K.launches["ssd_chunk"] == before
