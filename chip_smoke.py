@@ -17,12 +17,19 @@ exits non-zero):
                ``range_match_apply``, K5 ``range_match_stale`` over four
                perturbed switch copies of the tables) against its plain
                PyTorch version on the card at the full-width shapes of the
-               main path, bitwise, with CUDA-event timings and its bound;
-               then K6 ``decode_attn`` against its plain version within a
+               main path, bitwise, with its bound and two CUDA-event
+               timings, each after an L2 flush (the paths meet their
+               inputs in device memory): ``ms``, the call as the path pays
+               it (the wrapper's host work included), and ``device_ms``,
+               the kernels alone (replays of a CUDA graph captured around
+               the call, less those of the flush alone); the library
+               yardsticks likewise; then K6
+               ``decode_attn`` against its plain version within a
                stated tolerance (f32 1e-4; bf16 two bf16 steps of each
                output, ``K6_TOL``): (a) qwen2-1.5b's heads in bf16 at
                ``decode_32k`` cut to a batch of 32, (b) gemma3-1b's heads
-               in f32 with its 512 window, (c) lengths past S (F8), each
+               in f32 with its 512 window, (c) lengths past S (F8), (d)
+               the serving phase's shape (S 8,192, lengths 257-2,176), each
                with SDPA's time as the library yardstick; then K7
                ``ssd_chunk`` against its plain version within
                |err| <= 2e-4 (1 + |want|) on y and the final state
@@ -127,13 +134,32 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+_L2_FLUSH: list[torch.Tensor] = []
+
+
+def l2_flush() -> None:
+    """Read a buffer of twice the card's L2, so that the next kernel meets
+    its inputs in device memory, as the paths do: a decode step reads 28
+    layers' caches in turn, and the store's kernels run between other
+    work.  A read, not a write, leaves the L2 clean, so the kernel that
+    follows pays no write-backs of the flush's lines."""
+    if not _L2_FLUSH:
+        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                     50 * 2**20)
+        _L2_FLUSH.append(torch.ones(2 * l2 // 4, device="cuda"))
+    _L2_FLUSH[0].sum()
+
+
 def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timed calls."""
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timed calls,
+    each on an idle stream after an L2 flush: the call as the path pays it,
+    the wrapper's host work included."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        l2_flush()
+        torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -142,6 +168,49 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_device(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median device milliseconds of one ``fn()`` after an L2 flush: a CUDA
+    graph of ``calls`` pairs (flush, call) and one of ``calls`` flushes
+    alone, each replayed ``reps`` times in turn between CUDA events; the
+    difference of their medians, over ``calls``.  The wrappers' host work
+    (checks, allocations, the ctypes call) runs once, at capture, so the
+    window holds the kernels and the gaps between them only;
+    ``time_cuda`` times the call as a caller pays it."""
+    def flushed_call():
+        l2_flush()
+        fn()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            flushed_call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs = []
+    for body in (flushed_call, l2_flush):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                body()
+        graph.replay()
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    times = [[], []]
+    for _ in range(reps):
+        for graph, out in zip(graphs, times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b) / calls)
+    del graphs
+    torch.cuda.empty_cache()
+    return float(np.median(times[0]) - np.median(times[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +227,8 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     # one compiler process per source, all started together
     with ThreadPoolExecutor(max_workers=4) as ex:
-        futures = [ex.submit(RMK.build, True), ex.submit(DAK.build, True),
-                   ex.submit(SSK.build, True), ex.submit(_des_native.load)]
+        futures = [ex.submit(RMK.build), ex.submit(DAK.build),
+                   ex.submit(SSK.build), ex.submit(_des_native.load)]
         libs = [f.result() for f in futures]
     build_s = time.perf_counter() - t0
     RMK._load()
@@ -391,16 +460,20 @@ def phase_kernels(seed: int = 0) -> list[dict]:
                 raise AssertionError(f"{name} {extra}: kernel disagrees with "
                                      "its plain version")
         ms = time_cuda(fn)
+        device_ms = time_device(fn)
         plain_ms = time_cuda(plain, reps=5, warmup=1)
         lib_ms = time_cuda(lib) if lib is not None else None
+        lib_device_ms = time_device(lib) if lib is not None else None
         RMK.launches[name] = before   # comparison launches do not count
         row = {"name": name, "route": "cuda",
                "source": "src/repro_torch/kernels/range_match/csrc/range_match.cu",
                "replaces": "src/repro/kernels/range_match/" + replaces,
                "replaces_fn": replaces_fn,
                "max_abs_err": 0, "parity": "bitwise", "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "device_ms": device_ms, "plain_ms": plain_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "bound_bytes": nbytes, "library_ms": lib_ms,
+               "library_device_ms": lib_device_ms,
                "shape": {"B": B_FULL, "S": S, "N": N_FULL, "r_max": R_MAX},
                **extra}
         if name == "range_match_spread_dirty":
@@ -414,10 +487,12 @@ def phase_kernels(seed: int = 0) -> list[dict]:
     return rows + _decode_attn_rows(seed) + _ssd_chunk_rows(seed)
 
 
-# (case, B, S, Hq, Hkv, D, dtype, window, lengths or None for uniform in
-# [1, S]) of K6: decode_32k (S 32,768) with its batch of 128 cut to 32 at
-# qwen2-1.5b's heads in bf16, the sliding window at gemma3-1b's heads in
-# f32, and lengths past S (F8)
+# (case, B, S, Hq, Hkv, D, dtype, window, lengths: explicit, a range drawn
+# from uniformly, or None for uniform in [1, S]) of K6: decode_32k (S
+# 32,768) with its batch of 128 cut to 32 at qwen2-1.5b's heads in bf16,
+# the sliding window at gemma3-1b's heads in f32, lengths past S (F8), and
+# the serving phase's shape (32 slots of an 8,192-position cache, lengths
+# of its 256-2,048-token prompts plus up to 128 new tokens)
 K6_CASES = (
     ("decode_32k/qwen2-1.5b/bf16", 32, 32768, 12, 2, 128, torch.bfloat16,
      None, None),
@@ -425,6 +500,8 @@ K6_CASES = (
      torch.float32, 512, None),
     ("length_past_S/qwen2-1.5b/f32", 4, 300, 12, 2, 128, torch.float32, None,
      (305, 400, 300, 1000)),
+    ("serve_8k/qwen2-1.5b/bf16", 32, 8192, 12, 2, 128, torch.bfloat16, None,
+     range(257, 2177)),
 )
 # K6 against its plain version, |got - want| <= atol + rtol * |want| for
 # every output: f32 at 1e-4; bf16 at two bf16 steps of each output (both
@@ -474,8 +551,11 @@ def _decode_attn_rows(seed: int) -> list[dict]:
         gen.manual_seed(seed + i)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
-        L = (rng.integers(1, S + 1, B) if lengths is None
-             else np.asarray(lengths)).astype(np.int32)
+        if lengths is None:
+            lengths = range(1, S + 1)
+        L = (rng.integers(lengths.start, lengths.stop, B)
+             if isinstance(lengths, range) else np.asarray(lengths)
+             ).astype(np.int32)
         lengths_t = torch.tensor(L, device=dev)
         fn = lambda: DAK.decode_attn(q, k, v, lengths_t, window=window)
         plain = lambda: DAR.decode_attn_ref(q, k, v, lengths_t, window=window)
@@ -507,8 +587,10 @@ def _decode_attn_rows(seed: int) -> list[dict]:
                                                      attn_mask=mask, **kw)
         lib_err = float((lib()[:, :, 0].float() - want.float()).abs().max())
         ms = time_cuda(fn)
+        device_ms = time_device(fn)
         plain_ms = time_cuda(plain, reps=5, warmup=1)
         lib_ms = time_cuda(lib)
+        lib_device_ms = time_device(lib)
         DAK.launches["decode_attn"] = before   # comparison launches do not count
         esz = torch.finfo(dtype).bits // 8
         rows_read = _valid_rows(L, S, window)
@@ -519,10 +601,10 @@ def _decode_attn_rows(seed: int) -> list[dict]:
                "replaces": "src/repro/kernels/decode_attn/kernel.py:88",
                "replaces_fn": "decode_attn_pallas", "case": case,
                **cmp, "parity": cmp["tolerance"], "ms": ms,
-               "plain_ms": plain_ms,
+               "device_ms": device_ms, "plain_ms": plain_ms,
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "bound_bytes": nbytes,
-               "library_ms": lib_ms,
+               "library_ms": lib_ms, "library_device_ms": lib_device_ms,
                "library": "scaled_dot_product_attention, boolean mask"
                           + (", enable_gqa" if gqa else ", repeated kv heads"),
                "library_max_abs_err": lib_err,
@@ -637,6 +719,7 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
     if not cmp.pop("ok"):
         raise AssertionError(f"ssd_chunk {case}: {cmp}")
     ms = time_cuda(fn, reps=10, warmup=2)
+    device_ms = time_device(fn, calls=3, reps=3)
     plain_ms = time_cuda(plain, reps=3, warmup=1)
     SSK.launches["ssd_chunk"] = before   # comparison launches do not count
     macs, nbytes = _k7_work(B, T, H, P, N, G, Q)
@@ -647,11 +730,13 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
            "replaces": "src/repro/kernels/ssd_chunk/kernel.py:91",
            "replaces_fn": "ssd_chunk_pallas", "case": case,
            **cmp, "parity": cmp["tolerance"], "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "bound_ms": max(flop_ms, byte_ms),
            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
            "bound_flop": 2 * macs, "bound_bytes": nbytes,
            "bound_flop_ms": flop_ms, "bound_bytes_ms": byte_ms,
-           "library_ms": None, "library": "none: no one call",
+           "library_ms": None, "library_device_ms": None,
+           "library": "none: no one call",
            "shape": {"B": B, "T": T, "T_padded": xp.shape[1], "H": H,
                      "P": P, "N": N, "G": G, "Q": Q},
            "main": main}
@@ -1493,8 +1578,9 @@ def main(argv=None) -> int:
                                if paths else None)
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "parity", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")} for r in main_rows]})
+            "launches_by_path", "max_abs_err", "parity", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")} for r in main_rows]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(dev_info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

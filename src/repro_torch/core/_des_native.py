@@ -1,4 +1,5 @@
-"""Build + load the port's native DES event core (``des_core.c``).
+"""Build + load the port's native DES event core (``des_core.c``), which
+also holds the float32 power of the Pareto service draw (:func:`powf`).
 
 Compiled once per source hash with the system C compiler into
 ``_native_cache/`` next to this file, and bound with ctypes.  There is
@@ -14,6 +15,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import numpy as np
 
 _SRC = Path(__file__).with_name("des_core.c")
 _CACHE = Path(__file__).parent / "_native_cache"
@@ -48,7 +51,7 @@ def _build(out: Path) -> None:
     os.close(fd)
     try:
         res = subprocess.run(
-            [cc, "-O2", "-shared", "-fPIC", "-o", tmp, str(_SRC)],
+            [cc, "-O2", "-shared", "-fPIC", "-o", tmp, str(_SRC), "-lm"],
             capture_output=True, text=True, timeout=120,
         )
         if res.returncode != 0:
@@ -57,6 +60,16 @@ def _build(out: Path) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def powf(u: np.ndarray, e: float) -> np.ndarray:
+    """``powf(u, e)`` elementwise over a float32 array, by the C library's
+    float32 power (the reference's bits on the CPU)."""
+    u = np.ascontiguousarray(u, dtype=np.float32)
+    out = np.empty_like(u)
+    load().des_powf(u.ctypes.data, float(np.float32(e)), out.ctypes.data,
+                    u.size)
+    return out
 
 
 def load() -> ctypes.CDLL:
@@ -72,5 +85,8 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so))
             lib.des_simulate_batch.restype = None
             lib.des_simulate_batch.argtypes = _ARGTYPES
+            lib.des_powf.restype = None
+            lib.des_powf.argtypes = [ctypes.c_void_p, ctypes.c_float,
+                                     ctypes.c_void_p, ctypes.c_int64]
             _lib = lib
         return _lib

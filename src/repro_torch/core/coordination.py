@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import _des_native
 from repro_torch.core import keys as K
 from repro_torch.core.routing import QueryBatch, RoutingDecision
 
@@ -62,12 +63,12 @@ class ServiceModel:
                 raise ValueError(f"pareto alpha must be > 1, got {self.alpha}")
             u = prng.uniform(rng, shape, device,
                              minval=float(np.finfo(np.float32).tiny))
-            # XLA's float32 pow is not correctly rounded and torch's
-            # differs from it in more draws; rounding the float64 power
-            # lands within 1 ulp of the reference (ROADMAP fault F5)
-            e = float(np.float32(-1.0 / self.alpha))
-            x = (u.to(torch.float64) ** e).to(torch.float32)
-            return x * np.float32((self.alpha - 1.0) / self.alpha)
+            # the C library's powf on the host gives the reference's
+            # float32 bits (torch's pow and a rounded float64 power do
+            # not); on the card that is one round trip a plan
+            e = np.float32(-1.0 / self.alpha)
+            x = torch.from_numpy(_des_native.powf(u.cpu().numpy(), e))
+            return x.to(device) * np.float32((self.alpha - 1.0) / self.alpha)
         raise ValueError(f"unknown service model kind {self.kind!r}")
 
 

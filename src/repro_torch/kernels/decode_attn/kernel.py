@@ -24,7 +24,8 @@ _lib: ctypes.CDLL | None = None
 
 HEAD_DIMS = (16, 64, 128, 256)    # the instances the source has
 MAX_GROUP = 8                     # query heads a kv head (kGMax)
-CHUNK = 512                       # cache rows of one block (flash-decoding split)
+MAX_SPLIT = 64                    # pieces a (sequence, kv head) at most
+BLOCKS_PER_SM = 2                 # resident blocks of the partial kernel
 
 launches = {"decode_attn": 0}
 
@@ -48,16 +49,37 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.da_decode_attn.argtypes = (
-                [_P] * 4 + [_I32] * 7 + [ctypes.c_float, _I32, _I32]
-                + [_P] * 5
+                [_P] * 4 + [_I32] * 7 + [ctypes.c_float, _I32] + [_P] * 5
             )
             lib.da_decode_attn.restype = ctypes.c_int
             lib.da_max_group.restype = ctypes.c_int
-            if lib.da_max_group() != MAX_GROUP:
+            lib.da_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.da_tile_rows.restype = ctypes.c_int
+            if lib.da_max_group() != MAX_GROUP or any(
+                    lib.da_tile_rows(D, int(dt == torch.bfloat16))
+                    != tile_rows(D, dt) for D in HEAD_DIMS
+                    for dt in (torch.float32, torch.bfloat16)):
                 raise RuntimeError("decode_attn.cu and kernel.py disagree on "
-                                   "the largest query group")
+                                   "the largest query group or the tiles")
             _lib = lib
         return _lib
+
+
+def tile_rows(D: int, dtype: torch.dtype) -> int:
+    """Cache rows of one ring stage (``da_tile_rows``): 16 KB of K, 16 to
+    128 rows; each piece of a split is a whole number of them."""
+    esz = torch.finfo(dtype).bits // 8
+    return max(16, min(128, 16384 // (D * esz)))
+
+
+def split_count(bh: int, S: int, sms: int) -> int:
+    """Pieces each (sequence, kv head) is cut into: enough that the B * Hkv
+    (``bh``) rows of blocks cover two waves of ``BLOCKS_PER_SM`` blocks on
+    each of ``sms`` SMs, but no more than S has 64-row tiles, nor
+    ``MAX_SPLIT``.  It reads no lengths, so the host never waits on the
+    card; the kernel cuts each valid range into this many equal pieces."""
+    want = -(-2 * BLOCKS_PER_SM * sms // max(bh, 1))
+    return max(1, min(want, -(-S // 64), MAX_SPLIT))
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,17 +127,18 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0:
         return out
     G = Hq // Hkv
-    n_chunks = -(-S // CHUNK)
-    m_part = torch.empty((B, Hkv, n_chunks, G), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, Hkv, n_chunks, G, D), dtype=torch.float32,
-                           device=dev)
+    n = split_count(
+        B * Hkv, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # one scratch tensor: m and l (B, Hkv, n, G), then acc (B, Hkv, n, G, D)
+    parts = B * Hkv * n * G
+    scratch = torch.empty(parts * (D + 2), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     rc = _load().da_decode_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         B, S, Hkv, G, D, int(q.dtype == torch.bfloat16),
         -1 if window is None else int(window),
-        float(D ** -0.5 if scale is None else scale), CHUNK, n_chunks,
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        float(D ** -0.5 if scale is None else scale), n,
+        base, base + 4 * parts, base + 8 * parts,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

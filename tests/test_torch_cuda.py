@@ -234,6 +234,69 @@ def test_slab_lookup_matches_plain(dev, C):
     _same(got, want)
 
 
+def _edge_slabs(rng, N, C, empty_rows=()):
+    slabs = np.full((N, C), 0xFFFFFFFF, np.int64)
+    for n in range(N):
+        if n in empty_rows:
+            continue
+        keys = np.unique(rng.integers(0, 2**32 - 1, int(rng.integers(1, C + 1))))
+        slabs[n, :len(keys)] = keys
+    return slabs
+
+
+@pytest.mark.parametrize("N,C", [
+    (8, 1), (8, 2), (8, 7), (8, 1023), (8, 1024), (8, 1025),
+    (8, 100_003), (1000, 5000), (5000, 300)])
+@pytest.mark.parametrize("B", [1, 20_000, 150_000])
+def test_slab_lookup_edges(dev, N, C, B):
+    """K4a at the edges of its search: C 1 and 2, rows one short of, equal
+    to and one over a power of two, C 100,003, many rows (N 1,000 and
+    5,000), an all-EMPTY row, targets -1 and >= N, keys at every 1,024th
+    slot and their neighbours, and more packets than one thread a packet
+    of a full card (B 150,000)."""
+    rng = np.random.default_rng(N + C + B)
+    slabs = _edge_slabs(rng, N, C, empty_rows=(0,))
+    target = rng.integers(-1, N + 2, B)
+    rows = np.clip(target, 0, N - 1)
+    stride_keys = slabs[rows, (rng.integers(0, -(-C // 1024), B) << 10)]
+    resident = slabs[rows, rng.integers(0, C, B)]
+    fresh = rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64)
+    pick = rng.integers(0, 5, B)
+    q = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
+                  [stride_keys, stride_keys - 1, stride_keys + 1, resident],
+                  fresh)
+    args = [torch.tensor(a, device=dev) for a in (q, target, slabs)]
+    before = RMK.launches["slab_lookup"]
+    got = OPS.slab_lookup(*args)
+    assert RMK.launches["slab_lookup"] == before + 1
+    _same(got, OPS.slab_lookup(*(a.cpu() for a in args)))
+    if B > 1:
+        assert bool(got[1].any())
+
+
+def test_pareto_service_card_matches_cpu(dev):
+    """The Pareto service draw (ROADMAP F5): the card's column equals the
+    CPU's bit for bit, and both equal the reference's draws, recorded here
+    as the SHA-256 of their float32 bytes (computed with
+    ``repro.core.ServiceModel``, PRNGKey(8), shape (4096, 3))."""
+    import hashlib
+
+    from repro_torch import prng
+    from repro_torch.core import coordination as TCo
+
+    recorded = {
+        2.2: "a2167379024dfe7bc9fb98724af88494bde7f219b23e6956b48c65c685dd66b7",
+        1.5: "4e1e4f108ff263c2ab94fee91bf0be95f6de83f9b060ed681787dc5deb73db89",
+    }
+    for alpha, digest in recorded.items():
+        svc = TCo.ServiceModel(kind="pareto", alpha=alpha)
+        card = svc.draw(prng.PRNGKey(8), (4096, 3), dev)
+        cpu = svc.draw(prng.PRNGKey(8), (4096, 3), "cpu")
+        assert card.device.type == "cuda" and card.dtype == torch.float32
+        assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+        assert hashlib.sha256(card.cpu().numpy().tobytes()).hexdigest() == digest
+
+
 def test_apply_routed_card_matches_cpu(dev):
     N, V, C, B = 6, 4, 96, 512
     out = {}
@@ -321,6 +384,58 @@ def test_decode_attn_kernel_group_edges(dev, no_tf32, G):
     torch.testing.assert_close(DAK.decode_attn(q, k, v, L),
                                DAR.decode_attn_ref(q, k, v, L),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_every_group(dev, no_tf32, G, dtype):
+    """Every compile-time group instance (1 to 8) at D 128."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+
+    q, k, v, L = _attn_inputs(10 * G, 4, 700, 2 * G, 2, 128, dtype,
+                              [1, 65, 500, 700], dev)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-5, 2.0 ** -6)
+    torch.testing.assert_close(DAK.decode_attn(q, k, v, L).float(),
+                               DAR.decode_attn_ref(q, k, v, L).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("splits", [1, 4, 64, None])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_split_edges(dev, no_tf32, monkeypatch, splits, D,
+                                        dtype):
+    """Lengths that, at 4 pieces of whole T-row tiles, leave a last piece
+    of 0, 1, T - 1, T and T + 1 rows (3T, 3T + 1, 4T - 1, 4T, 5T + 1), one
+    row, a length past S (F8), over S = 6T + 3 (not a whole number of
+    tiles); one piece, four, the most the host takes (64) and the host's
+    own pick; with a window, the uniform case (a window that ends before
+    the cache starts) too."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+
+    if splits is not None:
+        monkeypatch.setattr(DAK, "split_count", lambda bh, S, sms: splits)
+    T = DAK.tile_rows(D, dtype)
+    S = 6 * T + 3
+    lengths = [3 * T, 3 * T + 1, 4 * T - 1, 4 * T, 5 * T + 1, 1, S + 5]
+    q, k, v, L = _attn_inputs(D + T, len(lengths), S, 6, 2, D, dtype, lengths,
+                              dev)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-5, 2.0 ** -6)
+    for window in (None, T + 3):
+        before = DAK.launches["decode_attn"]
+        got = DAK.decode_attn(q, k, v, L, window=window)
+        assert DAK.launches["decode_attn"] == before + 1
+        want = DAR.decode_attn_ref(q, k, v, L, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    # a window ending before the cache: every score -1e30, uniform softmax
+    Lu = torch.full_like(L, S + 2 * T)
+    torch.testing.assert_close(
+        DAK.decode_attn(q, k, v, Lu, window=T).float(),
+        DAR.decode_attn_ref(q, k, v, Lu, window=T).float(), atol=atol,
+        rtol=rtol)
 
 
 def test_decode_attn_kernel_refuses_what_it_lacks(dev):

@@ -152,10 +152,9 @@ def test_plan_hops_matches_reference(mode, cap):
 
 
 def test_plan_hops_pareto_service_matches_reference():
-    """The uniform draws are bit-identical; the Pareto transform's float32
-    ``pow`` is not (XLA's is not correctly rounded, ROADMAP fault F5), so
-    the service column is held to 1 ulp.  The main path's service model
-    is ``fixed``, which is exact."""
+    """The uniform draws and the Pareto transform's float32 ``pow`` (the
+    C library's ``powf``, which XLA's CPU power equals) are bit-identical,
+    so the service column is held to 0 ulp."""
     N, jq, jdec, tq, tdec = _routed(2, spread=False)
     jp = JC.plan_hops(jq, jdec, "in_switch", JC.LatencyModel(),
                       rng=jax.random.PRNGKey(8), num_nodes=N,
@@ -166,7 +165,7 @@ def test_plan_hops_pareto_service_matches_reference():
     assert np.array_equal(np.asarray(jp.nodes), tp.nodes.numpy())
     ulps = np.abs(_bits(jp.service).astype(np.int64)
                   - _bits(tp.service.numpy()).astype(np.int64))
-    assert ulps.max() <= 1
+    assert ulps.max() == 0
 
 
 def test_lognormal_service_not_ported_yet():
