@@ -36,7 +36,9 @@ exits non-zero):
                (``K7_TOL``): (a) mamba2-370m's heads over a 32,768-token
                prefill with the model's dt / A ranges, (b) hymba-1.5b's
                heads at B 4 over 2,100 tokens (padded), (c) a chunk of 10
-               with G 2; its bound counts operations and bytes;
+               with G 2, (d) mamba2-370m's heads at the serving phase's
+               mean prompt of 1,170 tokens; its bound counts operations
+               and bytes;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
                chains, replication register file and coordination-tier
@@ -621,11 +623,14 @@ def _decode_attn_rows(seed: int) -> list[dict]:
 # (case, B, T, H, P, N, G, Q, dt and A from the model's ranges) of K7:
 # (a) mamba2-370m's heads over decode_32k's context of 32,768 tokens as
 # one prefill, (b) hymba-1.5b's heads at B 4 over 2,100 tokens (padded to
-# 2,176), (c) a chunk of 10 (not a power of two) with G 2
+# 2,176), (c) a chunk of 10 (not a power of two) with G 2, (d) mamba2-370m's
+# heads at phase serving_ssm's mean prompt (74,852 / 64 = 1,170 tokens,
+# padded to 1,280), the shape of one layer of one admission
 K7_CASES = (
     ("prefill_32k/mamba2-370m", 1, 32768, 32, 64, 128, 1, 128, True),
     ("hymba-1.5b/B4/T2100", 4, 2100, 50, 64, 16, 1, 128, True),
     ("Q10/G2", 2, 250, 8, 16, 16, 2, 10, False),
+    ("serve_1170/mamba2-370m", 1, 1170, 32, 64, 128, 1, 128, True),
 )
 # K7 against its plain version, on y and on the final state: tests/
 # test_kernels.py's 2e-4, scaled by the output (both sides sum in f32 in

@@ -1,11 +1,14 @@
-"""Build, bind and launch K7, the SSD chunked-scan CUDA kernel.
+"""Build, bind and launch K7, the SSD chunked scan in four CUDA kernels.
 
 ``csrc/ssd_chunk.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` (:mod:`repro_torch.kernels._build`) and bound with
 :mod:`ctypes`.  Nothing is built at import time: the CPU tests import this
-module.  :func:`ssd_chunk` launches the kernel on CUDA tensors and raises
-on anything it does not take; it never falls back to the plain version.
-``launches["ssd_chunk"]`` counts its launches.
+module.  :func:`ssd_chunk` allocates the passes' scratch through
+PyTorch's caching allocator (so a CUDA graph can capture the call) and
+launches the four passes on CUDA tensors; it raises on anything it does
+not take and never falls back to the plain version.
+``launches["ssd_chunk"]`` counts its calls, one a call whatever the
+number of passes.
 """
 
 from __future__ import annotations
@@ -47,8 +50,10 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.ssd_chunk_scan.argtypes = [_P] * 8 + [_I32] * 7 + [_P]
+            lib.ssd_chunk_scan.argtypes = [_P] * 9 + [_I32] * 7 + [_P]
             lib.ssd_chunk_scan.restype = ctypes.c_int
+            lib.ssd_chunk_scratch_floats.argtypes = [_I32] * 7
+            lib.ssd_chunk_scratch_floats.restype = ctypes.c_longlong
             lib.ssd_chunk_max_chunk.restype = ctypes.c_int
             if lib.ssd_chunk_max_chunk() != MAX_CHUNK:
                 raise RuntimeError("ssd_chunk.cu and kernel.py disagree on "
@@ -99,12 +104,22 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not 1 <= chunk <= MAX_CHUNK or T % chunk:
         raise ValueError(f"ssd_chunk: chunk {chunk} (1 to {MAX_CHUNK}, "
                          f"dividing T {T})")
+    lib = _load()
+    n_scratch = lib.ssd_chunk_scratch_floats(B, T, H, P, G, N, chunk)
+    if n_scratch < 0:
+        raise ValueError(f"ssd_chunk: no instance for {tuple(x.shape)}, "
+                         f"G {G}, N {N}, chunk {chunk}")
+    # the kernels read x, B and C in 16-byte loads
+    x, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, Bm, Cm))
     y = torch.empty_like(x)
     fs = torch.empty_like(init_state)
-    rc = _load().ssd_chunk_scan(
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    rc = lib.ssd_chunk_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), init_state.data_ptr(), y.data_ptr(), fs.data_ptr(),
-        B, T, H, P, G, N, chunk, torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), B, T, H, P, G, N, chunk,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {rc}")

@@ -568,6 +568,49 @@ def test_ssd_chunk_kernel_model_ranges(dev):
     _ssd_close(got, want)
 
 
+@pytest.mark.parametrize("B,T,H,P,N,G,chunk", [
+    (1, 2048, 32, 64, 128, 1, 128),           # mamba2's heads, 16 chunks
+    (2, 128, 32, 64, 128, 1, 128),            # T = Q, a single chunk
+    (2, 96, 8, 16, 16, 2, 16),                # G 2 over six chunks
+], ids=["16-chunks", "one-chunk", "G2-6-chunks"])
+def test_ssd_chunk_kernel_passes(dev, B, T, H, P, N, G, chunk):
+    """The four passes across chunk counts: pass 3 carries a nonzero
+    initial state over 16 chunks, over none, and under two groups."""
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.kernels.ssd_chunk import ref as SR
+
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(T + G, B, T, H, P, N, G, dev)
+    got = SK.ssd_chunk(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    cpu = [t.cpu() for t in (x, dt, A, Bm, Cm, s0)]
+    want = SR.ssd_chunked_ref(*cpu, chunk=chunk)
+    torch.cuda.synchronize()
+    _ssd_close([t.cpu() for t in got], want)
+
+
+def test_ssd_chunk_kernel_in_cuda_graph(dev):
+    """The call captured in a CUDA graph and replayed equals the eager call
+    bit for bit (its scratch comes from PyTorch's allocator), and a replay
+    reads the inputs as they are then."""
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(8, 1, 640, 32, 64, 128, 1, dev)
+    args = (x, dt, A, Bm, Cm, s0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        SK.ssd_chunk(*args, chunk=128)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = SK.ssd_chunk(*args, chunk=128)
+    for scale in (1.0, 0.5):
+        x.mul_(scale)
+        eager = SK.ssd_chunk(*args, chunk=128)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
 def test_ssd_chunk_kernel_refuses_what_it_lacks(dev):
     from repro_torch.kernels.ssd_chunk import kernel as SK
 

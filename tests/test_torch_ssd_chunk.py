@@ -3,7 +3,9 @@
 ``ssd_sequential_ref`` against the reference's Pallas kernel in interpret
 mode, its jnp chunked version and its exact recurrence, at the shapes of
 ``tests/test_kernels.py`` and at chunk lengths that are not powers of
-two; the padding and the one-token decode step."""
+two; the padding and the one-token decode step; and the plain mirror of
+the CUDA kernel's four passes (``ssd_chunk_passes_ref``) against the
+same references and, chunk by chunk, against the carried state."""
 
 import sys
 
@@ -31,15 +33,17 @@ from repro_torch.kernels.ssd_chunk import ref as R
 TOL = 2e-4      # tests/test_kernels.py's tolerance for ssd_chunk
 
 
-def _inputs(seed, B, T, H, P, N, G=None, zero_state=False):
+def _inputs(seed, B, T, H, P, N, G=None, zero_state=False, dt_hi=0.1,
+            a_hi=2.0):
     """The reference test's distributions: dt in [0.001, 0.1], A in
-    [-2, -0.5], unit normal x, B, C and a 0.1-scaled initial state."""
+    [-2, -0.5], unit normal x, B, C and a 0.1-scaled initial state
+    (``dt_hi`` 1.3 and ``a_hi`` 16 give the model's ranges)."""
     rng = np.random.default_rng(seed)
     bc = (B, T, N) if G is None else (B, T, G, N)
     arrays = {
         "x": rng.normal(size=(B, T, H, P)),
-        "dt": rng.uniform(0.001, 0.1, (B, T, H)),
-        "A": -rng.uniform(0.5, 2.0, H),
+        "dt": rng.uniform(0.001, dt_hi, (B, T, H)),
+        "A": -rng.uniform(0.5, a_hi, H),
         "Bm": rng.normal(size=bc),
         "Cm": rng.normal(size=bc),
         "s0": (np.zeros((B, H, P, N)) if zero_state
@@ -63,6 +67,17 @@ def _args(d):
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), atol=tol)
+
+
+def _close_scaled(got, want):
+    """K7's parity standard, |err| <= TOL (1 + |want|): at the model's
+    ranges outputs reach |y| ~ 10 and the reference sums each chunk's
+    prefix of dt * A in f32, which moves them by a few 1e-4 against the
+    port's f64 prefix (the port's ``ssd_chunked_ref`` too)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = float((np.abs(got - want) / (1 + np.abs(want))).max())
+    assert err <= TOL, err
 
 
 @pytest.mark.parametrize("B,T,H,P,N,chunk", [
@@ -192,3 +207,80 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         K.ssd_chunk(t["x"], t["dt"], t["A"], t["Bm"][:, :, None],
                     t["Cm"][:, :, None], t["s0"], chunk=8)
     assert K.launches["ssd_chunk"] == before
+
+
+# (B, T, H, P, N, G, chunk, model ranges): test_ssd_sweep's shapes, G 2,
+# Q 10 and 100, a ragged T, and the model's ranges (dt up to softplus(1),
+# A down to -16)
+PASSES_CASES = [
+    (1, 32, 2, 8, 4, None, 8, False), (2, 128, 4, 16, 8, None, 32, False),
+    (2, 250, 8, 32, 16, None, 64, False), (2, 64, 4, 8, 4, 2, 16, False),
+    (2, 10, 4, 16, 16, None, 10, False), (2, 100, 4, 16, 16, None, 100, False),
+    (2, 23, 4, 16, 16, None, 8, False), (1, 256, 4, 16, 16, None, 64, True),
+]
+
+
+def _passes(t, chunk):
+    """``ssd_chunk_passes_ref`` on inputs padded as ``ssd_scan`` pads them,
+    its outputs trimmed."""
+    T = t["x"].shape[1]
+    x, dt, Bm, Cm = O.pad_to_chunks(t["x"], t["dt"], t["Bm"], t["Cm"], chunk)
+    y, fs, scratch = R.ssd_chunk_passes_ref(x, dt, t["A"], Bm, Cm, t["s0"],
+                                            chunk=chunk)
+    return y[:, :T], fs, scratch
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,chunk,model", PASSES_CASES,
+                         ids=["sweep-Q8", "sweep-Q32", "sweep-Q64", "G2",
+                              "Q10", "Q100", "T23-Q8", "model-ranges"])
+def test_passes_ref_matches_reference(B, T, H, P, N, G, chunk, model):
+    """The four-pass mirror within 2e-4 of the reference's jnp chunked
+    version, of its Pallas kernel in interpret mode (G 1; the reference
+    falls back to jnp for G 2) and of its exact recurrence."""
+    ranges = {"dt_hi": 1.3, "a_hi": 16.0} if model else {}
+    a = _inputs(7 * T + chunk, B, T, H, P, N, G=G, **ranges)
+    y, fs, _ = _passes(_t(a), chunk)
+    assert y.shape == (B, T, H, P) and fs.shape == (B, H, P, N)
+    jy, jfs = JO.ssd_scan(*_args(_j(a)), chunk=chunk, use_pallas=False)
+    wants = [(jy, jfs)]
+    if G is None:
+        wants.append(JO.ssd_scan(*_args(_j(a)), chunk=chunk, use_pallas=True,
+                                 interpret=True))
+        wants.append(JR.ssd_sequential_ref(*_args(_j(a))))
+    close = _close_scaled if model else _close
+    for want_y, want_fs in wants:
+        close(y, want_y)
+        close(fs, want_fs)
+
+
+@pytest.mark.parametrize("G,model", [(None, True), (2, False)],
+                         ids=["model-ranges", "G2"])
+def test_passes_ref_entering_states(G, model):
+    """Pass 3's order: the state the mirror leaves in ``S[:, c]`` is the
+    state ``ssd_chunked_ref`` carries into chunk c (its final state over
+    the first c chunks), within 2e-4, and S[:, 0] is the initial state
+    exactly; ``cum`` and ``CB`` are those of the chunked math."""
+    B, T, H, P, N, Q = 2, 96, 4, 16, 8, 16
+    ranges = {"dt_hi": 1.3, "a_hi": 16.0} if model else {}
+    t = _t(_inputs(31, B, T, H, P, N, G=G, **ranges))
+    y, fs, scratch = _passes(t, Q)
+    S = scratch["S"]
+    assert S.shape == (B, T // Q, H, N, P)
+    assert torch.equal(S[:, 0], t["s0"].transpose(-1, -2))
+    for c in range(1, T // Q):
+        _, carried = R.ssd_chunked_ref(
+            t["x"][:, :c * Q], t["dt"][:, :c * Q], t["A"], t["Bm"][:, :c * Q],
+            t["Cm"][:, :c * Q], t["s0"], chunk=Q)
+        _close(S[:, c].transpose(-1, -2), carried)
+    cy, cfs = R.ssd_chunked_ref(*_args(t), chunk=Q)
+    _close(y, cy)
+    _close(fs, cfs)
+    cum = torch.cumsum((t["dt"] * t["A"]).reshape(B, T // Q, Q, H), dim=2,
+                       dtype=torch.float64).float().reshape(B, T, H)
+    assert torch.equal(scratch["cum"], cum)
+    bm = t["Bm"] if G else t["Bm"][:, :, None]
+    cm = t["Cm"] if G else t["Cm"][:, :, None]
+    i, j = 5, 3             # row i of chunk 1 against its column j <= i
+    want = (cm[:, Q + i] * bm[:, Q + j]).sum(-1)
+    _close(scratch["CB"][:, 1, :, j, i], want, 1e-5)
+    assert not scratch["CB"][:, :, :, i, j].any()   # above the diagonal
