@@ -23,7 +23,13 @@ exits non-zero):
                it (the wrapper's host work included), and ``device_ms``,
                the kernels alone (replays of a CUDA graph captured around
                the call, less those of the flush alone); the library
-               yardsticks likewise; then K6
+               yardsticks likewise; for K1-K4b also the split of their
+               device time between ``span_order`` and the route kernel
+               (``torch.profiler``) and the match pass the route kernel
+               took over the sorted span table (``match``, which must be
+               ``"search"`` on a controller's directory), and K1 once more
+               at the serving router's shape (B 32, 32 hash-partitioned
+               slots); then K6
                ``decode_attn`` against its plain version within a
                stated tolerance (f32 1e-4; bf16 two bf16 steps of each
                output, ``K6_TOL``): (a) qwen2-1.5b's heads in bf16 at
@@ -92,10 +98,12 @@ exits non-zero):
                against its plain version on layer 0's live scan inputs of
                the first prefill; decode by the recurrence.
 
-Two more phases run only when named in ``--phases``: ``profile``
-(``torch.profiler`` over two full-width epochs of the epoch driver) and
+Three more phases run only when named in ``--phases``: ``profile``
+(``torch.profiler`` over two full-width epochs of the epoch driver),
 ``serving_profile`` (over two full-width decode steps with every slot busy,
-and one prefill of 2,048 tokens).
+and one prefill of 2,048 tokens) and ``grid_study`` (with ``kernels``: the
+device time of K1-K4b at the phase 2 shape under a grid of one thread a
+packet and of 1, 2 and 3 blocks an SM, in turns).
 
 It then prints the kernel table (``{"kernels": [...]}``, with each main
 path's launch counts in ``launches_by_path``), the card line,
@@ -121,7 +129,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PHASES = ("device", "kernels", "parity", "full_width", "serving",
           "serving_ssm")
-EXTRA_PHASES = ("profile", "serving_profile")  # run only when named
+EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
+                "grid_study")
 
 
 def emit(obj: dict) -> None:
@@ -213,6 +222,40 @@ def time_device(fn, calls: int = 20, reps: int = 5) -> float:
     del graphs
     torch.cuda.empty_cache()
     return float(np.median(times[0]) - np.median(times[1]))
+
+
+def _dev_us(e) -> float:
+    """A profiler event's own device microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_split(fn, names: tuple, calls: int = 20) -> dict:
+    """Device milliseconds a call of each kernel of ``fn`` whose name holds
+    one of ``names`` (``torch.profiler`` over ``calls`` calls, each after
+    an L2 flush; the flush's own kernel is not among them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            l2_flush()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.key:
+                out[n] = out.get(n, 0.0) + _dev_us(e) / calls / 1e3
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -321,10 +364,23 @@ def _perturbed_coord(directory, dev):
     return dataclasses.replace(c, version=ver, chains=ch, live=lv, slot_lo=lo)
 
 
-def phase_kernels(seed: int = 0) -> list[dict]:
+# the serving router's table: 4 shards, one slot for each of
+# max(16, 8 x 4) hash-partitioned ranges; a decode step routes 32 slots
+ROUTER_SHARDS = 4
+ROUTER_B = 32
+# the route kernels (K1-K4b): over more than 256 slots each call runs
+# span_order, then the route kernel that searches its sorted span table
+ROUTE_KERNELS = ("range_match", "range_match_spread",
+                 "range_match_spread_dirty", "range_match_apply")
+ROUTE_PARTS = ("span_order", "route_kernel")
+
+
+def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
+    from repro_torch.core import keys as TK
     from repro_torch.kernels.range_match import kernel as RMK
     from repro_torch.kernels.range_match import ops as OPS
     from repro_torch.kernels.range_match import ref as REF
+    from repro_torch.serving.router import SequenceRouter
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -406,6 +462,17 @@ def phase_kernels(seed: int = 0) -> list[dict]:
     flat = REF.offset_rows(slabs)
     qoff = (qkeys + t_safe * (1 << 33)).contiguous()
     K4lib = lambda: torch.searchsorted(flat, qoff)
+    # K1 at the serving router's shape: a decode step's request ids
+    router = SequenceRouter.create(ROUTER_SHARDS, device=dev).directory
+    r_lo, r_hi, r_chains, r_clen = OPS.pack_tables(router)
+    r_mvals = TK.matching_value(torch.tensor(
+        rng.integers(0, 10_000, ROUTER_B), device=dev), hash_partitioned=True)
+    r_ops = torch.zeros(ROUTER_B, dtype=torch.int32, device=dev)
+    K1r = lambda: RMK.range_match(r_mvals, r_ops, r_lo, r_hi, r_chains,
+                                  r_clen, num_slots=router.num_slots)
+    K1rp = lambda: REF.range_match_ref(r_mvals, r_ops, r_lo, r_hi, r_chains,
+                                       r_clen, num_slots=router.num_slots)
+    r_S, r_rmax = router.num_slots, router.r_max
 
     # Bounds count the bytes the function needs: every key, matching
     # value, target, slab word and output id at its 32-bit width (the
@@ -450,7 +517,16 @@ def phase_kernels(seed: int = 0) -> list[dict]:
          B_FULL * (4 + 4 + 4 + 4 + 1) + W_FULL * S * (4 * 4 + 4 * R_MAX)
          + 4 * S,
          "kernel.py:406", "range_match_stale_pallas", {"W": W_FULL}),
+        ("range_match", K1r, K1rp, None,
+         ROUTER_B * (4 + 4 + 4 + 4 + 4 * r_rmax)
+         + r_S * (4 + 4 + 4 + 4 * r_rmax),
+         "kernel.py:782", "range_match_pallas",
+         {"case": "serving_router", "main": False,
+          "shape": {"B": ROUTER_B, "S": r_S, "r_max": r_rmax,
+                    "hash_partitioned": True}}),
     ]
+    # a package from before the sorted span table has no last_order
+    sorted_table = hasattr(RMK, "last_order")
     rows = []
     for name, fn, plain, lib, nbytes, replaces, replaces_fn, extra in specs:
         before = RMK.launches[name]
@@ -466,6 +542,17 @@ def phase_kernels(seed: int = 0) -> list[dict]:
         plain_ms = time_cuda(plain, reps=5, warmup=1)
         lib_ms = time_cuda(lib) if lib is not None else None
         lib_device_ms = time_device(lib) if lib is not None else None
+        if name in ROUTE_KERNELS:
+            # the split of the device time between the two kernels, and
+            # the match pass an eager call takes, both after the timing
+            extra = {**extra,
+                     "device_ms_split": device_split(fn, ROUTE_PARTS)}
+            if sorted_table:
+                fn()
+                extra["match"] = RMK.last_order(name)["match"]
+                if extra["match"] != "search":
+                    raise AssertionError(f"{name}: a controller's directory "
+                                         f"took the {extra['match']} pass")
         RMK.launches[name] = before   # comparison launches do not count
         row = {"name": name, "route": "cuda",
                "source": "src/repro_torch/kernels/range_match/csrc/range_match.cu",
@@ -486,7 +573,43 @@ def phase_kernels(seed: int = 0) -> list[dict]:
             row["divergent"] = int(got[2].sum())
         emit({"phase": "kernels", **row})
         rows.append(row)
+    if grid_study:
+        _route_grid_study(RMK, {"range_match": K1, "range_match_spread": K2,
+                                "range_match_spread_dirty": K3,
+                                "range_match_apply": K4b})
     return rows + _decode_attn_rows(seed) + _ssd_chunk_rows(seed)
+
+
+# blocks an SM of the route grid study; "packets" is one thread a packet,
+# at most 4 blocks an SM (the grid of K4a and K5)
+GRID_POLICIES = ("packets", 1, 2, 3)
+
+
+def _route_grid_study(RMK, calls: dict) -> dict:
+    """Device time of each route kernel at the phase 2 shape under each
+    grid of ``GRID_POLICIES``, in turns (the policies forward, then back),
+    twice; the wrappers' own grid (``kernel._grid``, one thread a packet
+    up to 4 blocks an SM) is restored after."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    own = RMK._grid
+
+    def grid_of(policy):
+        return own if policy == "packets" else lambda B, dev: policy * sms
+
+    out = {"phase": "grid_study", "sms": sms, "B": B_FULL,
+           "policies": [str(p) for p in GRID_POLICIES], "device_ms": {}}
+    try:
+        for name, fn in calls.items():
+            times = {str(p): [] for p in GRID_POLICIES}
+            for order in (GRID_POLICIES, GRID_POLICIES[::-1]) * 2:
+                for policy in order:
+                    RMK._grid = grid_of(policy)
+                    times[str(policy)].append(time_device(fn))
+            out["device_ms"][name] = times
+    finally:
+        RMK._grid = own
+    emit(out)
+    return out
 
 
 # (case, B, S, Hq, Hkv, D, dtype, window, lengths: explicit, a range drawn
@@ -1468,24 +1591,17 @@ def _device_summary(prof, wall: float, top: int = 12) -> dict:
     device time."""
     from torch.autograd import DeviceType
 
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            v = getattr(e, attr, None)
-            if v is not None:
-                return float(v)
-        return 0.0
-
     # device-side events only: the operator rows of key_averages() repeat
     # their kernels' time
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == DeviceType.CUDA
-              and dev_us(e) > 0]
-    events.sort(key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in events) / 1e6
+              and _dev_us(e) > 0]
+    events.sort(key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in events) / 1e6
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
             "device_events": sum(e.count for e in events),
-            "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
+            "top": [{"name": e.key[:80], "device_ms": _dev_us(e) / 1e3,
                      "calls": e.count} for e in events[:top]]}
 
 
@@ -1554,7 +1670,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     dev_info = phase_device()           # always: the build is every phase's
-    kernels = phase_kernels() if "kernels" in phases else None
+    kernels = (phase_kernels(grid_study="grid_study" in phases)
+               if "kernels" in phases else None)
     if "parity" in phases:
         phase_parity()
     full = phase_full_width() if "full_width" in phases else None

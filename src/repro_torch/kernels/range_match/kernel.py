@@ -12,11 +12,22 @@ tensors lie on the CPU, and launches its kernel for CUDA tensors — or
 raises.  There is no fallback from a CUDA tensor to the plain version.
 ``launches`` counts kernel launches per wrapper (plain-version calls do
 not count), so a run can show that the main path went through the card.
+
+The four route wrappers (K1, K2, K3, K4b) each launch two kernels through
+one C entry point: ``span_order``, which writes the live spans in (lo,
+slot id) order into a scratch buffer allocated here through PyTorch's
+caching allocator (so a CUDA graph can capture the call), then the route
+kernel, which searches that table.  Over at most 256 slots (the serving
+router's table) the route kernel orders the spans itself, in one launch,
+and writes the same table.  :func:`last_order` reads a wrapper's
+last table and the match pass it took ("search" over disjoint spans,
+"exhaustive" over overlapping ones).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
 
@@ -38,6 +49,12 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 
+MAX_ROUTE_SLOTS = 0xFFFF          # the route kernels stage 16-bit slot ids
+MATCH_PASSES = {1: "search", 2: "exhaustive"}
+
+# The last scratch buffer of each route wrapper (the sorted span table).
+_orders: dict[str, torch.Tensor] = {}
+
 
 def reset_launches() -> None:
     for k in launches:
@@ -56,19 +73,24 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.rm_range_match.argtypes = (
-                [_P] * 6 + [_I64, _I32, _I32, _I32, _I32] + [_P] * 4
+                [_P] * 6 + [_I64, _I32, _I32, _I32, _I32] + [_P] * 5
             )
             lib.rm_range_match_spread.argtypes = (
-                [_P] * 9 + [_I64, _I32, _I32, _I32, _I32, _I32] + [_P] * 4
+                [_P] * 9 + [_I64, _I32, _I32, _I32, _I32, _I32] + [_P] * 5
             )
             lib.rm_range_match_spread_dirty.argtypes = (
                 [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _I32, _I32]
-                + [_P] * 6
+                + [_P] * 7
             )
             lib.rm_range_match_apply.argtypes = (
                 [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _I64, _I64, _I32]
-                + [_P] * 8
+                + [_P] * 9
             )
+            lib.rm_order_bytes.argtypes = [_I32]
+            lib.rm_order_bytes.restype = _I64
+            if lib.rm_order_bytes(1000) != _order_bytes(1000):
+                raise RuntimeError("range_match.cu and kernel.py disagree on "
+                                   "the sorted span table's layout")
             lib.rm_slab_lookup.argtypes = [_P] * 3 + [_I64] * 3 + [_P] * 3
             lib.rm_range_match_stale.argtypes = (
                 [_P] * 8 + [_I64, _I32, _I32, _I32, _I32, _I32, _I32]
@@ -101,9 +123,44 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _grid(B: int, device: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min((B + 255) // 256, 4 * sms))
+    return max(1, min((B + 255) // 256, 4 * _sm_count(device.index)))
+
+
+def _order_bytes(S: int) -> int:
+    """Bytes of the sorted span table: a 16-byte header (the live count,
+    the match pass), S (lo, hi) pairs and S 16-bit slot ids."""
+    return 16 + 10 * S
+
+
+def _order(name: str, S: int, dev: torch.device) -> torch.Tensor:
+    """A fresh scratch buffer for wrapper ``name``'s sorted span table."""
+    if S > MAX_ROUTE_SLOTS:
+        raise ValueError(f"{name}: {S} slots, over the {MAX_ROUTE_SLOTS} "
+                         "that 16-bit slot ids can name")
+    scratch = torch.empty(_order_bytes(S), dtype=torch.uint8, device=dev)
+    _orders[name] = scratch
+    return scratch
+
+
+def last_order(name: str) -> dict:
+    """The sorted span table of route wrapper ``name``'s last launch, read
+    back to the host (this waits for the device): ``n_live``, the live
+    spans' ``lo``, ``hi`` (uint32 values as int64) and slot ``id`` in
+    (lo, id) order, and ``match``, the pass its route kernel took."""
+    scratch = _orders[name].cpu()
+    S = (scratch.numel() - 16) // 10
+    header = scratch[:16].view(torch.int32)
+    n = int(header[0])
+    spans = scratch[16:16 + 8 * S].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ids = scratch[16 + 8 * S:].view(torch.int16).to(torch.int64) & 0xFFFF
+    return {"n_live": n, "match": MATCH_PASSES.get(int(header[1])),
+            "lo": spans[0:2 * n:2], "hi": spans[1:2 * n:2], "id": ids[:n]}
 
 
 def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
@@ -134,7 +191,8 @@ def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
     rc = _load().rm_range_match(
         mvals.data_ptr(), opcodes.data_ptr(), slot_lo.data_ptr(),
         slot_hi.data_ptr(), chains.data_ptr(), chain_len.data_ptr(),
-        B, S, r_max, num_slots, _grid(B, dev), ridx.data_ptr(),
+        B, S, r_max, num_slots, _grid(B, dev),
+        _order("range_match", S, dev).data_ptr(), ridx.data_ptr(),
         target.data_ptr(), chain.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -164,7 +222,8 @@ def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
         mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
         slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
         chain_len.data_ptr(), loads.data_ptr(), B, S, r_max, num_slots, n,
-        _grid(B, dev), ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
+        _grid(B, dev), _order("range_match_spread", S, dev).data_ptr(),
+        ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "range_match_spread")
@@ -237,6 +296,7 @@ def range_match_spread_dirty(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
         chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
         keys.data_ptr() if F else None, key_filter.data_ptr() if F else None,
         B, S, r_max, num_slots, n, F, _grid(B, dev),
+        _order("range_match_spread_dirty", S, dev).data_ptr(),
         *(t.data_ptr() for t in out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -277,7 +337,8 @@ def range_match_apply(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
         slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
         chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
         qkeys.data_ptr(), slabs.data_ptr(), B, S, r_max, num_slots, n, N, C,
-        _grid(B, dev), *(t.data_ptr() for t in out),
+        _grid(B, dev), _order("range_match_apply", S, dev).data_ptr(),
+        *(t.data_ptr() for t in out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "range_match_apply")

@@ -31,6 +31,51 @@ def _slot_match(mvals, slot_lo, slot_hi, num_slots: int):
     return torch.clamp(ridx, max=num_slots - 1)
 
 
+def span_order_ref(slot_lo, slot_hi):
+    """The sorted span table the CUDA ``span_order`` kernel writes: the
+    live spans (``lo <= hi`` as uint32) in (lo, slot id) order, each slot
+    placed at its rank, the count of live spans before it in that order.
+    Returns int64 ``(lo, hi, id)`` of the ``n_live`` live spans."""
+    lo, hi = _u32(slot_lo), _u32(slot_hi)
+    S = lo.shape[0]
+    live = lo <= hi
+    iota = torch.arange(S, dtype=torch.int64, device=lo.device)
+    before = live[None, :] & ((lo[None, :] < lo[:, None])
+                              | ((lo[None, :] == lo[:, None])
+                                 & (iota[None, :] < iota[:, None])))
+    rank = before.sum(dim=1)[live]
+    order = torch.empty_like(rank)
+    order[rank] = iota[live]
+    return lo[order], hi[order], order
+
+
+def sorted_match_ref(mvals, slot_lo, slot_hi, num_slots: int):
+    """Plain mirror of the route kernels' match over the sorted span table
+    (used by the tests): :func:`span_order_ref`'s order, the disjoint
+    check of adjacent spans, then an upper-bound search of each value over
+    the sorted lo (disjoint spans) or an exhaustive pass keeping the
+    lowest slot id among the hits.  Returns ``(ridx, match)``: (B,) int64
+    slot ids clamped to ``num_slots - 1`` on a total miss, as
+    :func:`_slot_match`, and ``"search"`` or ``"exhaustive"``."""
+    lo, hi, ids = span_order_ref(slot_lo, slot_hi)
+    S = slot_lo.shape[0]
+    v = _u32(mvals)
+    if bool((hi[:-1] < lo[1:]).all()):
+        k = torch.searchsorted(lo, v, right=True)
+        prev = torch.clamp(k - 1, min=0)
+        if ids.numel():
+            hit = (k > 0) & (v <= hi[prev])
+            ridx = torch.where(hit, ids[prev], S)
+        else:
+            ridx = torch.full_like(v, S)
+        match = "search"
+    else:
+        hit = (v[:, None] >= lo[None, :]) & (v[:, None] <= hi[None, :])
+        ridx = torch.where(hit, ids[None, :], S).amin(dim=-1)
+        match = "exhaustive"
+    return torch.clamp(ridx, max=num_slots - 1), match
+
+
 def _fetch(chains, chain_len, ridx):
     chain = chains[:, ridx]                                  # (r_max, B)
     clen = chain_len[ridx].to(torch.int64)

@@ -151,6 +151,226 @@ def test_route_kernel_raises_when_tables_exceed_shared_memory(dev):
         OPS.range_match(d, keys, ops)
 
 
+# ---------------------------------------------------------------------------
+# The sorted span table of K1-K4b: tables that take each match pass
+# ---------------------------------------------------------------------------
+
+MAX32 = 0xFFFFFFFF
+
+# (case, the pass the route kernels take): malformed tables, whose live
+# spans overlap, take the exhaustive pass; the rest the binary search
+SPAN_CASES = (
+    ("partition", "search"), ("overlap", "exhaustive"),
+    ("equal_lo", "exhaustive"), ("single_keys", "search"),
+    ("full_space", "search"), ("full_space_overlap", "exhaustive"),
+    ("gaps", "search"), ("all_dead", "search"),
+    ("hits_past_num_slots", "search"),
+    ("overlap_past_num_slots", "exhaustive"), ("top_key", "search"),
+)
+
+
+def span_table(case, S=64, seed=0):
+    """uint32 ``(lo, hi)`` numpy spans of S slots, dead slots as ``lo =
+    MAX32 > hi = 0``, and ``num_slots``, for a case of ``SPAN_CASES``."""
+    rng = np.random.default_rng(seed)
+    n = S // 2 + 3                                  # live spans
+    cuts = np.sort(rng.choice(MAX32, n - 1, replace=False))
+    p_lo = np.concatenate([[0], cuts + 1])
+    p_hi = np.concatenate([cuts, [MAX32]])         # a partition of [0, MAX32]
+    lo = np.full(S, MAX32, np.uint64)
+    hi = np.zeros(S, np.uint64)
+    slots = rng.permutation(S)[:n]
+    num_slots = S
+    if case in ("partition", "hits_past_num_slots", "top_key"):
+        lo[slots], hi[slots] = p_lo, p_hi
+        if case == "hits_past_num_slots":
+            num_slots = S // 3
+        if case == "top_key":   # a single-key span at the top of the space
+            hi[slots[-1]] = MAX32 - 1
+            lo[slots[0]], hi[slots[0]] = MAX32, MAX32
+            lo[slots[1]], hi[slots[1]] = 0, 0
+    elif case in ("overlap", "overlap_past_num_slots"):
+        lo[slots] = rng.integers(0, MAX32, n, dtype=np.uint64)
+        hi[slots] = np.minimum(lo[slots] + rng.integers(0, 2**30, n).astype(
+            np.uint64), MAX32)
+        if case == "overlap_past_num_slots":
+            num_slots = S // 2
+    elif case == "equal_lo":
+        lo[slots], hi[slots] = p_lo, p_hi
+        # a second span from the same lo: the lower slot id wins
+        spare = np.setdiff1d(np.arange(S), slots)[:2]
+        lo[spare] = p_lo[[3, n - 1]]
+        hi[spare] = p_lo[[3, n - 1]] + np.array([5, 0], np.uint64)
+    elif case == "single_keys":
+        lo[slots] = hi[slots] = np.sort(rng.choice(MAX32 + 1, n, replace=False))
+    elif case == "full_space":
+        lo[slots[0]], hi[slots[0]] = 0, MAX32
+    elif case == "full_space_overlap":
+        lo[slots], hi[slots] = p_lo, p_hi
+        lo[S // 2], hi[S // 2] = 0, MAX32
+    elif case == "gaps":
+        lo[slots], hi[slots] = p_lo, p_lo + (p_hi - p_lo) // 2
+    elif case != "all_dead":
+        raise ValueError(case)
+    return lo, hi, num_slots
+
+
+def span_values(lo, hi, B, seed=0):
+    """B uint64 matching values: the spans' edges and their neighbours, 0
+    and MAX32, the rest uniform."""
+    live = lo <= hi
+    edges = np.concatenate([lo[live], hi[live], (lo[live] - 1) & MAX32,
+                            (hi[live] + 1) & MAX32, [0, MAX32]])
+    rng = np.random.default_rng(seed + 1)
+    return np.concatenate([edges, rng.integers(0, MAX32 + 1, B - len(edges),
+                                               dtype=np.uint64)])[:B]
+
+
+def _route_inputs(lo, hi, B, dev, seed=0, n_nodes=8, r_max=4, F=64, C=300):
+    """Every route kernel's inputs over the uint32 spans ``lo`` / ``hi``:
+    random chains (some empty), chain lengths 0 to r_max, loads, dirty
+    bits, a key filter and slabs that hold some of the values."""
+    rng = np.random.default_rng(seed)
+    S = len(lo)
+    t = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    mvals = span_values(lo, hi, B, seed).astype(np.int64)
+    slabs = np.full((n_nodes, C), MAX32, np.int64)
+    for n in range(n_nodes):
+        m = int(rng.integers(1, C + 1))
+        slabs[n, :m] = np.unique(np.concatenate(
+            [rng.choice(mvals, m // 2), rng.integers(0, MAX32, m)]))[:m]
+        slabs[n].sort()
+    return dict(
+        mvals=t(mvals), opcodes=t(rng.integers(0, 4, B), torch.int32),
+        u1=t(rng.integers(0, 2**31 - 1, B), torch.int32),
+        u2=t(rng.integers(0, 2**31 - 1, B), torch.int32),
+        lo=OPS.to_i32_bits(t(lo.astype(np.int64))),
+        hi=OPS.to_i32_bits(t(hi.astype(np.int64))),
+        chains=t(rng.integers(-1, n_nodes, (r_max, S)), torch.int32),
+        clen=t(rng.integers(0, r_max + 1, S), torch.int32),
+        loads=OPS.to_i32_bits(t(rng.integers(0, MAX32, n_nodes,
+                                             dtype=np.uint64).astype(np.int64))),
+        dirty=t(rng.random((r_max, S)) < 0.5, torch.uint8),
+        kf=t(rng.random((S, F)) < 0.3), slabs=t(slabs))
+
+
+def _route_calls(x, num_slots):
+    """(wrapper name, kernel call, plain call) of K1, K2, K3 without and
+    with the key filter, and K4b on ``_route_inputs``."""
+    from repro_torch.kernels.range_match import ref as REF
+
+    tail = (x["mvals"], x["opcodes"])
+    spread = tail + (x["u1"], x["u2"])
+    tables = (x["lo"], x["hi"], x["chains"], x["clen"])
+    dirty = spread + tables + (x["loads"], x["dirty"])
+    kw = dict(num_slots=num_slots)
+    return (
+        ("range_match", lambda: RMK.range_match(*tail, *tables, **kw),
+         lambda: REF.range_match_ref(*tail, *tables, **kw)),
+        ("range_match_spread",
+         lambda: RMK.range_match_spread(*spread, *tables, x["loads"], **kw),
+         lambda: REF.range_match_spread_ref(*spread, *tables, x["loads"], **kw)),
+        ("range_match_spread_dirty",
+         lambda: RMK.range_match_spread_dirty(*dirty, **kw),
+         lambda: REF.range_match_spread_dirty_ref(*dirty, **kw)),
+        ("range_match_spread_dirty",
+         lambda: RMK.range_match_spread_dirty(*dirty, x["mvals"], x["kf"], **kw),
+         lambda: REF.range_match_spread_dirty_ref(*dirty, x["mvals"], x["kf"],
+                                                  **kw)),
+        ("range_match_apply",
+         lambda: RMK.range_match_apply(*dirty, x["mvals"], x["slabs"], **kw),
+         lambda: REF.range_match_apply_ref(*dirty, x["mvals"], x["slabs"], **kw)),
+    )
+
+
+def _check_route_calls(x, num_slots, want_match):
+    """Each route kernel bitwise against its plain version, the pass its
+    route kernel took, and its sorted span table against the plain one."""
+    from repro_torch.kernels.range_match import ref as REF
+
+    slo, shi, sid = REF.span_order_ref(x["lo"].cpu(), x["hi"].cpu())
+    for name, call, plain in _route_calls(x, num_slots):
+        before = RMK.launches[name]
+        got = call()
+        assert RMK.launches[name] == before + 1
+        _same(got, plain())
+        order = RMK.last_order(name)
+        assert order["match"] == want_match, name
+        assert order["n_live"] == len(sid)
+        for a, b in ((order["lo"], slo), (order["hi"], shi), (order["id"], sid)):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("S", [64, 1000])
+@pytest.mark.parametrize("case,match", SPAN_CASES)
+def test_route_kernels_on_span_tables(dev, case, match, S):
+    """K1, K2, K3 (with and without the filter) and K4b on tables that
+    take each match pass: overlapping spans, equal lo, single-key spans,
+    the full key space alone and over a partition, gaps (total misses),
+    every slot dead, hits at slot ids at and past ``num_slots``, and the
+    values 0 and 2**32 - 1 at the edges of the space; over 64 slots, which
+    each route block orders itself, and over 1,000, which span_order
+    orders."""
+    lo, hi, num_slots = span_table(case, S, seed=len(case))
+    _check_route_calls(_route_inputs(lo, hi, 5000, dev, seed=len(case)),
+                       num_slots, match)
+
+
+@pytest.mark.parametrize("n_slots", [64, 2048, 6000])
+def test_route_kernels_search_directories(dev, n_slots):
+    """Controller-built directories (after splits, widens and merges) take
+    the binary search in every route kernel, up to 6,000 slots."""
+    d = _directory(n_slots, n_slots // 2, n_slots, dev)
+    lo, hi, _, _ = OPS.pack_tables(d)
+    u32 = lambda t: (t.cpu().numpy().astype(np.int64) & MAX32).astype(np.uint64)  # noqa: E731
+    x = _route_inputs(u32(lo), u32(hi), 70000, dev, seed=n_slots)
+    x["chains"], x["clen"] = OPS.pack_tables(d)[2:]
+    _check_route_calls(x, d.num_slots, "search")
+
+
+@pytest.mark.parametrize("n_slots", [32, 2048])
+def test_route_kernel_in_cuda_graph(dev, n_slots):
+    """K1 captured in a CUDA graph, in one launch (32 slots) and in two
+    (span_order first, 2,048 slots): its kernels and its scratch (from
+    PyTorch's allocator) replay to the eager call's outputs bit for bit,
+    and a replay reads the inputs as they are then."""
+    d = _directory(3, n_slots // 2, n_slots, dev)
+    lo, hi, chains, clen = OPS.pack_tables(d)
+    rng = np.random.default_rng(3)
+    mvals = torch.tensor(rng.integers(0, 2**32, 70000, dtype=np.uint64)
+                         .astype(np.int64), device=dev)
+    ops = torch.tensor(rng.integers(0, 4, 70000).astype(np.int32), device=dev)
+    call = lambda: RMK.range_match(mvals, ops, lo, hi, chains, clen,  # noqa: E731
+                                   num_slots=d.num_slots)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for shift in (0, 12345):
+        mvals.add_(shift).bitwise_and_(MAX32)
+        eager = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(out, eager)
+
+
+def test_route_kernel_refuses_more_slots_than_ids(dev):
+    """Slot ids are staged as 16 bits: the wrappers refuse more than 65,535
+    slots before launching anything."""
+    S = 1 << 16
+    z = lambda n, dt=torch.int32: torch.zeros(n, dtype=dt, device=dev)  # noqa: E731
+    before = RMK.launches["range_match"]
+    with pytest.raises(ValueError, match="16-bit"):
+        RMK.range_match(z(4, torch.int64), z(4), z(S), z(S),
+                        torch.zeros((1, S), dtype=torch.int32, device=dev),
+                        z(S), num_slots=S)
+    assert RMK.launches["range_match"] == before
+
+
 def _coord_state(d, W, device, seed):
     """A W-switch tier state over ``d``'s tables, perturbed as the
     reference's kernel test perturbs it: divergent versions on two

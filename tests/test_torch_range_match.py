@@ -34,6 +34,8 @@ from repro_torch.core import controller as TCtl
 from repro_torch.core import routing as TR
 from repro_torch.kernels.range_match import kernel as TKer
 from repro_torch.kernels.range_match import ops as TOps
+from repro_torch.kernels.range_match import ref as TRef
+from test_torch_cuda import SPAN_CASES, span_table, span_values
 
 B = 1024          # one Pallas grid step of 8 x 128 packets
 
@@ -373,3 +375,79 @@ def test_plain_versions_do_not_count_launches():
                              "range_match_spread_dirty": 0,
                              "range_match_apply": 0, "slab_lookup": 0,
                              "range_match_stale": 0}
+
+
+# ---------------------------------------------------------------------------
+# The plain mirror of the route kernels' match over the sorted span table
+# ---------------------------------------------------------------------------
+
+
+def _mirror_vs_reference(lo, hi, live, mvals, num_slots):
+    """``sorted_match_ref`` on the port's dead-masked spans against the
+    port's min-index match, the reference's Pallas kernel in interpret
+    mode on the lane-padded spans and, where ``num_slots`` is the whole
+    table, the reference's ``directory.lookup_range``.  Returns the pass
+    the mirror took."""
+    S = len(lo)
+    lo_m = np.where(live, lo, 0xFFFFFFFF).astype(np.uint32)
+    hi_m = np.where(live, hi, 0).astype(np.uint32)
+    t_lo, t_hi, t_v = _t32_bits(lo_m), _t32_bits(hi_m), _t64(mvals)
+    got, match = TRef.sorted_match_ref(t_v, t_lo, t_hi, num_slots)
+    assert _eq(TRef._slot_match(t_v, t_lo, t_hi, num_slots), got)
+    spad = max(128, -(-S // 128) * 128)
+    pad = lambda a, fill: jnp.asarray(np.concatenate(  # noqa: E731
+        [a, np.full(spad - S, fill, a.dtype)]))
+    ridx, _, _ = JKer.range_match_pallas(
+        jnp.asarray(mvals.astype(np.uint32)), jnp.zeros(len(mvals), jnp.int32),
+        pad(lo_m, 0xFFFFFFFF), pad(hi_m, 0), jnp.zeros((1, spad), jnp.int32),
+        jnp.ones(spad, jnp.int32), num_slots=num_slots, interpret=True)
+    assert _eq(ridx, got)
+    if num_slots == S:
+        jd = JC.make_directory(1, 1, 1, n_slots=S)
+        jd = jd.__class__(**{**jd.__dict__, "slot_lo": jnp.asarray(lo, jnp.uint32),
+                             "slot_hi": jnp.asarray(hi, jnp.uint32),
+                             "live": jnp.asarray(live)})
+        assert _eq(JC.lookup_range(jd, jnp.asarray(mvals.astype(np.uint32))),
+                   got)
+    return match
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("hash_partitioned", [False, True])
+def test_sorted_match_mirror_on_directories(seed, hash_partitioned):
+    """Controller-built directories (after splits, merges, widens and
+    narrows) partition the key space: the mirror takes the binary search
+    and equals the reference's lookup and Pallas kernel."""
+    jd, _ = _directory(seed, hash_partitioned)
+    keys, _ = _packets(seed)
+    mvals = np.asarray(JC.keys.matching_value(
+        jnp.asarray(keys), hash_partitioned=hash_partitioned)).astype(np.int64)
+    lo, hi, live = (np.asarray(x) for x in (jd.slot_lo, jd.slot_hi, jd.live))
+    edges = np.concatenate([lo[live], hi[live]]).astype(np.int64)
+    mvals[:len(edges)] = edges[:B]
+    assert _mirror_vs_reference(lo, hi, live, mvals, jd.num_slots) == "search"
+
+
+@pytest.mark.parametrize("case,match", SPAN_CASES)
+def test_sorted_match_mirror_on_span_tables(case, match):
+    """Tables that take each pass (the cases the ``cuda`` tests run on the
+    card): overlapping spans, equal lo, single-key spans, the full key
+    space, gaps, every slot dead, hits at and past ``num_slots``, and the
+    values 0 and 2**32 - 1."""
+    lo, hi, num_slots = span_table(case, 64, seed=len(case))
+    live = lo <= hi
+    mvals = span_values(lo, hi, B, seed=len(case)).astype(np.int64)
+    assert _mirror_vs_reference(lo.astype(np.uint32), hi.astype(np.uint32),
+                                live, mvals, num_slots) == match
+
+
+def test_span_order_mirror_ranks():
+    """The mirror's order is the live spans sorted by (lo, slot id): dead
+    slots (lo > hi as uint32, the top bit set on some) are left out and
+    equal lo keep slot order."""
+    lo = np.array([9, 0xFFFFFFFF, 5, 9, 0x80000000, 7, 3], np.uint32)
+    hi = np.array([9, 0, 6, 12, 0xFFFFFFFF, 2, 0x90000000], np.uint32)
+    slo, shi, sid = TRef.span_order_ref(_t32_bits(lo), _t32_bits(hi))
+    assert sid.tolist() == [6, 2, 0, 3, 4]
+    assert slo.tolist() == [3, 5, 9, 9, 0x80000000]
+    assert shi.tolist() == [0x90000000, 6, 9, 12, 0xFFFFFFFF]
