@@ -27,7 +27,9 @@ exits non-zero):
                device time between ``span_order`` and the route kernel
                (``torch.profiler``) and the match pass the route kernel
                took over the sorted span table (``match``, which must be
-               ``"search"`` on a controller's directory), and K1 once more
+               ``"search"`` on a controller's directory), for K5 the split
+               between ``span_order`` and its search kernel and the pass of
+               each switch copy (each must be ``"search"``), and K1 once more
                at the serving router's shape (B 32, 32 hash-partitioned
                slots); then K6
                ``decode_attn`` against its plain version within a
@@ -373,6 +375,8 @@ ROUTER_B = 32
 ROUTE_KERNELS = ("range_match", "range_match_spread",
                  "range_match_spread_dirty", "range_match_apply")
 ROUTE_PARTS = ("span_order", "route_kernel")
+# K5: span_order over the W switch copies, then the search kernel
+STALE_PARTS = ("span_order", "stale_kernel")
 
 
 def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
@@ -525,8 +529,10 @@ def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
           "shape": {"B": ROUTER_B, "S": r_S, "r_max": r_rmax,
                     "hash_partitioned": True}}),
     ]
-    # a package from before the sorted span table has no last_order
+    # a package from before the sorted span tables has no last_order (K1-
+    # K4b) or last_stale_order (K5)
     sorted_table = hasattr(RMK, "last_order")
+    stale_table = hasattr(RMK, "last_stale_order")
     rows = []
     for name, fn, plain, lib, nbytes, replaces, replaces_fn, extra in specs:
         before = RMK.launches[name]
@@ -553,6 +559,17 @@ def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
                 if extra["match"] != "search":
                     raise AssertionError(f"{name}: a controller's directory "
                                          f"took the {extra['match']} pass")
+        if name == "range_match_stale":
+            # the same for K5, with the pass of each switch copy
+            extra = {**extra,
+                     "device_ms_split": device_split(fn, STALE_PARTS)}
+            if stale_table:
+                fn()
+                extra["match"] = [c["match"] for c in RMK.last_stale_order()]
+                if extra["match"] != ["search"] * W_FULL:
+                    raise AssertionError("range_match_stale: a controller "
+                                         "copy took the exhaustive pass: "
+                                         f"{extra['match']}")
         RMK.launches[name] = before   # comparison launches do not count
         row = {"name": name, "route": "cuda",
                "source": "src/repro_torch/kernels/range_match/csrc/range_match.cu",

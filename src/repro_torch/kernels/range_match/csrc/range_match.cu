@@ -71,13 +71,25 @@
 //   keeps many searches in flight so the card overlaps their latencies.
 //   Both kernels call the one __device__ probe_slab.
 // * range_match_stale is bound like the routing kernels, by the packet
-//   vectors and the W switches' tables.  Its W copies at full width (lo,
-//   hi, clen, version, chains, committed: 270 KB at W = 4, S = 2,048,
-//   r_max = 4) exceed a block's shared memory, so a block stages only the
-//   W copies of the spans (8 W S bytes) and reads the matched slot's
-//   chain word, clen, version and committed word from device memory.  The
-//   ingress switch and, under hash partitioning, the matching value are
-//   the reference's hash_key of the raw key, computed in the kernel.
+//   vectors and the W switches' tables, and matches as they do, over a
+//   sorted span table per switch copy.  span_order runs over a (slot,
+//   copy) grid, each copy ranked over its own slots only, into W tables of
+//   the wrapper's scratch.  stale_kernel then stages the W sorted tables'
+//   (lo, hi) pairs with cp.async, waits once, and checks each copy's
+//   adjacent entries for overlap on its own, so a malformed or rogue copy
+//   takes the exhaustive pass alone and the disjoint copies keep the
+//   binary search.  Each block keeps each copy's live count and pass in
+//   a word of shared memory after the spans (block 0 also records the pass
+//   in the copy's header): 8 W S + 4 W bytes, the linear scan's 8 W S and
+//   a word a copy.  The 16-bit slot ids stay in the scratch (L2): a packet
+//   reads the one id its search lands on.  The search kernel launches
+//   plainly after span_order: it has nothing to stage before the order is
+//   written, and as span_order's programmatic dependent it measured no
+//   faster.  After the match, the packet's one chain word, clen, version
+//   and committed word come from device memory (the tables are
+//   L2-resident).  The ingress switch and, under hash partitioning, the
+//   matching value are the reference's hash_key of the raw key, computed
+//   in the kernel.
 //
 // Integer conventions (shared with the plain PyTorch versions in ref.py):
 // keys, matching values, targets and slab words arrive as the port's int64
@@ -90,8 +102,8 @@
 // [0, 2**31 - 1)), so C's truncating % equals jnp's floor-mod.
 //
 // Every entry point launches on the caller's stream, allocates nothing
-// (the route entries take the wrapper's scratch for the sorted span
-// table) and returns cudaGetLastError().
+// (the route entries and range_match_stale take the wrapper's scratch for
+// the sorted span tables) and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,22 +124,33 @@ constexpr int kSpread = 1;   // K2: p2c read pick over the load registers
 constexpr int kDirty = 2;    // K3: CRAQ tail bounce of dirty picks
 constexpr int kApply = 3;    // K4b: K3 then the slab probe
 
-// span_order's output in the wrapper's scratch (order_bytes(S) bytes):
-// a 16-byte header, then the live spans in (lo, slot id) order as (lo,
-// hi) pairs, then their slot ids.
+// span_order's output in the wrapper's scratch (order_bytes(S, W)
+// bytes) for W copies of S slots (one for the route kernels): a 16-byte
+// header a copy, then each copy's live spans in (lo, slot id) order as
+// (lo, hi) pairs, copy w's from entry w * S, then their slot ids likewise.
 struct Order {
-    uint32_t* header;   // [0] live spans; [1] the match pass block 0 took
-    uint2* span;        // (S,), the first header[0] entries written
-    uint16_t* id;       // (S,)
+    uint32_t* header;   // 4 words a copy: [0] live spans; [1] the match
+                        // pass block 0 took
+    uint2* span;        // (W, S), the first header[0] entries of a copy
+    uint16_t* id;       // (W, S)
 };
 
-size_t order_bytes(int S) { return 16 + (size_t)S * (sizeof(uint2) + 2); }
+size_t order_bytes(int S, int W) {
+    return (size_t)W * (16 + (size_t)S * (sizeof(uint2) + 2));
+}
 
-Order order_of(void* scratch, int S) {
+Order order_of(void* scratch, int S, int W) {
     unsigned char* base = static_cast<unsigned char*>(scratch);
+    const size_t spans = 16 * (size_t)W;
     return Order{reinterpret_cast<uint32_t*>(base),
-                 reinterpret_cast<uint2*>(base + 16),
-                 reinterpret_cast<uint16_t*>(base + 16 + (size_t)S * 8)};
+                 reinterpret_cast<uint2*>(base + spans),
+                 reinterpret_cast<uint16_t*>(base + spans + (size_t)W * S * 8)};
+}
+
+// copy w's table of an Order over copies of S slots
+__host__ __device__ __forceinline__ Order copy_of(Order o, int S, int w) {
+    return Order{o.header + 4 * w, o.span + (size_t)w * S,
+                 o.id + (size_t)w * S};
 }
 
 // route_kernel's shared memory: byte offsets of its tables, each on a
@@ -261,6 +284,10 @@ __device__ __forceinline__ int sorted_match(uint32_t v, const uint2* span,
 
 // A warp per slot: the rank of each live span in (lo, slot id) order,
 // counted over all S slots, and its (lo, hi, id) written at that rank.
+// With kCopies (K5) the grid's y index is the copy: lo, hi and the order
+// are copy-major, and a copy is ranked over its own slots only.  The route
+// kernels' one table takes the instance without it, which computes no
+// per-copy offsets.
 // The block stages the spans kOrderTile at a time; each lane counts over
 // its stride of a tile and the warp sums the counts at the end.  Slot 0's
 // warp also writes the live count.  Each block lets the route kernel
@@ -269,12 +296,18 @@ __device__ __forceinline__ int sorted_match(uint32_t v, const uint2* span,
 constexpr int kOrderThreads = 512;   // 16 slots a block
 constexpr int kOrderTile = 2048;     // 16 KB of (lo, hi) a tile
 
+template <bool kCopies>
 __global__ void __launch_bounds__(kOrderThreads)
 span_order_kernel(const uint32_t* __restrict__ lo,
                   const uint32_t* __restrict__ hi, int S, Order o) {
     __shared__ __align__(16) uint32_t s_lo[kOrderTile];
     __shared__ __align__(16) uint32_t s_hi[kOrderTile];
     asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    if constexpr (kCopies) {
+        lo += (size_t)blockIdx.y * S;
+        hi += (size_t)blockIdx.y * S;
+        o = copy_of(o, S, blockIdx.y);
+    }
     const int lane = threadIdx.x & 31;
     const int i = blockIdx.x * (kOrderThreads / 32) + (threadIdx.x >> 5);
     const uint32_t lo_i = i < S ? lo[i] : 1u;      // past S: dead
@@ -460,32 +493,48 @@ __global__ void route_kernel(Packets in, Tables t, int64_t B, int S,
     }
 }
 
-// K5: each packet matches against its ingress switch's private copy of
-// the spans.  The W copies' spans are staged slot-major, one (lo, hi) pair
-// per (slot, switch): the threads of a warp scan the rows of different
-// switches in step, so at each slot they read W neighbouring 8-byte words
-// (no bank conflict) instead of W words one row (a multiple of 32 words)
-// apart.  After the match, the packet's one chain word, clen, version and
+// K5: each packet matches against its ingress switch's copy of the spans,
+// over that copy's sorted table (span_order's, copy w from entry w * S).
+// The block stages the W tables' (lo, hi) pairs, waits once, and checks
+// each copy for overlap: a shared word a copy gets its live count and
+// pass, which its packets read back.
+// After the match, the packet's one chain word, clen, version and
 // committed word come from device memory (the tables are L2-resident).
-__global__ void stale_kernel(const int64_t* __restrict__ keys,
-                             const int32_t* __restrict__ opcodes,
-                             const uint32_t* __restrict__ lo_w,
-                             const uint32_t* __restrict__ hi_w,
-                             const int32_t* __restrict__ chains_w,
-                             const int32_t* __restrict__ clen_w,
-                             const int32_t* __restrict__ version_w,
-                             const int32_t* __restrict__ committed, int64_t B,
-                             int S, int W, int r_max, int num_slots,
-                             int hash_partitioned, int32_t* __restrict__ sridx,
-                             int32_t* __restrict__ server,
-                             uint8_t* __restrict__ divergent) {
+__global__ void __launch_bounds__(kThreads)
+stale_kernel(const int64_t* __restrict__ keys,
+             const int32_t* __restrict__ opcodes, Order o,
+             const int32_t* __restrict__ chains_w,
+             const int32_t* __restrict__ clen_w,
+             const int32_t* __restrict__ version_w,
+             const int32_t* __restrict__ committed, int64_t B, int S, int W,
+             int r_max, int num_slots, int hash_partitioned,
+             int32_t* __restrict__ sridx, int32_t* __restrict__ server,
+             uint8_t* __restrict__ divergent) {
     extern __shared__ __align__(16) unsigned char smem[];
-    uint2* s_span = reinterpret_cast<uint2*>(smem);   // (S, W) of (lo, hi)
-    for (int j = threadIdx.x; j < W * S; j += blockDim.x) {
-        const int w = j / S, i = j - w * S;
-        s_span[i * W + w] = make_uint2(lo_w[j], hi_w[j]);
+    uint2* s_span = reinterpret_cast<uint2*>(smem);   // (W, S) of (lo, hi)
+    // a word a copy: its live count << 2 | its pass
+    uint32_t* s_copy = reinterpret_cast<uint32_t*>(s_span + (size_t)W * S);
+    for (int w = 0; w < W; ++w) {
+        const Order c = copy_of(o, S, w);
+        stage(s_span + (size_t)w * S, c.span, 8ll * c.header[0]);
     }
+    cp_async_wait_all();
     __syncthreads();
+    // each copy's pass, decided over its own adjacent entries
+    for (int w = 0; w < W; ++w) {
+        const int n = (int)o.header[4 * w];
+        const uint2* sp = s_span + (size_t)w * S;
+        int overlap = 0;
+        for (int k = threadIdx.x; k + 1 < n; k += blockDim.x) {
+            overlap |= sp[k].y >= sp[k + 1].x;
+        }
+        const uint32_t pass = __syncthreads_or(overlap) ? kExhaustive : kSearch;
+        if (threadIdx.x == 0) {
+            s_copy[w] = ((uint32_t)n << 2) | pass;
+            if (blockIdx.x == 0) o.header[4 * w + 1] = pass;
+        }
+    }
+    __syncthreads();   // the words are written before any packet reads them
 
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; b < B;
@@ -494,11 +543,9 @@ __global__ void stale_kernel(const int64_t* __restrict__ keys,
         const uint32_t h = hash_key(key);
         const int w = (int)(h % (uint32_t)W);             // ingress switch
         const uint32_t v = hash_partitioned ? h : key;    // matching value
-        int r = S;
-        for (int i = 0; i < S; ++i) {
-            const uint2 sp = s_span[i * W + w];
-            if (v >= sp.x && v <= sp.y) { r = i; break; }
-        }
+        const uint32_t rw = s_copy[w];
+        int r = sorted_match(v, s_span + (size_t)w * S, o.id + (size_t)w * S,
+                             (int)(rw >> 2), (rw & 3) == kSearch, S);
         if (r > num_slots - 1) r = num_slots - 1;   // total miss clamps
         const int32_t op = opcodes[b];
         const bool is_write = (op == 1) || (op == 2);
@@ -520,10 +567,12 @@ __global__ void slab_lookup_kernel(
     probe_slab(slabs, N, C, qkeys[b], target[b], &slot_out[b], &found_out[b]);
 }
 
-// Lets route_kernel<kMode> opt in to all the shared memory a block of the
-// current device may take, once per device; a launch that needs more
-// fails and its error is returned.
-template <int kMode>
+// Lets route_kernel<kMode> (or, for kStale, stale_kernel) opt in to all
+// the shared memory a block of the current device may take, once per
+// device; a launch that needs more fails and its error is returned.
+constexpr int kStale = 4;
+
+template <int kKernel>
 void allow_smem() {
     static bool done[kMaxDevices];
     int dev = 0;
@@ -531,8 +580,13 @@ void allow_smem() {
     if (dev < kMaxDevices && done[dev]) return;
     int optin = 0;
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaFuncSetAttribute(route_kernel<kMode>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if constexpr (kKernel == kStale) {
+        cudaFuncSetAttribute(stale_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    } else {
+        cudaFuncSetAttribute(route_kernel<kKernel>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    }
     if (dev < kMaxDevices) done[dev] = true;
 }
 
@@ -551,7 +605,7 @@ int launch_route(const Packets& in, const void* lo, const void* hi,
                  cudaStream_t stream) {
     allow_smem<kMode>();
     if (B > 0 && S <= kThreads) {
-        t.order = order_of(scratch, S);
+        t.order = order_of(scratch, S, 1);
         t.lo = static_cast<const uint32_t*>(lo);
         t.hi = static_cast<const uint32_t*>(hi);
         route_kernel<kMode><<<grid, kThreads,
@@ -559,9 +613,10 @@ int launch_route(const Packets& in, const void* lo, const void* hi,
                               stream>>>(in, t, B, S, r_max, num_slots, n_loads,
                                         out);
     } else if (B > 0) {
-        t.order = order_of(scratch, S);
-        span_order_kernel<<<(S + kOrderThreads / 32 - 1) / (kOrderThreads / 32),
-                            kOrderThreads, 0, stream>>>(
+        t.order = order_of(scratch, S, 1);
+        span_order_kernel<false>
+            <<<(S + kOrderThreads / 32 - 1) / (kOrderThreads / 32),
+               kOrderThreads, 0, stream>>>(
             static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
             S, t.order);
         cudaLaunchAttribute attr[1];
@@ -595,8 +650,11 @@ extern "C" {
 
 int rm_threads_per_block() { return kThreads; }
 
-// Bytes of the scratch each route entry takes for the sorted span table.
-int64_t rm_order_bytes(int32_t S) { return (int64_t)order_bytes(S); }
+// Bytes of the scratch each route entry takes for its sorted span table,
+// and range_match_stale for its W tables.
+int64_t rm_order_bytes(int32_t S, int32_t W) {
+    return (int64_t)order_bytes(S, W);
+}
 
 int rm_range_match(const void* mvals, const void* opcodes, const void* lo,
                    const void* hi, const void* chains, const void* clen,
@@ -685,30 +743,35 @@ int rm_max_smem_optin(int device) {
     return v;
 }
 
+// span_order over the W copies, then stale_kernel over the sorted tables.
 int rm_range_match_stale(const void* keys, const void* opcodes,
                          const void* lo_w, const void* hi_w,
                          const void* chains_w, const void* clen_w,
                          const void* version_w, const void* committed,
                          int64_t B, int32_t S, int32_t W, int32_t r_max,
                          int32_t num_slots, int32_t hash_partitioned,
-                         int32_t grid, void* sridx, void* server,
-                         void* divergent, void* stream) {
-    const size_t smem = (size_t)W * S * sizeof(uint2);
-    cudaFuncSetAttribute(stale_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+                         int32_t grid, void* scratch, void* sridx,
+                         void* server, void* divergent, void* stream) {
+    allow_smem<kStale>();
     if (B > 0) {
-        stale_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const int64_t*>(keys),
-            static_cast<const int32_t*>(opcodes),
+        const cudaStream_t st = static_cast<cudaStream_t>(stream);
+        const Order o = order_of(scratch, S, W);
+        span_order_kernel<true>
+            <<<dim3((S + kOrderThreads / 32 - 1) / (kOrderThreads / 32), W),
+               kOrderThreads, 0, st>>>(
             static_cast<const uint32_t*>(lo_w),
-            static_cast<const uint32_t*>(hi_w),
+            static_cast<const uint32_t*>(hi_w), S, o);
+        const size_t smem = (size_t)W * S * sizeof(uint2) + 4 * (size_t)W;
+        stale_kernel<<<(unsigned)grid, kThreads, smem, st>>>(
+            static_cast<const int64_t*>(keys),
+            static_cast<const int32_t*>(opcodes), o,
             static_cast<const int32_t*>(chains_w),
             static_cast<const int32_t*>(clen_w),
             static_cast<const int32_t*>(version_w),
-            static_cast<const int32_t*>(committed), B, S, W, r_max, num_slots,
-            hash_partitioned, static_cast<int32_t*>(sridx),
-            static_cast<int32_t*>(server), static_cast<uint8_t*>(divergent));
+            static_cast<const int32_t*>(committed), B, (int)S, (int)W,
+            (int)r_max, (int)num_slots, (int)hash_partitioned,
+            static_cast<int32_t*>(sridx), static_cast<int32_t*>(server),
+            static_cast<uint8_t*>(divergent));
     }
     return (int)cudaGetLastError();
 }

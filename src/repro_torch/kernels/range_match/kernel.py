@@ -22,6 +22,11 @@ router's table) the route kernel orders the spans itself, in one launch,
 and writes the same table.  :func:`last_order` reads a wrapper's
 last table and the match pass it took ("search" over disjoint spans,
 "exhaustive" over overlapping ones).
+
+K5 (``range_match_stale``) runs ``span_order`` over its W switch copies
+in one launch, a table a copy, then ``stale_kernel``, which decides the
+pass of each copy on its own; :func:`last_stale_order` reads the W
+tables and passes back.
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ _I32 = ctypes.c_int32
 MAX_ROUTE_SLOTS = 0xFFFF          # the route kernels stage 16-bit slot ids
 MATCH_PASSES = {1: "search", 2: "exhaustive"}
 
-# The last scratch buffer of each route wrapper (the sorted span table).
-_orders: dict[str, torch.Tensor] = {}
+# The last scratch buffer of each wrapper that orders spans (its sorted
+# span tables), with its copies W and slots S.
+_orders: dict[str, tuple[torch.Tensor, int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -86,15 +92,15 @@ def _load() -> ctypes.CDLL:
                 [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _I64, _I64, _I32]
                 + [_P] * 9
             )
-            lib.rm_order_bytes.argtypes = [_I32]
+            lib.rm_order_bytes.argtypes = [_I32, _I32]
             lib.rm_order_bytes.restype = _I64
-            if lib.rm_order_bytes(1000) != _order_bytes(1000):
+            if lib.rm_order_bytes(1001, 3) != _order_bytes(1001, 3):
                 raise RuntimeError("range_match.cu and kernel.py disagree on "
                                    "the sorted span table's layout")
             lib.rm_slab_lookup.argtypes = [_P] * 3 + [_I64] * 3 + [_P] * 3
             lib.rm_range_match_stale.argtypes = (
                 [_P] * 8 + [_I64, _I32, _I32, _I32, _I32, _I32, _I32]
-                + [_P] * 4
+                + [_P] * 5
             )
             lib.rm_max_smem_optin.argtypes = [ctypes.c_int]
             for fn in (lib.rm_range_match, lib.rm_range_match_spread,
@@ -128,24 +134,56 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return _load().rm_max_smem_optin(index)
+
+
 def _grid(B: int, device: torch.device) -> int:
     return max(1, min((B + 255) // 256, 4 * _sm_count(device.index)))
 
 
-def _order_bytes(S: int) -> int:
-    """Bytes of the sorted span table: a 16-byte header (the live count,
-    the match pass), S (lo, hi) pairs and S 16-bit slot ids."""
-    return 16 + 10 * S
+def _order_bytes(S: int, W: int = 1) -> int:
+    """Bytes of W sorted span tables of S slots: a 16-byte header a copy
+    (the live count, the match pass), then W x S (lo, hi) pairs and W x S
+    16-bit slot ids."""
+    return W * (16 + 10 * S)
 
 
-def _order(name: str, S: int, dev: torch.device) -> torch.Tensor:
-    """A fresh scratch buffer for wrapper ``name``'s sorted span table."""
+def _check_ids(name: str, S: int) -> None:
     if S > MAX_ROUTE_SLOTS:
         raise ValueError(f"{name}: {S} slots, over the {MAX_ROUTE_SLOTS} "
                          "that 16-bit slot ids can name")
+
+
+def _order(name: str, S: int, dev: torch.device) -> torch.Tensor:
+    """A fresh scratch buffer for route wrapper ``name``'s sorted span
+    table."""
+    _check_ids(name, S)
     scratch = torch.empty(_order_bytes(S), dtype=torch.uint8, device=dev)
-    _orders[name] = scratch
+    _orders[name] = (scratch, 1, S)
     return scratch
+
+
+def _read_orders(name: str) -> list[dict]:
+    """Wrapper ``name``'s last W sorted span tables, read back to the
+    host."""
+    scratch, W, S = _orders[name]
+    scratch = scratch.cpu()
+    header = scratch[:16 * W].view(torch.int32).reshape(W, 4)
+    base = 16 * W
+    spans = (scratch[base:base + 8 * W * S].view(torch.int32).to(torch.int64)
+             & 0xFFFFFFFF).reshape(W, S, 2)
+    base += 8 * W * S
+    ids = (scratch[base:base + 2 * W * S].view(torch.int16).to(torch.int64)
+           & 0xFFFF).reshape(W, S)
+    out = []
+    for w in range(W):
+        n = int(header[w, 0])
+        out.append({"n_live": n, "match": MATCH_PASSES.get(int(header[w, 1])),
+                    "lo": spans[w, :n, 0], "hi": spans[w, :n, 1],
+                    "id": ids[w, :n]})
+    return out
 
 
 def last_order(name: str) -> dict:
@@ -153,14 +191,13 @@ def last_order(name: str) -> dict:
     back to the host (this waits for the device): ``n_live``, the live
     spans' ``lo``, ``hi`` (uint32 values as int64) and slot ``id`` in
     (lo, id) order, and ``match``, the pass its route kernel took."""
-    scratch = _orders[name].cpu()
-    S = (scratch.numel() - 16) // 10
-    header = scratch[:16].view(torch.int32)
-    n = int(header[0])
-    spans = scratch[16:16 + 8 * S].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    ids = scratch[16 + 8 * S:].view(torch.int16).to(torch.int64) & 0xFFFF
-    return {"n_live": n, "match": MATCH_PASSES.get(int(header[1])),
-            "lo": spans[0:2 * n:2], "hi": spans[1:2 * n:2], "id": ids[:n]}
+    return _read_orders(name)[0]
+
+
+def last_stale_order() -> list[dict]:
+    """K5's last W sorted span tables, one dict a switch copy as
+    :func:`last_order` gives it; ``match`` is the pass that copy took."""
+    return _read_orders("range_match_stale")
 
 
 def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
@@ -360,7 +397,8 @@ def range_match_stale(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
     int32; version_w (W, S) and committed (S,) int32 (uint32 bits).
     Returns int32 ``sridx``, int32 ``server`` (chain head for PUT/DEL, tail
     otherwise) and bool ``divergent``.  Raises when the W copies of the
-    spans (8 W S bytes) exceed a block's shared memory."""
+    spans and a word a copy (8 W S + 4 W bytes) exceed a block's shared
+    memory, or S exceeds the 65,535 slots that 16-bit ids name."""
     if on_cpu(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
                committed):
         return ref.range_match_stale_ref(
@@ -380,8 +418,9 @@ def range_match_stale(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
     if W < 1 or r_max < 1 or not 1 <= num_slots <= S:
         raise ValueError(f"bad tables: W {W}, r_max {r_max}, "
                          f"num_slots {num_slots}, S {S}")
+    _check_ids("range_match_stale", S)
     lib = _load()
-    smem, limit = 8 * W * S, lib.rm_max_smem_optin(
+    smem, limit = 8 * W * S + 4 * W, _smem_optin(
         torch.cuda.current_device() if dev.index is None else dev.index)
     if smem > limit:
         raise ValueError(f"range_match_stale: the {W} switches' spans need "
@@ -392,12 +431,14 @@ def range_match_stale(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
     divergent = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return sridx, server, divergent
+    scratch = torch.empty(_order_bytes(S, W), dtype=torch.uint8, device=dev)
+    _orders["range_match_stale"] = (scratch, W, S)
     rc = lib.rm_range_match_stale(
         keys.data_ptr(), opcodes.data_ptr(), lo_w.data_ptr(), hi_w.data_ptr(),
         chains_w.data_ptr(), clen_w.data_ptr(), version_w.data_ptr(),
         committed.data_ptr(), B, S, W, r_max, num_slots,
-        int(bool(hash_partitioned)), _grid(B, dev), sridx.data_ptr(),
-        server.data_ptr(), divergent.data_ptr(),
+        int(bool(hash_partitioned)), _grid(B, dev), scratch.data_ptr(),
+        sridx.data_ptr(), server.data_ptr(), divergent.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "range_match_stale")

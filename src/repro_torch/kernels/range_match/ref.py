@@ -146,6 +146,30 @@ def range_match_spread_dirty_ref(mvals, opcodes, u1, u2, slot_lo, slot_hi,
             picked.to(torch.int32), bounced)
 
 
+def _stale_switch(keys, W: int, hash_partitioned: bool):
+    """Each packet's ingress switch, ``hash_key(key) % W``, and matching
+    value: that hash under hash partitioning, else the key."""
+    # imported here: repro_torch.core imports this package
+    from repro_torch.core.keys import hash_key
+
+    h = hash_key(keys)
+    return h % W, (h if hash_partitioned else _u32(keys))
+
+
+def _stale_serve(sw, sridx, opcodes, chains_w, clen_w, version_w, committed):
+    """K5's outputs for slot ``sridx`` of switch ``sw``: ``(sridx, server,
+    divergent)``."""
+    W, S = clen_w.shape
+    r_max = chains_w.shape[0] // W
+    ws = sw * S + sridx
+    clen = clen_w.reshape(-1)[ws].to(torch.int64)
+    is_write = (opcodes == 1) | (opcodes == 2)
+    pos = torch.where(is_write, 0, torch.clamp(clen - 1, min=0))
+    server = chains_w.reshape(-1)[(sw * r_max + pos) * S + sridx]
+    divergent = version_w.reshape(-1)[ws] != committed[sridx]
+    return sridx.to(torch.int32), server.to(torch.int32), divergent
+
+
 def range_match_stale_ref(keys, opcodes, lo_w, hi_w, chains_w, clen_w,
                           version_w, committed, *, num_slots: int,
                           hash_partitioned: bool = False):
@@ -157,25 +181,33 @@ def range_match_stale_ref(keys, opcodes, lo_w, hi_w, chains_w, clen_w,
     width).  Returns ``(sridx, server, divergent)``: the serving node is
     the chain head for PUT/DEL and ``chain[max(clen - 1, 0)]`` otherwise,
     ``divergent`` the slot's version against the committed one."""
-    # imported here: repro_torch.core imports this package
-    from repro_torch.core.keys import hash_key
-
-    W, S = lo_w.shape
-    r_max = chains_w.shape[0] // W
-    h = hash_key(keys)
-    sw = h % W
-    v = h if hash_partitioned else _u32(keys)
+    sw, v = _stale_switch(keys, lo_w.shape[0], hash_partitioned)
     sridx = torch.zeros_like(sw)
-    for w in range(W):
+    for w in range(lo_w.shape[0]):
         sridx = torch.where(sw == w, _slot_match(v, lo_w[w], hi_w[w], num_slots),
                             sridx)
-    ws = sw * S + sridx
-    clen = clen_w.reshape(-1)[ws].to(torch.int64)
-    is_write = (opcodes == 1) | (opcodes == 2)
-    pos = torch.where(is_write, 0, torch.clamp(clen - 1, min=0))
-    server = chains_w.reshape(-1)[(sw * r_max + pos) * S + sridx]
-    divergent = version_w.reshape(-1)[ws] != committed[sridx]
-    return sridx.to(torch.int32), server.to(torch.int32), divergent
+    return _stale_serve(sw, sridx, opcodes, chains_w, clen_w, version_w,
+                        committed)
+
+
+def stale_sorted_match_ref(keys, opcodes, lo_w, hi_w, chains_w, clen_w,
+                           version_w, committed, *, num_slots: int,
+                           hash_partitioned: bool = False):
+    """Plain mirror of K5's match over a sorted span table per switch copy
+    (used by the tests): each copy's own :func:`sorted_match_ref` (its
+    (lo, slot id) order, its disjoint check, then the search or the
+    exhaustive pass), selected by the packet's switch.  Returns
+    ``((sridx, server, divergent), passes)``, ``passes[w]`` the pass of
+    copy ``w``."""
+    sw, v = _stale_switch(keys, lo_w.shape[0], hash_partitioned)
+    sridx = torch.zeros_like(sw)
+    passes = []
+    for w in range(lo_w.shape[0]):
+        ridx, match = sorted_match_ref(v, lo_w[w], hi_w[w], num_slots)
+        sridx = torch.where(sw == w, ridx, sridx)
+        passes.append(match)
+    return _stale_serve(sw, sridx, opcodes, chains_w, clen_w, version_w,
+                        committed), passes
 
 
 # Row offset of the node-offset concatenation below: larger than every

@@ -420,8 +420,8 @@ def test_stale_kernel_matches_plain(dev, B, n_slots, hash_partitioned):
 
 
 def test_stale_kernel_raises_when_spans_exceed_shared_memory(dev):
-    """8 W S bytes of staged spans over the opt-in limit: the wrapper
-    raises instead of taking the plain path."""
+    """8 W S + 4 W bytes of staged spans and copy words over the opt-in
+    limit: the wrapper raises instead of taking the plain path."""
     W, S = 8, 4096
     args = [torch.zeros(16, dtype=torch.int64, device=dev),
             torch.zeros(16, dtype=torch.int32, device=dev)]
@@ -433,6 +433,168 @@ def test_stale_kernel_raises_when_spans_exceed_shared_memory(dev):
     before = RMK.launches["range_match_stale"]
     with pytest.raises(ValueError, match="shared memory"):
         RMK.range_match_stale(*args, *tables, num_slots=S)
+    assert RMK.launches["range_match_stale"] == before
+
+
+# ---------------------------------------------------------------------------
+# K5 over a sorted span table per switch copy
+# ---------------------------------------------------------------------------
+
+# switch copies mixed from SPAN_CASES, covering all eleven: each copy takes
+# its own case's pass, so a disjoint copy beside an overlapping or an
+# all-dead one keeps the binary search
+STALE_MIXES = (
+    ("partition", "overlap", "all_dead"),
+    ("equal_lo", "single_keys", "full_space_overlap", "gaps"),
+    ("top_key", "full_space", "overlap_past_num_slots", "hits_past_num_slots"),
+    ("overlap", "partition"),
+)
+SPAN_PASS = dict(SPAN_CASES)
+
+
+def stale_tables(cases, S, seed=0, n_nodes=8, r_max=4):
+    """Switch tables as a tier state holds them (numpy: uint32 spans and
+    versions, chains (W, S, r_max)), copy ``w``'s spans from
+    ``span_table(cases[w], S)``, random chains of length 0 to r_max and
+    versions equal to the committed one on about half the slots; and
+    ``num_slots``, the least of the cases'."""
+    rng = np.random.default_rng(seed)
+    W = len(cases)
+    spans = [span_table(c, S, seed=seed + len(c) + w)
+             for w, c in enumerate(cases)]
+    lo = np.stack([sp[0] for sp in spans]).astype(np.uint32)
+    hi = np.stack([sp[1] for sp in spans]).astype(np.uint32)
+    committed = rng.integers(0, MAX32 + 1, S, dtype=np.uint64).astype(np.uint32)
+    version = np.where(rng.random((W, S)) < 0.5, committed,
+                       committed ^ np.uint32(1)).astype(np.uint32)
+    return dict(
+        slot_lo=lo, slot_hi=hi, live=lo <= hi,
+        chains=rng.integers(-1, n_nodes, (W, S, r_max)).astype(np.int32),
+        chain_len=rng.integers(0, r_max + 1, (W, S)).astype(np.int32),
+        version=version, committed=committed,
+    ), min(sp[2] for sp in spans)
+
+
+def stale_keys(tables, B, seed=0):
+    """B raw keys, the edges of every copy's spans and their neighbours
+    first, the rest uniform; and B opcodes (GET, PUT, DEL, SCAN)."""
+    keys = span_values(tables["slot_lo"].reshape(-1).astype(np.uint64),
+                       tables["slot_hi"].reshape(-1).astype(np.uint64), B, seed)
+    ops = np.random.default_rng(seed + 2).integers(0, 4, B).astype(np.int32)
+    return keys.astype(np.int64), ops
+
+
+def stale_packed(tables, dev):
+    """K5's packed tables (``ops.pack_coord_tables``) of ``stale_tables``'s
+    numpy tables, on ``dev``."""
+    from types import SimpleNamespace
+
+    return OPS.pack_coord_tables(SimpleNamespace(**{
+        k: torch.tensor(v.astype(np.int64) if v.dtype == np.uint32 else v,
+                        device=dev) for k, v in tables.items()}))
+
+
+def _check_stale_order(lo_w, hi_w, want_passes):
+    """K5's last W sorted tables against ``span_order_ref`` copy by copy,
+    and the pass each copy took."""
+    from repro_torch.kernels.range_match import ref as REF
+
+    order = RMK.last_stale_order()
+    assert [c["match"] for c in order] == list(want_passes)
+    for w, c in enumerate(order):
+        slo, shi, sid = REF.span_order_ref(lo_w[w].cpu(), hi_w[w].cpu())
+        assert c["n_live"] == len(sid)
+        for a, b in ((c["lo"], slo), (c["hi"], shi), (c["id"], sid)):
+            assert torch.equal(a, b), w
+
+
+@pytest.mark.parametrize("S", [64, 1000, 1001, 2048])
+@pytest.mark.parametrize("cases", STALE_MIXES, ids="-".join)
+def test_stale_kernel_on_mixed_copies(dev, cases, S):
+    """K5 bitwise against its plain version over switch copies that take
+    different passes, each copy's pass and sorted table read back, and the
+    plain mirror of the kernel's algorithm on the same inputs.  With an odd
+    S the odd copies' tables lie off a 16-byte boundary in the scratch, so
+    their staging takes 4-byte copies."""
+    from repro_torch.kernels.range_match import ref as REF
+
+    tables, num_slots = stale_tables(cases, S, seed=S)
+    keys, ops = stale_keys(tables, 70000, seed=S)
+    k = torch.tensor(keys, device=dev)
+    o = torch.tensor(ops, device=dev)
+    packed = stale_packed(tables, dev)
+    before = RMK.launches["range_match_stale"]
+    got = RMK.range_match_stale(k, o, *packed, num_slots=num_slots)
+    assert RMK.launches["range_match_stale"] == before + 1
+    want = REF.range_match_stale_ref(k, o, *packed, num_slots=num_slots)
+    _same(got, want)
+    mirror, passes = REF.stale_sorted_match_ref(k, o, *packed,
+                                                num_slots=num_slots)
+    _same(mirror, want)
+    assert passes == [SPAN_PASS[c] for c in cases]
+    _check_stale_order(packed[0], packed[1], passes)
+
+
+@pytest.mark.parametrize("n_slots", [64, 2048, 6000])
+def test_stale_kernel_searches_controller_copies(dev, n_slots):
+    """The four perturbed switch copies of controller-built directories
+    (rotated chains, a retired row, a shifted bound, chain length 0) each
+    take the binary search; 6,000 slots at W = 4 (192,016 B of staged
+    spans and copy words) launch."""
+    d = _directory(n_slots + 1, n_slots // 2, n_slots, dev)
+    coord = _coord_state(d, 4, dev, n_slots)
+    packed = OPS.pack_coord_tables(coord)
+    lo, hi = (t.cpu().numpy().astype(np.int64) & MAX32 for t in packed[:2])
+    keys, ops = stale_keys({"slot_lo": lo, "slot_hi": hi}, 70000, seed=n_slots)
+    k = torch.tensor(keys, device=dev)
+    o = torch.tensor(ops, device=dev)
+    from repro_torch.kernels.range_match import ref as REF
+
+    got = OPS.range_match_stale(coord, k, o)
+    _same(got, REF.range_match_stale_ref(k, o, *packed, num_slots=n_slots))
+    _check_stale_order(packed[0], packed[1], ["search"] * 4)
+
+
+def test_stale_kernel_in_cuda_graph(dev):
+    """K5 captured in a CUDA graph (span_order over the four copies, then
+    the search kernel, over a scratch from PyTorch's allocator) replays to
+    the eager call's outputs bit for bit, and reads the inputs as they are
+    at the replay."""
+    d = _directory(5, 1024, 2048, dev)
+    coord = _coord_state(d, 4, dev, 5)
+    packed = OPS.pack_coord_tables(coord)
+    rng = np.random.default_rng(5)
+    keys = torch.tensor(rng.integers(0, 2**32, 70000, dtype=np.uint64)
+                        .astype(np.int64), device=dev)
+    ops = torch.tensor(rng.integers(0, 4, 70000).astype(np.int32), device=dev)
+    call = lambda: RMK.range_match_stale(keys, ops, *packed,  # noqa: E731
+                                         num_slots=d.num_slots)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for shift in (0, 12345):
+        keys.add_(shift).bitwise_and_(MAX32)
+        eager = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(out, eager)
+
+
+def test_stale_kernel_refuses_more_slots_than_ids(dev):
+    """K5 stages 16-bit slot ids too: over 65,535 slots it raises before
+    launching anything."""
+    S = 1 << 16
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
+    before = RMK.launches["range_match_stale"]
+    with pytest.raises(ValueError, match="16-bit"):
+        RMK.range_match_stale(torch.zeros(4, dtype=torch.int64, device=dev),
+                              z(4), z(1, S), z(1, S), z(4, S), z(1, S),
+                              z(1, S), z(S), num_slots=S)
     assert RMK.launches["range_match_stale"] == before
 
 
