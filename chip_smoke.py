@@ -55,7 +55,15 @@ exits non-zero):
                ``craq`` / craq with an 8-bit key filter (``ycsb_a``), and
                with the lag-1 coordination tier (``shifting_hotspot``,
                ``split_brain`` with and without quorum, craq on
-               ``ycsb_a``); then the replication bench
+               ``ycsb_a``), with the overload plane of
+               ``tests/test_overload.py`` (``cascade_failure`` and
+               ``retry_storm`` under ``overload_adaptive`` with a standby
+               node, craq on ``ycsb_a``: the final ``OverloadState`` too,
+               K2 / K3 once an epoch under a nonzero queue penalty,
+               conservation) and with ``split_overflow`` pool growth
+               (``keyspace_growth`` into an 8-slot pool: the same
+               ``grow_pool`` events and ``compiled_steps``); then the
+               replication bench
                (``repro_torch.replication.bench``) and the coordination-tier
                bench (``repro_torch.coordination_tier.bench``) on the card
                at their full sizes, whose gates must come back empty; then
@@ -81,7 +89,22 @@ exits non-zero):
                nothing and conserve ``routed == direct + redirected`` on
                every epoch.  After the craq run, ``route_and_lookup`` (K4b)
                runs on its live state, held against K3 followed by K4a;
-5. serving     the serving path at full width: ``ServingEngine`` on
+5. overload    the overload plane at full width: the reference's overload
+               bench deployment (``benchmarks/overload_bench.py``) at phase
+               4's data — 10 nodes with standby (8, 9), replication 2,
+               1024 ranges, ``overload_adaptive`` (scale patience 1), a pull
+               every 2 epochs, queue 6,144 and service 10,240 a node and
+               epoch (the bench's ratios to an active node's share) — on
+               ``cascade_failure`` (rack 0-2 dies at epoch 3) and
+               ``retry_storm`` (rack 0-1 out in epochs 2-4), 12 epochs
+               each, and the cascade once more with a queue of 20,480 that
+               outlives its epoch; conservation after every period, K2 once
+               an epoch (under a nonzero queue penalty in the third run),
+               deferred or shed queries after the failure, every
+               acknowledged write read back from every live replica;
+               epochs/s, stage seconds, losses, backlog, p999, autoscale
+               events and peak memory;
+6. serving     the serving path at full width: ``ServingEngine`` on
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
                of an 8,192-position cache (7.5 GB), 4 shards of replication
@@ -92,7 +115,7 @@ exits non-zero):
                against its plain version on layer 0's live cache mid-run;
                tokens/s, prefill seconds and decode-step milliseconds
                (CUDA events), launches, migrations and peak memory;
-6. serving_ssm the same engine, traffic and gates on mamba2-370m at its
+7. serving_ssm the same engine, traffic and gates on mamba2-370m at its
                published widths (48 layers, d 1024, 32 SSD heads of 64,
                d_state 128, vocab 50,280, tied embeddings, bf16 weights from
                the port's seeded init; no KV cache, 48 MiB of f32 decode
@@ -129,7 +152,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PHASES = ("device", "kernels", "parity", "full_width", "serving",
+PHASES = ("device", "kernels", "parity", "full_width", "overload", "serving",
           "serving_ssm")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
@@ -898,25 +921,36 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
 
 def _parity_driver(policy: str, device: str, fused: bool = True,
                    scenario: str = "shifting_hotspot", skw=None, n_epochs=6,
-                   period=2, coord=None, **ckw):
+                   period=2, coord=None, ovl=None, pcfg=None, scfg=None,
+                   base=None, **ckw):
+    """The parity phase's driver: the test configuration of
+    ``tests/test_torch_epoch.py``, or ``scfg`` / ``base`` in place of its
+    scenario / cluster knobs; ``ovl`` and ``pcfg`` are OverloadConfig and
+    PolicyConfig knobs."""
     from repro_torch import cluster as TC
     from repro_torch import coordination_tier as CT
+    from repro_torch import overload as OVL
 
     if skw is None:
         skw = (dict(theta=1.2, shift_every=2)
                if scenario == "shifting_hotspot" else {})
     scen = TC.make_scenario(
         scenario,
-        TC.ScenarioConfig(n_epochs=n_epochs, epoch_ops=256, n_records=512,
-                          value_dim=2, seed=3), **skw)
-    cfg = TC.ClusterConfig(num_nodes=8, num_ranges=32, replication=2, r_max=4,
-                           n_clients=16, report_every=period,
-                           imbalance_threshold=1.1, max_moves_per_round=6,
+        TC.ScenarioConfig(**(scfg or dict(n_epochs=n_epochs, epoch_ops=256,
+                                          n_records=512, value_dim=2,
+                                          seed=3))), **skw)
+    base = base or dict(num_nodes=8, num_ranges=32, replication=2, r_max=4,
+                        n_clients=16, imbalance_threshold=1.1,
+                        max_moves_per_round=6)
+    cfg = TC.ClusterConfig(**base, report_every=period,
                            coordination=(None if coord is None
                                          else CT.CoordConfig(**coord)),
+                           overload=(None if ovl is None
+                                     else OVL.OverloadConfig(**ovl)),
                            **ckw)
-    drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=fused,
-                         device=device)
+    drv = TC.EpochDriver(scen, TC.make_policy(
+        policy, None if pcfg is None else TC.PolicyConfig(**pcfg)), cfg,
+        fused=fused, device=device)
     return drv, drv.run()
 
 
@@ -943,11 +977,28 @@ def _same_run(a, b) -> None:
                 raise AssertionError(f"coordination state {f.name} differs")
         if da.coord_mgr.summary() != db.coord_mgr.summary():
             raise AssertionError("coordination manager summaries differ")
+    if (da.ovl is None) != (db.ovl is None):
+        raise AssertionError("one run has the overload plane")
+    if da.ovl is not None:
+        for f in dataclasses.fields(da.ovl):
+            a, b = getattr(da.ovl, f.name), getattr(db.ovl, f.name)
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"overload state {f.name} differs")
+    if da.growth_events != db.growth_events:
+        raise AssertionError("pool growth events differ")
 
 
 LAG1 = dict(n_switches=4, lag_per_hop=1)
 SPLIT = dict(skw=dict(split_epoch=2, heal_epoch=7, switch=1), n_epochs=10,
              period=1)
+# tests/test_overload.py's OverloadConfig, and its pool-growth run
+# (keyspace_growth into an 8-slot pool of 128-entry slabs)
+OCFG = dict(queue_cap=32, service_rate=24, inflation=3.0, max_level=3,
+            queue_weight=2)
+GROW = dict(scfg=dict(n_epochs=10, epoch_ops=512, n_records=2048,
+                      read_ratio=0.3, value_dim=2),
+            base=dict(num_nodes=4, num_ranges=8, n_slots=8, capacity=128),
+            split_overflow=True)
 
 # (label, policy, scenario, driver overrides) of the parity phase; the
 # coordination runs are those of tests/test_torch_coordination_tier.py
@@ -967,6 +1018,13 @@ PARITY_RUNS = (
      dict(SPLIT, coord=dict(LAG1, quorum=False))),
     ("coord/craq/full_adaptive", "full_adaptive", "ycsb_a",
      dict(replication_mode="craq", coord=LAG1)),
+    ("overload/cascade_failure", "overload_adaptive", "cascade_failure",
+     dict(ovl=OCFG, pcfg=dict(scale_patience=1), standby_nodes=(7,))),
+    ("overload/retry_storm", "overload_adaptive", "retry_storm",
+     dict(ovl=OCFG, pcfg=dict(scale_patience=1), standby_nodes=(7,))),
+    ("overload/craq", "overload_adaptive", "ycsb_a",
+     dict(ovl=OCFG, replication_mode="craq")),
+    ("split_overflow", "full_adaptive", "keyspace_growth", GROW),
 )
 
 
@@ -974,14 +1032,49 @@ def phase_parity() -> dict:
     from repro_torch.coordination_tier import bench as CB
     from repro_torch.replication import bench as RB
 
+    from repro_torch import overload as OVL
+    from repro_torch.kernels.range_match import kernel as RMK
+
     out = {"phase": "parity"}
     for label, policy, scenario, ckw in PARITY_RUNS:
+        RMK.reset_launches()
         cuda_f = _parity_driver(policy, "cuda", True, scenario, **ckw)
+        launches = {k: n for k, n in RMK.launches.items() if n}
         cpu_f = _parity_driver(policy, "cpu", True, scenario, **ckw)
         _same_run(cuda_f, cpu_f)
         res = {"cuda_vs_cpu": "bitwise", "epochs": len(cuda_f[1]),
                "host_syncs_fused": cuda_f[0].host_syncs,
-               "dirty_reads": sum(r.dirty_reads for r in cuda_f[1])}
+               "dirty_reads": sum(r.dirty_reads for r in cuda_f[1]),
+               "launches": launches}
+        if "ovl" in ckw:
+            # the p2c kernel of the mode read a nonzero queue_pen: an
+            # epoch ended with a queue, so the next one's penalty was not 0
+            rows = cuda_f[1]
+            k = ("range_match_spread_dirty"
+                 if ckw.get("replication_mode") == "craq"
+                 else "range_match_spread")
+            pen_epochs = [r.epoch + 1 for r in rows[:-1] if r.queue_peak]
+            if launches.get(k, 0) != len(rows) or not pen_epochs:
+                raise AssertionError(f"{label}: {k} launched "
+                                     f"{launches.get(k, 0)}x in {len(rows)} "
+                                     f"epochs, queue_pen epochs {pen_epochs}")
+            gap = OVL.conservation_gap(cuda_f[0].ovl)
+            summ = cuda_f[0].overload_summary()
+            if gap or summ["injected"] != sum(r.ops for r in rows):
+                raise AssertionError(f"{label}: conservation broke {summ}")
+            res.update(queue_pen_epochs=pen_epochs,
+                       deferred=sum(r.deferred for r in rows),
+                       shed=sum(r.shed for r in rows),
+                       lost=summ["lost"])
+        if ckw.get("split_overflow"):
+            grows = [e for r in cuda_f[1] for e in r.events
+                     if e.startswith("grow_pool:")]
+            drv = cuda_f[0]
+            if not grows or drv.growth_events != len(grows) or (
+                    cuda_f[1][-1].compiled_steps != 1 + drv.growth_events):
+                raise AssertionError(f"{label}: growth events {grows}")
+            res.update(grow_pool=grows,
+                       slots=drv.controller.num_slots)
         if ckw.get("replication_mode") != "chain":
             # fused == per-epoch on the card (eventual and craq)
             cuda_e = _parity_driver(policy, "cuda", False, scenario, **ckw)
@@ -1360,6 +1453,169 @@ def phase_full_width() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase overload
+# ---------------------------------------------------------------------------
+
+# the reference's overload bench (benchmarks/overload_bench.py:60-100) at
+# phase 4's data: 10 nodes with standby (8, 9), replication 2, eventual,
+# a pull every 2 epochs, overload_adaptive with scale_patience 1; its
+# OverloadConfig at the bench's ratios of an active node's share (queue
+# 192 / 256 and service 320 / 256 there; here the share is 65,536 / 8 =
+# 8,192 ops); 12 epochs, the bench's 24 cut for time.  At those ratios
+# the queue bound is below the service rate, so every queue drains within
+# its epoch: the p2c queue penalty and the service inflation stay 0 (the
+# reference's BENCH_overload.json: max_queue_peak 0 in all four arms).
+# A third run holds queues across epochs (a queue of 2.5 shares) to put a
+# nonzero queue_pen under K2 at full width
+OVL_FULL = dict(queue_cap=6144, service_rate=10240, inflation=3.0,
+                max_level=3, backoff_base=1, jitter_span=2, queue_weight=2)
+OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 12
+CASCADE = dict(theta=0.9, fail_epoch=3, rack=(0, 1, 2))
+# (label, scenario, its knobs, the failure epoch, OverloadConfig changes,
+# whether some epoch must route under a nonzero queue penalty)
+OVL_RUNS = (
+    ("cascade_failure", "cascade_failure", CASCADE, 3, {}, False),
+    ("retry_storm", "retry_storm",
+     dict(theta=0.9, fail_epoch=2, recover_epoch=5, rack=(0, 1)), 2, {},
+     False),
+    ("cascade_failure/deep_queue", "cascade_failure", CASCADE, 3,
+     dict(queue_cap=20480), True),
+)
+
+
+def phase_overload() -> dict:
+    """The overload plane at full width: each run's kernel launches, the
+    plane's conservation after every period, K2 once an epoch with a
+    nonzero queue penalty in some epoch, deferred or shed queries after
+    the failure, and every acknowledged write read back from every live
+    replica."""
+    from repro_torch import cluster as TC
+    from repro_torch import overload as OVL
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    out = {"phase": "overload", "overload_config": OVL_FULL}
+    main_launches = {k: 0 for k in RMK.launches}
+    for label, sname, skw, fail_epoch, okw, need_pen in OVL_RUNS:
+        scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
+                                 epoch_ops=B_FULL, n_epochs=OVL_EPOCHS,
+                                 seed=7)
+        cfg = TC.ClusterConfig(num_nodes=OVL_NODES, num_ranges=RANGES_FULL,
+                               replication=2, r_max=R_MAX,
+                               standby_nodes=OVL_STANDBY, report_every=2,
+                               overload=OVL.OverloadConfig(**{**OVL_FULL, **okw}))
+        scen = TC.make_scenario(sname, scfg, **skw)
+        torch.cuda.reset_peak_memory_stats()
+        RMK.reset_launches()                       # counts of the main path
+        t0 = time.perf_counter()
+        drv = TC.EpochDriver(
+            scen, TC.make_policy("overload_adaptive",
+                                 TC.PolicyConfig(scale_patience=1)),
+            cfg, fused=True, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows, gaps = [], []
+        for seg in drv.segments():
+            rows.extend(seg)
+            # one small copy a segment, outside the driver's own syncs
+            gaps.append(OVL.conservation_gap(drv.ovl))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(RMK.launches)
+        for name, n in launches.items():
+            main_launches[name] += n
+        summ = drv.overload_summary()
+        pen_epochs = [r.epoch + 1 for r in rows[:-1] if r.queue_peak]
+        after = [r.deferred + r.shed for r in rows if r.epoch >= fail_epoch]
+        problems = []
+        if any(gaps):
+            problems.append(f"conservation gaps {gaps}")
+        if summ["injected"] != sum(r.ops for r in rows):
+            problems.append(f"injected {summ['injected']} of "
+                            f"{sum(r.ops for r in rows)} ops")
+        if (launches["range_match_spread"] != len(rows)
+                or (need_pen and not pen_epochs)):
+            problems.append(f"range_match_spread launched "
+                            f"{launches['range_match_spread']}x in "
+                            f"{len(rows)} epochs, queue_pen epochs "
+                            f"{pen_epochs}")
+        if sum(after) <= 0:
+            problems.append("nothing deferred or shed after the failure")
+        if sum(r.drops for r in rows):
+            problems.append(f"{sum(r.drops for r in rows)} capacity drops")
+        for r in rows:
+            for f in ("p50", "p99", "p999", "throughput", "imbalance"):
+                if not math.isfinite(getattr(r, f)) or getattr(r, f) < 0:
+                    problems.append(f"bad {f} at epoch {r.epoch}")
+        keys, expected = _expected_values(scen)
+        rb = _read_back(drv, keys, expected)
+        if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < keys.size:
+            problems.append(f"read-back failed {rb}")
+        if problems:
+            raise AssertionError(f"overload/{label}: {problems}")
+        ss = drv.stage_seconds
+        out[label] = {
+            "overload_changes": okw,
+            "setup_s": t1 - t0, "run_s": t2 - t1,
+            "epochs_per_s": len(rows) / (t2 - t1),
+            "host_inject_s": ss.get("inject", 0.0),
+            "host_route_apply_enqueue_s": ss.get("route_apply", 0.0),
+            "host_des_s": ss.get("des", 0.0),
+            "host_control_s": ss.get("control", 0.0),
+            "device_step_s": drv.device_step_seconds,
+            "device_step_share": drv.device_step_seconds / (t2 - t1),
+            "host_syncs": drv.host_syncs,
+            "launches": launches,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "conservation_gaps": gaps,
+            "queue_pen_epochs": pen_epochs,
+            "deferred": [r.deferred for r in rows],
+            "shed": [r.shed for r in rows],
+            "requeued": [r.requeued for r in rows],
+            "queue_peak": [r.queue_peak for r in rows],
+            "p999": [r.p999 for r in rows],
+            "max_p999": max(r.p999 for r in rows),
+            "lost": summ["lost"],
+            "retry_backlog": summ["retry_backlog"],
+            "summary": summ,
+            "autoscale_events": [e for r in rows for e in r.events
+                                 if e.startswith("autoscale_")],
+            "events": len([e for r in rows for e in r.events]),
+            **rb,
+        }
+        if need_pen:
+            # the plane's step alone on the run's final registers (CUDA
+            # events around the call, its host work included), beside the
+            # run's device step an epoch
+            ocfg = OVL.OverloadConfig(**{**OVL_FULL, **okw})
+            target = torch.tensor(np.random.default_rng(0).integers(
+                -1, OVL_NODES, B_FULL), device="cuda")
+            st, key = drv.ovl, np.array([0, 7], np.uint32)
+            step = lambda: OVL.step(st, target, key, ocfg)
+            step_ms = time_cuda(step)
+            # and its device time by kernel, over 5 calls
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    step()
+                torch.cuda.synchronize()
+            out[label].update(
+                overload_step_ms=step_ms,
+                overload_step_profile_5_calls=_device_summary(
+                    prof, time.perf_counter() - t0, top=8),
+                device_step_ms_per_epoch=1e3 * drv.device_step_seconds
+                / len(rows))
+        del drv
+        torch.cuda.empty_cache()
+    out["launches"] = main_launches
+    emit(out)
+    return out
+
+
 # the full-width serving runs: decode_32k's batch of 128 cut to 32 slots;
 # for qwen2-1.5b its context of 32,768 cut to an 8,192-position cache (the
 # bf16 KV cache is then 7.5 GB), mamba2-370m keeps no KV cache (its decode
@@ -1692,6 +1948,7 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     full = phase_full_width() if "full_width" in phases else None
+    ovl = phase_overload() if "overload" in phases else None
     serving = phase_serving() if "serving" in phases else None
     serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
     if "profile" in phases:
@@ -1706,8 +1963,9 @@ def main(argv=None) -> int:
         # full-width runs, the qwen2 and mamba2 serving runs), in
         # launches_by_path; launches is their sum
         paths = {name: p["launches"] for name, p in
-                 (("full_width", full), ("serving", serving),
-                  ("serving_ssm", serving_ssm)) if p is not None}
+                 (("full_width", full), ("overload", ovl),
+                  ("serving", serving), ("serving_ssm", serving_ssm))
+                 if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]
         for row in main_rows:

@@ -11,6 +11,10 @@ One *epoch* is one device step —
        sketch updates in torch)
     -> apply to the store (``apply_routed``; GET/DEL probes through K4a
        ``slab_lookup``)
+    -> with the overload plane, the admission-queue / retry-orbit step
+       (``overload.step``): each query's timing fate (admitted with
+       inflated service, deferred or shed); its pre-epoch queue depths
+       join the load registers of K2's / K3's p2c comparison
     -> with the coordination tier, install the switches' staged tables
        and route the batch through each query's ingress switch copy (K5
        ``range_match_stale``): a divergent row takes a versioned redirect
@@ -22,7 +26,12 @@ One *epoch* is one device step —
 statistics report, run the balancing policy, execute its migration plan,
 graft the refreshed tables onto the live directory, stage the control
 writes along the switch chain (coordination tier), and time the period's
-traffic on the DES engine.
+traffic on the DES engine.  With the overload plane the pull also hands
+the policy each node's queue depth and retry backlog and grafts the
+policy's admission probabilities and retry budgets back onto the device
+registers; with ``split_overflow`` a node whose store overflowed splits
+its hottest range, and a pool that runs out of slots grows (every table
+held per slot is rebuilt at the new width, ``growth_events`` counts it).
 
 ``fused=True`` (default) runs a control period's epochs back to back
 with every carry on the device (store, directory, load registers,
@@ -34,8 +43,8 @@ carries are updated in place (the store slabs are the big allocation).
 Capturing the period as one CUDA graph is later work.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the dist backend, the overload plane, telemetry, the metrics plane,
-and ``split_overflow`` slot-pool growth.  The coordination tier's fault
+item): the dist backend, telemetry and the metrics plane.  The
+coordination tier's fault
 events (``coordination_tier.EVENT_KINDS``) are ignored without the tier,
 so the same scenario is the no-tier baseline.
 """
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import coordination_tier as CT
+from repro_torch import overload as OVL
 from repro_torch import prng
 from repro_torch.cluster.metrics import (
     EpochMetrics,
@@ -107,7 +117,7 @@ class ClusterConfig:
     max_scan_results: int = 8
     imbalance_threshold: float = 1.3
     max_moves_per_round: int = 4
-    overload: object | None = None
+    overload: OVL.OverloadConfig | None = None
     standby_nodes: tuple = ()
     split_overflow: bool = False
     telemetry: object | None = None
@@ -128,15 +138,10 @@ def _check_supported(cfg: ClusterConfig, backend: str) -> None:
         raise _not_ported("backend='dist'", "module-port step 11")
     if backend != "oracle":
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.overload is not None:
-        raise _not_ported("the overload plane", "module-port step 8")
     if cfg.telemetry is not None:
         raise _not_ported("telemetry", "module-port step 10")
     if cfg.metrics is not None:
         raise _not_ported("the metrics plane", "module-port step 10")
-    if cfg.split_overflow:
-        raise _not_ported("split_overflow slot-pool growth",
-                          "module-port step 6, pool growth")
     if cfg.des_backend not in (None, "auto", "native"):
         raise ValueError(
             f"DES backend {cfg.des_backend!r}: the port runs the native core only"
@@ -294,11 +299,19 @@ class EpochDriver:
         # the previous period's redirect share (redirected / routed): the
         # policy-facing convergence signal behind redirect_backoff
         self._last_redirect_share = 0.0
+        # the overload plane: per-node queue/retry registers on the device
+        # (None when off, which leaves every other value bit-identical).
+        # Its orbit-identity register stays the (1,) placeholder until the
+        # trace plane that sizes it is ported
+        self.ovl_cfg = cfg.overload
+        self.ovl = (OVL.make_state(cfg.num_nodes, cfg.overload,
+                                   device=self.device)
+                    if cfg.overload is not None else None)
         self.sketch = make_sketch(cfg.sketch_width, cfg.sketch_depth,
                                   device=self.device)
         self.key = prng.PRNGKey(cfg.seed)
-        # no slot-pool growth in this slice (split_overflow raises), so the
-        # reference's compile count 1 + growth_events is structurally 1
+        # slot-pool growths (split_overflow): the rows' compiled_steps is
+        # the reference's compile count, 1 + growth_events
         self.growth_events = 0
         self._period = 0
         self._last_overflow = 0
@@ -374,21 +387,24 @@ class EpochDriver:
                      max_scan_results=self.cfg.max_scan_results, scans=False)
         ovf = self.store.overflow.cpu().numpy().astype(np.int64)
         self._last_overflow = int(ovf.sum())
+        # per-node overflow floor for capacity-driven splitting
         self._ovf_node_last = ovf
 
     # -- the device step -----------------------------------------------------
-    def _route_chunk(self, q: R.QueryBatch, rng: np.ndarray, dirty, kf):
+    def _route_chunk(self, q: R.QueryBatch, rng: np.ndarray, dirty, kf,
+                     queue_pen):
         """Route one (sub-)batch by the replication mode: ``(decision,
         picked, bounced)``, the last two None outside craq."""
         mp = self.mode_plan
         if mp.dirty_reads:
             dec, self.directory, self.load_reg, picked, bounced = (
                 R.route_load_aware_dirty(self.directory, q, self.load_reg,
-                                         dirty, rng, key_filter=kf))
+                                         dirty, rng, queue_pen=queue_pen,
+                                         key_filter=kf))
             return dec, picked, bounced
         if mp.spread:
             dec, self.directory, self.load_reg = R.route_load_aware(
-                self.directory, q, self.load_reg, rng)
+                self.directory, q, self.load_reg, rng, queue_pen=queue_pen)
         else:
             dec, self.directory = R.route(self.directory, q)
         return dec, None, None
@@ -398,16 +414,27 @@ class EpochDriver:
         the fused loops).  ``scans``: the batch holds a SCAN (known on the
         host from the generated opcodes); ``eid``: the epoch, at which the
         tier's staged tables install.  Updates the carries in place or by
-        rebinding; returns ``(plan, node_ops, bounced, cstats)``,
+        rebinding; returns ``(plan, node_ops, bounced, cstats, ostats)``,
         ``bounced`` None outside craq, ``cstats`` (5,) None without the
-        tier."""
+        tier, ``ostats`` (7,) int32 None without the overload plane."""
         cfg = self.cfg
         N = cfg.num_nodes
         mp = self.mode_plan
         spread = mp.spread
         chunks = cfg.p2c_chunks if spread else 1
+        ocfg = self.ovl_cfg
+        if ocfg is not None:
+            # fold_in, not a wider split: the routing and hop-plan streams
+            # stay those of the plane switched off
+            r_ovl = prng.fold_in(rng, 0x0F10AD)
         r_route, r_plan = prng.split(rng)
         B = q.batch
+        # deep queues repel p2c reads: the pre-epoch queue depths join the
+        # load registers in the pick comparison (the registers bump raw)
+        queue_pen = None
+        if ocfg is not None and ocfg.queue_weight > 0 and spread:
+            queue_pen = K.mul32(self.ovl.queue.to(torch.int64),
+                                ocfg.queue_weight & K.MASK32)
         # reads consult the PRE-epoch dirty state, as they observe the
         # pre-batch store
         dirty = RPL.dirty_bits(self.repl) if mp.dirty_reads else None
@@ -423,7 +450,7 @@ class EpochDriver:
                 qs = R.QueryBatch(q.opcode[sl], q.key[sl], q.end_key[sl],
                                   q.value[sl])
                 parts.append(self._route_chunk(
-                    qs, prng.fold_in(r_route, ci), dirty, kf))
+                    qs, prng.fold_in(r_route, ci), dirty, kf, queue_pen))
             decs = [p[0] for p in parts]
             decision = R.RoutingDecision(*[
                 torch.cat([getattr(d, f.name) for d in decs], dim=0)
@@ -434,7 +461,8 @@ class EpochDriver:
                 picked = torch.cat([p[1] for p in parts])
                 bounced = torch.cat([p[2] for p in parts])
         else:
-            decision, picked, bounced = self._route_chunk(q, r_route, dirty, kf)
+            decision, picked, bounced = self._route_chunk(
+                q, r_route, dirty, kf, queue_pen)
         node_ops = _node_ops(decision, q.opcode, N)
         if not spread:
             # tail-read path: registers tracked in the same units
@@ -444,6 +472,13 @@ class EpochDriver:
                      max_scan_results=cfg.max_scan_results, scans=scans)
         bounce_kw = (dict(read_via=picked, read_bounce=bounced)
                      if mp.dirty_reads else {})
+        # the overload step decides each query's timing fate (the store
+        # above applied every op regardless)
+        ostats = None
+        if ocfg is not None:
+            self.ovl, rejected, scale, _, ostats = OVL.step(
+                self.ovl, decision.target, r_ovl, ocfg)
+            bounce_kw.update(shed=rejected, service_scale=scale)
         # the switch tier observes the batch against its (possibly stale)
         # copies: accounting only, the decision above followed the true
         # tables, so the tier reprices hops and counts
@@ -464,7 +499,7 @@ class EpochDriver:
             self.repl = RPL.advance(
                 self.repl, decision.ridx, is_write,
                 keys=q.key if cfg.craq_filter_bits else None)
-        return plan, node_ops, bounced, cstats
+        return plan, node_ops, bounced, cstats, ostats
 
     # -- control -----------------------------------------------------------
     def _handle_events(self, e: int) -> tuple[list[str], int, int]:
@@ -534,9 +569,18 @@ class EpochDriver:
             self.host_syncs += 1   # apply_events pulls the register file
             self.repl = RPL.apply_events(self.repl, events)
 
-    def _control_pull(self, now: int) -> tuple[list[str], int, int]:
+    def _ovl_view(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The tensors of the overload registers the pull reads: each
+        node's queue depth and retry backlog."""
+        return self.ovl.queue, self.ovl.retry.sum(dim=1, dtype=torch.int32)
+
+    def _control_pull(self, now: int, ovl_view=None
+                      ) -> tuple[list[str], int, int]:
         """The period-boundary pull: harvest + reset counters, run the
-        policy, execute its plan, graft the refreshed tables."""
+        policy, execute its plan, graft the refreshed tables.
+        ``ovl_view``: the overload registers' host view (queue depths,
+        retry backlogs), when the caller's copy home already brought it;
+        else it is read here."""
         scfg = self.scenario.cfg
         self.host_syncs += 1   # pull_report harvests the device counters
         report, self.directory = pull_report(self.directory, self._period)
@@ -552,6 +596,19 @@ class EpochDriver:
             # per-node picture
             report = dataclasses.replace(
                 report, node_load=self._sync(self.load_reg).astype(np.float64)
+            )
+        if self.ovl is not None:
+            # the queue / retry view for the backpressure policies
+            if ovl_view is None:
+                self.host_syncs += 1
+                ovl_view = _to_host(list(self._ovl_view()))
+            qd, rb = ovl_view
+            report = dataclasses.replace(
+                report,
+                queue_depth=qd.astype(np.int64),
+                retry_backlog=rb.astype(np.int64),
+                queue_limit=int(self.ovl_cfg.queue_cap),
+                service_limit=int(self.ovl_cfg.service_rate),
             )
         if self.auto_period:
             span = max(now - self._last_pull_epoch, 1)
@@ -569,6 +626,20 @@ class EpochDriver:
             events.append(f"redirect_backoff:{self._last_redirect_share:.3f}")
         else:
             ops = self.policy.on_report(self.controller, report)
+        if self.ovl is not None:
+            # the backpressure control channel: the policy's admission
+            # probabilities and retry budgets go onto the device registers
+            # for the next period
+            ap = getattr(self.policy, "admit_prob", None)
+            if ap is not None:
+                self.ovl = dataclasses.replace(
+                    self.ovl, admit_prob=torch.as_tensor(
+                        np.asarray(ap, np.float32), device=self.device))
+            rbud = getattr(self.policy, "retry_budget", None)
+            if rbud is not None:
+                self.ovl = dataclasses.replace(
+                    self.ovl, retry_budget=torch.as_tensor(
+                        np.asarray(rbud).astype(np.int32), device=self.device))
         notes = getattr(self.policy, "notes", None)
         if notes:
             events.extend(notes)
@@ -579,14 +650,40 @@ class EpochDriver:
                                                        scfg.value_dim)
             execute_migrations(self.store, ops)
             events.extend(f"{op.kind}:{op.src}->{op.dst}" for op in ops)
-        self.directory = self.controller.refresh(self.directory)
+        if self.cfg.split_overflow:
+            sops = self._capacity_splits(report)
+            if sops:
+                en, by = migration_traffic(self.store, sops, scfg.value_dim)
+                execute_migrations(self.store, sops)
+                mig_entries += en
+                mig_bytes += by
+                events.extend(f"{op.kind}:{op.src}->{op.dst}" for op in sops)
+        grew = self.controller.num_slots != self.directory.chains.shape[0]
+        if grew:
+            # the slot pool grew under split_overflowed: every table held
+            # per slot changes shape, so refresh refuses; rebuild the
+            # directory (this pull just harvested and reset the counters,
+            # so pending merge credits would land on zeros: drop them)
+            self.controller.drop_credits()
+            self.directory = self.controller.directory()
+            self.growth_events += 1
+            events.append(f"grow_pool:{self.controller.num_slots}")
+        else:
+            self.directory = self.controller.refresh(self.directory)
         self._sync_repl()
         if self.coord_mgr is not None:
-            # the period's control writes enter the switch chain: commit
-            # now, install per switch with its chain-position lag (pool
-            # growth, which would rebuild the tier, raises in the port)
-            events.extend(self._coord_control(self.coord_mgr.on_control,
-                                              now=now))
+            if grew:
+                # every switch re-registers at the new width
+                t0 = time.perf_counter()
+                self.coord = self.coord_mgr.rebuild(
+                    self.controller.table_snapshot())
+                self._stage("coord_control", t0)
+            else:
+                # the period's control writes enter the switch chain:
+                # commit now, install per switch with its chain-position
+                # lag
+                events.extend(self._coord_control(self.coord_mgr.on_control,
+                                                  now=now))
         if self.auto_period and now < self.scenario.cfg.n_epochs:
             nl = np.asarray(report.node_load, np.float64)
             if self.mode_plan.spread:
@@ -598,6 +695,31 @@ class EpochDriver:
         self.load_reg = self.load_reg // 2
         self.sketch = torch.zeros_like(self.sketch)
         return events, mig_entries, mig_bytes
+
+    def _capacity_splits(self, report) -> list:
+        """Capacity-driven splitting (paper §4.1.1): for each node whose
+        store overflowed since the last pull, split the hottest live range
+        it heads (``Controller.split_overflowed``, which grows the slot
+        pool when it runs out)."""
+        ovf = self._sync(self.store.overflow).astype(np.int64)
+        delta = ovf - self._ovf_node_last
+        self._ovf_node_last = ovf
+        hot_nodes = [int(n) for n in np.argsort(-delta) if delta[n] > 0]
+        if not hot_nodes:
+            return []
+        heat = (report.read_count + report.write_count).astype(np.float64)
+        ctl = self.controller
+        ops = []
+        for node in hot_nodes:
+            cands = [r for r in ctl.live_ranges()
+                     if int(ctl.chain_nodes(r)[0]) == node]
+            if not cands:
+                continue
+            # ranges born mid-loop (after the harvest) carry no heat yet
+            ridx = max(cands,
+                       key=lambda r: heat[r] if r < heat.size else 0.0)
+            ops.extend(ctl.split_overflowed(ridx, report.node_load))
+        return ops
 
     def _auto_retune(self, node_load: np.ndarray, now: int) -> None:
         """Adaptive pull cadence from report-to-report load drift."""
@@ -631,12 +753,13 @@ class EpochDriver:
     def _rows(self, e0: int, lat: np.ndarray, mks: np.ndarray,
               node_ops_h: np.ndarray, ovf_h: np.ndarray, opcodes_h: np.ndarray,
               bounced_h: np.ndarray | None, cst_h: np.ndarray | None,
-              head: tuple) -> list[EpochMetrics]:
+              ost_h: np.ndarray | None, head: tuple) -> list[EpochMetrics]:
         """EpochMetrics rows for a segment of ``L`` epochs, computed before
         the period's pull (the live mask is the segment's); ``bounced_h``
         is the (L, B) craq tail-bounce mask (None outside craq), ``cst_h``
         the (L, 5) tier counters (None without the tier), which also set
-        the redirect share the pull's backoff reads; ``head`` carries the
+        the redirect share the pull's backoff reads, ``ost_h`` the (L, 7)
+        overload counters (None without the plane); ``head`` carries the
         segment-start events and migration traffic."""
         cfg = self.cfg
         scfg = self.scenario.cfg
@@ -649,6 +772,8 @@ class EpochDriver:
             if seg_routed > 0:
                 self._last_redirect_share = (float(cst_h[:, 2].sum())
                                              / seg_routed)
+        if ost_h is None:
+            ost_h = np.zeros((L, len(OVL.STAT_FIELDS)), np.int64)
         p50s, p99s = latency_percentiles_batch(lat)
         p999s = p999_batch(lat)
         is_read = (opcodes_h == K.OP_GET) | (opcodes_h == K.OP_SCAN)
@@ -686,6 +811,11 @@ class EpochDriver:
                 clean_read_p99=float(clean_p99s[i]),
                 dirty_reads=int(dirty_counts[i]),
                 replication=cfg.replication_mode,
+                deferred=int(ost_h[i, 2]),
+                shed=int(ost_h[i, 3]),
+                requeued=int(ost_h[i, 4]),
+                lost=int(ost_h[i, 5]),
+                queue_peak=int(ost_h[i, 6]),
                 routed=int(cst_h[i, 0]),
                 direct=int(cst_h[i, 1]),
                 redirected=int(cst_h[i, 2]),
@@ -700,6 +830,12 @@ class EpochDriver:
         if self.coord_cfg is None:
             return "none"
         return "quorum" if self.coord_cfg.quorum else "no-quorum"
+
+    def overload_summary(self) -> dict:
+        """Host snapshot of the overload plane (empty when it is off)."""
+        if self.ovl is None:
+            return {}
+        return OVL.summary(self.ovl)
 
     def _time(self, plan: HopPlan):
         cfg = self.cfg
@@ -722,7 +858,7 @@ class EpochDriver:
         t0 = self._stage("control", t0)
         opcodes, q = self._queries(e)
         t0 = self._stage("inject", t0)
-        plan, node_ops, bounced, cstats = self._timed_step(
+        plan, node_ops, bounced, cstats, ostats = self._timed_step(
             q, prng.fold_in(self.key, e), bool((opcodes == K.OP_SCAN).any()),
             e)
         t0 = self._stage("route_apply", t0)
@@ -733,9 +869,10 @@ class EpochDriver:
         ovf_h = np.array([int(self._sync(self.store.overflow).sum())], np.int64)
         bounced_h = None if bounced is None else self._sync(bounced)[None]
         cst_h = None if cstats is None else self._sync(cstats)[None]
+        ost_h = None if ostats is None else self._sync(ostats)[None]
         self._fold_step_events()
         (row,) = self._rows(e, lat[None], mks, node_ops_h, ovf_h,
-                            opcodes[None], bounced_h, cst_h, head)
+                            opcodes[None], bounced_h, cst_h, ost_h, head)
         pulled = ((e + 1) == self._next_pull if self.auto_period
                   else (e + 1) % self.period == 0)
         if pulled:
@@ -762,12 +899,12 @@ class EpochDriver:
         head = self._handle_events(e0)
         t0 = self._stage("control", t0)
         L = self._segment_len(e0, n)
-        plans, nops, ovfs, bncs, csts, op_l = [], [], [], [], [], []
+        plans, nops, ovfs, bncs, csts, osts, op_l = [], [], [], [], [], [], []
         for i in range(L):
             opcodes, q = self._queries(e0 + i)
             t0 = self._stage("inject", t0)
             op_l.append(opcodes)
-            plan, node_ops, bounced, cstats = self._timed_step(
+            plan, node_ops, bounced, cstats, ostats = self._timed_step(
                 q, prng.fold_in(self.key, e0 + i),
                 bool((opcodes == K.OP_SCAN).any()), e0 + i)
             plans.append(plan)
@@ -775,11 +912,14 @@ class EpochDriver:
             ovfs.append(self.store.overflow.sum())
             bncs.append(bounced)
             csts.append(cstats)
+            osts.append(ostats)
             t0 = self._stage("route_apply", t0)
         # ---- ONE device-to-host copy for the whole segment ----
         self.host_syncs += 1
+        # (the overload counters, and the registers a pull reads, ride it)
         craq = self.mode_plan.dirty_reads
         tier = self.coord is not None
+        ovl = self.ovl is not None
         nodes, service, reply, node_ops_h, ovf_h, *extra = _to_host([
             torch.stack([p.nodes for p in plans]),
             torch.stack([p.service for p in plans]),
@@ -788,30 +928,40 @@ class EpochDriver:
             torch.stack(ovfs),
             *([torch.stack(bncs)] if craq else []),
             *([torch.stack(csts)] if tier else []),
+            *([torch.stack(osts), *self._ovl_view()] if ovl else []),
         ])
         bounced_h = extra.pop(0) if craq else None
         cst_h = extra.pop(0) if tier else None
+        ost_h = extra.pop(0) if ovl else None
+        ovl_view = tuple(extra) if ovl else None
         self._fold_step_events()
         lat, mks = self._time(HopPlan(torch.from_numpy(nodes),
                                       torch.from_numpy(service),
                                       torch.from_numpy(reply)))
         t0 = self._stage("des", t0)
         rows = self._rows(e0, lat, mks, node_ops_h, ovf_h, np.stack(op_l),
-                          bounced_h, cst_h, head)
+                          bounced_h, cst_h, ost_h, head)
         pulled = ((e0 + L) == self._next_pull if self.auto_period
                   else (e0 + L) % self.period == 0)
         if pulled:
-            self._fold_pull(rows[-1], self._control_pull(e0 + L))
+            self._fold_pull(rows[-1], self._control_pull(e0 + L, ovl_view))
         self._stage("control", t0)
         return rows
 
-    def run(self) -> list[EpochMetrics]:
+    def segments(self):
+        """Run the scenario, yielding each segment's rows as it ends: a
+        segment ends at a control pull, a scenario event or the run's end
+        (one epoch a segment in the per-epoch loop)."""
         n = self.scenario.cfg.n_epochs
         if not self.fused:
-            return [self.run_epoch(e) for e in range(n)]
-        rows: list[EpochMetrics] = []
+            for e in range(n):
+                yield [self.run_epoch(e)]
+            return
         e = 0
         while e < n:
-            rows.extend(self._run_segment(e, n))
+            rows = self._run_segment(e, n)
+            yield rows
             e = rows[-1].epoch + 1
-        return rows
+
+    def run(self) -> list[EpochMetrics]:
+        return [row for rows in self.segments() for row in rows]

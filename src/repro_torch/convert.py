@@ -2,7 +2,8 @@
 
 The ``*_from_numpy`` functions take the reference's state (a Directory's,
 a StoreState's, a count-min sketch's, the load registers', the
-replication register file's or the coordination tier's arrays, a model's
+replication register file's, the coordination tier's or the overload
+plane's arrays, a model's
 parameter pytree or its decode cache, each converted with
 ``np.asarray``) and build the port's tensors on a device;
 the ``*_to_numpy`` inverses return arrays in the reference's dtypes, so a
@@ -22,6 +23,7 @@ from repro_torch.coordination_tier.state import CoordState
 from repro_torch.core.directory import Directory
 from repro_torch.core.store import StoreState
 from repro_torch.device import resolve_device
+from repro_torch.overload.state import OverloadState
 from repro_torch.replication.state import ReplState
 
 DIRECTORY_FIELDS = ("slot_lo", "slot_hi", "live", "chains", "chain_len",
@@ -127,6 +129,15 @@ def coord_from_numpy(state, *, device=None) -> CoordState:
 def coord_to_numpy(state: CoordState) -> dict[str, np.ndarray]:
     return {f: getattr(state, f).cpu().numpy().astype(_COORD_DTYPES[f])
             for f in COORD_FIELDS}
+
+
+OVERLOAD_FIELDS = tuple(f.name for f in dataclasses.fields(OverloadState))
+
+
+def overload_to_numpy(state: OverloadState) -> dict[str, np.ndarray]:
+    """Every leaf as a numpy array (int32 registers and counters, float32
+    ``admit_prob``), in the reference's dtypes."""
+    return {f: getattr(state, f).cpu().numpy() for f in OVERLOAD_FIELDS}
 
 
 def _float_tensor(a, device, dtype: torch.dtype | None) -> torch.Tensor:

@@ -79,13 +79,17 @@ def route(directory: D.Directory, q: QueryBatch
 
 
 def route_load_aware(directory: D.Directory, q: QueryBatch,
-                     load_reg: torch.Tensor, rng: np.ndarray,
+                     load_reg: torch.Tensor, rng: np.ndarray, *,
+                     queue_pen: torch.Tensor | None = None,
                      ) -> tuple[RoutingDecision, D.Directory, torch.Tensor]:
     """Route with power-of-two-choices read spreading (K2).  ``load_reg``
     is the (N,) int64 uint32 load-register file; ``rng`` the raw
-    threefry key of the epoch's routing stream."""
+    threefry key of the epoch's routing stream.  ``queue_pen`` ((N,)
+    uint32 values in int64, optional) is added to the registers for the
+    p2c comparison only (the overload plane's scaled queue depths); the
+    registers still bump raw."""
     ridx, target, chain = RM.range_match_spread(
-        directory, q.key, q.opcode, load_reg, rng
+        directory, q.key, q.opcode, load_reg, rng, queue_pen=queue_pen
     )
     is_write = _is_write(q.opcode)
     decision = _decision(directory, ridx, target, chain, is_write)
@@ -98,6 +102,7 @@ def route_load_aware(directory: D.Directory, q: QueryBatch,
 def route_load_aware_dirty(
     directory: D.Directory, q: QueryBatch, load_reg: torch.Tensor,
     dirty: torch.Tensor, rng: np.ndarray, *,
+    queue_pen: torch.Tensor | None = None,
     key_filter: torch.Tensor | None = None,
 ) -> tuple[RoutingDecision, D.Directory, torch.Tensor, torch.Tensor,
            torch.Tensor]:
@@ -105,12 +110,13 @@ def route_load_aware_dirty(
     :func:`route_load_aware` plus the dirty-bit tail bounce.  ``dirty`` is
     the (S, r_max) bool table of ``repro_torch.replication``; the optional
     (S, F) bool ``key_filter`` bounces only reads whose key hashes onto a
-    set bit.  Returns ``(decision, directory', load_reg', picked,
-    bounced)``: ``decision.target`` is the serving node (the tail when
-    bounced), ``picked`` the p2c winner the read visits first."""
+    set bit; ``queue_pen`` as in :func:`route_load_aware`.  Returns
+    ``(decision, directory', load_reg', picked, bounced)``:
+    ``decision.target`` is the serving node (the tail when bounced),
+    ``picked`` the p2c winner the read visits first."""
     ridx, target, chain, picked, bounced = RM.range_match_spread_dirty(
         directory, q.key, q.opcode, load_reg, dirty, rng,
-        key_filter=key_filter,
+        queue_pen=queue_pen, key_filter=key_filter,
     )
     return (*_craq_bumps(directory, q, load_reg, ridx, target, chain, bounced),
             picked.to(torch.int64), bounced)

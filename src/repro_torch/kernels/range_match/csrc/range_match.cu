@@ -656,6 +656,13 @@ int64_t rm_order_bytes(int32_t S, int32_t W) {
     return (int64_t)order_bytes(S, W);
 }
 
+// Bytes of shared memory route_kernel<mode> takes a block (the wrapper
+// checks them against the device's opt-in limit before a launch).
+int64_t rm_route_smem_bytes(int32_t mode, int32_t S, int32_t r_max,
+                            int32_t n_loads) {
+    return (int64_t)route_smem(mode, S, r_max, n_loads).bytes;
+}
+
 int rm_range_match(const void* mvals, const void* opcodes, const void* lo,
                    const void* hi, const void* chains, const void* clen,
                    int64_t B, int32_t S, int32_t r_max, int32_t num_slots,

@@ -97,6 +97,12 @@ def _load() -> ctypes.CDLL:
             if lib.rm_order_bytes(1001, 3) != _order_bytes(1001, 3):
                 raise RuntimeError("range_match.cu and kernel.py disagree on "
                                    "the sorted span table's layout")
+            lib.rm_route_smem_bytes.argtypes = [_I32] * 4
+            lib.rm_route_smem_bytes.restype = _I64
+            if any(lib.rm_route_smem_bytes(m, 1001, 3, 7)
+                   != _route_smem(m, 1001, 3, 7) for m in range(4)):
+                raise RuntimeError("range_match.cu and kernel.py disagree on "
+                                   "the route kernel's shared memory")
             lib.rm_slab_lookup.argtypes = [_P] * 3 + [_I64] * 3 + [_P] * 3
             lib.rm_range_match_stale.argtypes = (
                 [_P] * 8 + [_I64, _I32, _I32, _I32, _I32, _I32, _I32]
@@ -148,6 +154,39 @@ def _order_bytes(S: int, W: int = 1) -> int:
     (the live count, the match pass), then W x S (lo, hi) pairs and W x S
     16-bit slot ids."""
     return W * (16 + 10 * S)
+
+
+# the route kernel's mode of each route wrapper (range_match.cu kTail ..
+# kApply)
+_ROUTE_MODE = {"range_match": 0, "range_match_spread": 1,
+               "range_match_spread_dirty": 2, "range_match_apply": 3}
+
+
+def _route_smem(mode: int, S: int, r_max: int, n_loads: int) -> int:
+    """Shared-memory bytes a route block stages (range_match.cu
+    ``route_smem``): the (lo, hi) spans, chains, chain lengths, the load
+    registers from K2 on, the 16-bit slot ids, the dirty bytes from K3 on,
+    each table on a 16-byte boundary."""
+    a = lambda x: (x + 15) & ~15
+    chain = a(8 * S)
+    clen = a(chain + 4 * r_max * S)
+    loads = a(clen + 4 * S)
+    ids = a(loads + (4 * n_loads if mode >= 1 else 0))
+    dirty = a(ids + 2 * S)
+    return a(dirty + (r_max * S if mode >= 2 else 0))
+
+
+def _check_smem(name: str, S: int, r_max: int, n_loads: int,
+                dev: torch.device) -> None:
+    """Raise when route wrapper ``name``'s tables (a grown slot pool, say)
+    pass the shared memory a block may opt in to: no plain fallback."""
+    need = _route_smem(_ROUTE_MODE[name], S, r_max, n_loads)
+    limit = _smem_optin(torch.cuda.current_device() if dev.index is None
+                        else dev.index)
+    if need > limit:
+        raise ValueError(f"{name}: tables of {S} slots x r_max {r_max} need "
+                         f"{need} B of shared memory, over the {limit} B a "
+                         "block may opt in to")
 
 
 def _check_ids(name: str, S: int) -> None:
@@ -225,6 +264,7 @@ def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
     ridx, target, chain = _route_outputs(B, r_max, dev)
     if B == 0:
         return ridx, target, chain
+    _check_smem("range_match", S, r_max, 0, dev)
     rc = _load().rm_range_match(
         mvals.data_ptr(), opcodes.data_ptr(), slot_lo.data_ptr(),
         slot_hi.data_ptr(), chains.data_ptr(), chain_len.data_ptr(),
@@ -255,6 +295,7 @@ def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     ridx, target, chain = _route_outputs(B, r_max, dev)
     if B == 0:
         return ridx, target, chain
+    _check_smem("range_match_spread", S, r_max, n, dev)
     rc = _load().rm_range_match_spread(
         mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
         slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
@@ -327,6 +368,7 @@ def range_match_spread_dirty(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     out = _route_outputs(B, r_max, dev, dirty=True)
     if B == 0:
         return out
+    _check_smem("range_match_spread_dirty", S, r_max, n, dev)
     rc = _load().rm_range_match_spread_dirty(
         mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
         slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
@@ -369,6 +411,7 @@ def range_match_apply(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
         torch.empty(B, dtype=torch.bool, device=dev))
     if B == 0:
         return out
+    _check_smem("range_match_apply", S, r_max, n, dev)
     rc = _load().rm_range_match_apply(
         mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
         slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),

@@ -59,12 +59,16 @@ def p2c_draws(rng: np.ndarray, B: int, device) -> tuple[torch.Tensor, torch.Tens
 
 
 def range_match_spread(directory, keys: torch.Tensor, opcodes: torch.Tensor,
-                       load_reg: torch.Tensor, rng: np.ndarray):
+                       load_reg: torch.Tensor, rng: np.ndarray, *,
+                       queue_pen: torch.Tensor | None = None):
     """Route through K2 (p2c read spreading): ``core.routing.
     route_load_aware`` without the counter and load-register bumps, given
-    the same ``rng``."""
+    the same ``rng``.  ``queue_pen`` ((N,) uint32 values in int64, optional)
+    is added to the load registers for the p2c comparison (the kernels
+    never bump loads, so this is ``route_load_aware(queue_pen=)``'s
+    effective load)."""
     return kernel.range_match_spread(
-        *_spread_inputs(directory, keys, opcodes, load_reg, rng),
+        *_spread_inputs(directory, keys, opcodes, load_reg, rng, queue_pen),
         num_slots=directory.num_slots,
     )
 
@@ -75,12 +79,15 @@ def pack_dirty(dirty: torch.Tensor) -> torch.Tensor:
     return dirty.T.to(torch.uint8).contiguous()
 
 
-def _spread_inputs(directory, keys, opcodes, load_reg, rng):
+def _spread_inputs(directory, keys, opcodes, load_reg, rng, queue_pen=None):
     """The packet vectors and tables K2, K3 and K4b share: ``(mvals,
-    opcodes, u1, u2, lo, hi, chains, clen, loads)``."""
+    opcodes, u1, u2, lo, hi, chains, clen, loads)``; ``queue_pen`` is
+    folded into the loads as a uint32 sum (it wraps past 2**32)."""
     u1, u2 = p2c_draws(rng, keys.shape[0], keys.device)
     lo, hi, chains, clen = pack_tables(directory)
     mvals = K.matching_value(keys, hash_partitioned=directory.hash_partitioned)
+    if queue_pen is not None:
+        load_reg = K.u32(load_reg + queue_pen.to(torch.int64))
     return (mvals.contiguous(), opcodes.to(torch.int32).contiguous(), u1, u2,
             lo, hi, chains, clen, to_i32_bits(load_reg))
 
@@ -88,14 +95,16 @@ def _spread_inputs(directory, keys, opcodes, load_reg, rng):
 def range_match_spread_dirty(directory, keys: torch.Tensor,
                              opcodes: torch.Tensor, load_reg: torch.Tensor,
                              dirty: torch.Tensor, rng: np.ndarray, *,
+                             queue_pen: torch.Tensor | None = None,
                              key_filter: torch.Tensor | None = None):
     """Route through K3 (CRAQ reads): ``core.routing.
     route_load_aware_dirty`` without the counter and load-register bumps,
     given the same ``rng``, the (S, r_max) bool ``dirty`` table and
-    optionally the (S, F) bool ``key_filter``.  Returns ``(ridx, target,
-    chain, picked, bounced)``."""
+    optionally the (S, F) bool ``key_filter``; ``queue_pen`` as in
+    :func:`range_match_spread`.  Returns ``(ridx, target, chain, picked,
+    bounced)``."""
     return kernel.range_match_spread_dirty(
-        *_spread_inputs(directory, keys, opcodes, load_reg, rng),
+        *_spread_inputs(directory, keys, opcodes, load_reg, rng, queue_pen),
         pack_dirty(dirty),
         None if key_filter is None else keys.contiguous(),
         None if key_filter is None else key_filter.contiguous(),

@@ -142,12 +142,13 @@ def test_apply_kernel_matches_plain(dev, B, C):
 
 
 def test_route_kernel_raises_when_tables_exceed_shared_memory(dev):
-    """No fallback: tables larger than a block's shared memory make the
-    launch fail, and the wrapper raises instead of taking the plain path."""
+    """No fallback: tables larger than a block's shared memory (a slot pool
+    grown past them) make the wrapper raise before the launch instead of
+    taking the plain path."""
     d = _directory(1, 4000, 10000, dev)
     keys = torch.zeros(16, dtype=torch.int64, device=dev)
     ops = torch.zeros(16, dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(ValueError, match="shared memory"):
         OPS.range_match(d, keys, ops)
 
 
@@ -704,6 +705,90 @@ def test_apply_routed_card_matches_cpu(dev):
         _same((a.value, a.found, a.scan_values, a.scan_keys, a.scan_count),
               (b.value, b.found, b.scan_values, b.scan_keys, b.scan_count))
     assert int(sg.overflow.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The overload plane on the card
+# ---------------------------------------------------------------------------
+
+# (queue_cap, service_rate, inflation): the full-width phase's knobs, and
+# a tight queue that sheds, escalates and loses
+OVL_CASES = ((6144, 10240, 3.0), (512, 256, 3.0))
+
+
+@pytest.mark.parametrize("cap,rate,inflation", OVL_CASES)
+def test_overload_step_card_matches_cpu(dev, cap, rate, inflation):
+    """``overload.step`` at B 65,536, N 10 (the full-width phase's shape):
+    every output of every epoch and the final state equal the CPU's bit for
+    bit, after admission probabilities and retry budgets below their
+    defaults on some nodes."""
+    from repro_torch import overload as OVL
+    from repro_torch import prng
+
+    B, N = 65536, 10
+    cfg = OVL.OverloadConfig(queue_cap=cap, service_rate=rate,
+                             inflation=inflation, max_level=3,
+                             backoff_base=1, jitter_span=2, queue_weight=2)
+    rng = np.random.default_rng(3)
+    states = {d: OVL.make_state(N, cfg, device=d) for d in ("cuda", "cpu")}
+    ap = np.where(np.arange(N) % 3 == 0, 0.7, 1.0).astype(np.float32)
+    rb = np.where(np.arange(N) % 2 == 0, 128, 2**30).astype(np.int32)
+    for d in states:
+        states[d] = dataclasses.replace(
+            states[d], admit_prob=torch.tensor(ap, device=d),
+            retry_budget=torch.tensor(rb, device=d))
+    shed = 0
+    for e in range(6):
+        # a hot node and a dead-chain share, like a failed rack
+        t = np.where(rng.random(B) < 0.4, 0, rng.integers(-1, N, B))
+        outs = {}
+        for d in states:
+            states[d], *outs[d] = OVL.step(
+                states[d], torch.tensor(t, device=d),
+                prng.fold_in(prng.PRNGKey(9), e), cfg)
+        _same(outs["cuda"], outs["cpu"])
+        shed += int(outs["cpu"][3][3])
+    for f in dataclasses.fields(OVL.OverloadState):
+        a, b = getattr(states["cuda"], f.name), getattr(states["cpu"], f.name)
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f.name
+    assert OVL.conservation_gap(states["cuda"]) == 0
+    assert shed > 0
+
+
+def test_queue_pen_wrap_card_matches_cpu(dev):
+    """K2 and K3 with a ``queue_pen`` that makes the effective loads wrap
+    past 2**32 (the fold sits in the wrapper): each kernel launches and
+    equals its plain version fed the same folded registers."""
+    from repro_torch import prng
+
+    B, N = 65536, 10
+    d = _directory(11, 1024, 2048, dev, num_nodes=N)
+    rng = np.random.default_rng(12)
+    keys = torch.tensor(rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64),
+                        device=dev)
+    ops = torch.tensor(np.where(rng.random(B) < 0.9, 0, 1).astype(np.int32),
+                       device=dev)
+    loads = torch.tensor((2**32 - rng.integers(1, 4000, N)).astype(np.int64),
+                         device=dev)
+    pen = torch.tensor(rng.integers(0, 8000, N).astype(np.int64), device=dev)
+    assert bool(((loads + pen) >= 2**32).any())
+    dirty = torch.tensor(rng.random((2048, 4)) < 0.3, device=dev)
+    key = prng.PRNGKey(5)
+    before = dict(RMK.launches)
+    got2 = OPS.range_match_spread(d, keys, ops, loads, key, queue_pen=pen)
+    got3 = OPS.range_match_spread_dirty(d, keys, ops, loads, dirty, key,
+                                        queue_pen=pen)
+    assert RMK.launches["range_match_spread"] == before["range_match_spread"] + 1
+    assert (RMK.launches["range_match_spread_dirty"]
+            == before["range_match_spread_dirty"] + 1)
+    dc = _cpu(d)
+    args = (keys.cpu(), ops.cpu(), loads.cpu())
+    _same(got2, OPS.range_match_spread(dc, *args, key, queue_pen=pen.cpu()))
+    _same(got3, OPS.range_match_spread_dirty(dc, *args, dirty.cpu(), key,
+                                             queue_pen=pen.cpu()))
+    # the penalty changed picks against the unpenalized call
+    plain2 = OPS.range_match_spread(dc, *args, key)
+    assert not torch.equal(got2[1].cpu(), plain2[1])
 
 
 # ---------------------------------------------------------------------------

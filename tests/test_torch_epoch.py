@@ -202,9 +202,8 @@ def test_device_none_means_cuda_and_never_the_cpu():
 
 
 @pytest.mark.parametrize("override", [
-    dict(overload=object()),
     dict(telemetry=object()),
-    dict(metrics=object()), dict(split_overflow=True),
+    dict(metrics=object()),
 ])
 def test_features_not_ported_yet_raise(override):
     case = CASES["shifting_frozen"]

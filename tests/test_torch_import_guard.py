@@ -58,7 +58,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.decode_attn, repro_torch.serving.engine\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.ssd_chunk, repro_torch.models.ssm\n"
-        "import repro_torch.models.hybrid\n"
+        "import repro_torch.models.hybrid, repro_torch.overload\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -81,7 +81,7 @@ def test_port_modules_found():
                 "kernels/decode_attn/kernel.py", "serving/engine.py",
                 "launch/serve.py", "kernels/ssd_chunk/kernel.py",
                 "kernels/ssd_chunk/ops.py", "kernels/ssd_chunk/ref.py",
-                "models/ssm.py", "models/hybrid.py"):
+                "models/ssm.py", "models/hybrid.py", "overload/state.py"):
         assert f"repro_torch/{mod}" in MODULES
     assert (PORT / "kernels/range_match/csrc/range_match.cu").exists()
     assert (PORT / "kernels/decode_attn/csrc/decode_attn.cu").exists()
