@@ -62,8 +62,13 @@ exits non-zero):
                K2 / K3 once an epoch under a nonzero queue penalty,
                conservation) and with ``split_overflow`` pool growth
                (``keyspace_growth`` into an 8-slot pool: the same
-               ``grow_pool`` events and ``compiled_steps``); then the
-               replication bench
+               ``grow_pool`` events and ``compiled_steps``), and with both
+               observability planes on (span tables, counts, attribution,
+               the metrics ring, burn arrays, alert timelines and flight
+               dumps too): ``tests/test_telemetry.py``'s traced run, craq
+               under the lag-1 tier (bounce and redirect columns) and the
+               overload plane under pool growth with linked retry orbits;
+               then the replication bench
                (``repro_torch.replication.bench``) and the coordination-tier
                bench (``repro_torch.coordination_tier.bench``) on the card
                at their full sizes, whose gates must come back empty; then
@@ -104,6 +109,18 @@ exits non-zero):
                acknowledged write read back from every live replica;
                epochs/s, stage seconds, losses, backlog, p999, autoscale
                events and peak memory;
+   telemetry   both observability planes at full width on phase
+               overload's ``retry_storm`` deployment, with the metrics
+               bench's settings (spans sampled at 1/64 into 64 slots, a
+               4-epoch flight ring, a 64-epoch metrics ring, the p999 SLO
+               at 150 with windows 2 / 4) and 12-bit orbit linking, against
+               the same run with them off: equal metric streams, final
+               store and registers, exact attribution, the burn alerts of
+               the numpy oracle, a complete incident report, and every
+               sampled span counted; epochs/s and stage seconds with the
+               planes on and off, the device time of an epoch's
+               ``collect_spans`` + ``record_epoch``, alerts and peak
+               memory;
 6. serving     the serving path at full width: ``ServingEngine`` on
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
@@ -151,9 +168,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PHASES = ("device", "kernels", "parity", "full_width", "overload", "serving",
-          "serving_ssm")
+PHASES = ("device", "kernels", "parity", "full_width", "overload",
+          "telemetry", "serving", "serving_ssm")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
 
@@ -170,20 +186,14 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-_L2_FLUSH: list[torch.Tensor] = []
-
-
 def l2_flush() -> None:
-    """Read a buffer of twice the card's L2, so that the next kernel meets
-    its inputs in device memory, as the paths do: a decode step reads 28
-    layers' caches in turn, and the store's kernels run between other
-    work.  A read, not a write, leaves the L2 clean, so the kernel that
-    follows pays no write-backs of the flush's lines."""
-    if not _L2_FLUSH:
-        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
-                     50 * 2**20)
-        _L2_FLUSH.append(torch.ones(2 * l2 // 4, device="cuda"))
-    _L2_FLUSH[0].sum()
+    """Read a buffer of twice the card's L2 (``telemetry.profiler.
+    l2_flush``), so that the next kernel meets its inputs in device
+    memory, as the paths do: a decode step reads 28 layers' caches in
+    turn, and the store's kernels run between other work."""
+    from repro_torch.telemetry.profiler import l2_flush as flush
+
+    flush(torch.device("cuda", 0))
 
 
 def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -408,6 +418,7 @@ def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
     from repro_torch.kernels.range_match import ops as OPS
     from repro_torch.kernels.range_match import ref as REF
     from repro_torch.serving.router import SequenceRouter
+    from repro_torch.telemetry.profiler import HBM_BYTES_PER_S, route_bytes
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -501,52 +512,40 @@ def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
                                        r_clen, num_slots=router.num_slots)
     r_S, r_rmax = router.num_slots, router.r_max
 
-    # Bounds count the bytes the function needs: every key, matching
-    # value, target, slab word and output id at its 32-bit width (the
-    # kernels read the port's int64 carriers, 8 B, for the first four),
-    # found flags at 1 B, each input read once and each output written
-    # once.  K4a reads the slab words its bisect probes: a left bisect
-    # over C entries takes ceil(log2(C + 1)) steps plus the final probe.
+    # Bounds count the bytes the function needs (the port's
+    # telemetry.profiler.route_bytes, which its roofline rows read too):
+    # each input read once and each output written once, K4a and K4b the
+    # slab words their bisect probes
     probes = math.ceil(math.log2(C_FULL + 1)) + 1
-    table_bytes = S * (4 + 4 + 4 + 4 * R_MAX)
-    route_out = 4 + 4 + 4 * R_MAX                  # ridx, target, chain
-    spread_in = 4 + 4 + 4 + 4                      # mval, opcode, u1, u2
-    # K3 adds the (r_max, S) dirty bytes in and (picked, bounced) out; the
-    # filter the raw keys and the (S, F) filter bytes
-    dirty_bytes = (B_FULL * (spread_in + route_out + 4 + 1) + table_bytes
-                   + 4 * N_FULL + R_MAX * S)
-    probe_bytes = B_FULL * (4 + 4 + 1) + B_FULL * probes * 4  # key, slot, found
+    full = dict(B=B_FULL, S=S, N=N_FULL, r_max=R_MAX)
     specs = [
-        ("range_match", K1, K1p, None,
-         B_FULL * (4 + 4 + route_out) + table_bytes,
+        ("range_match", K1, K1p, None, route_bytes("range_match", **full),
          "kernel.py:782", "range_match_pallas", {}),
         ("range_match_spread", K2, K2p, None,
-         B_FULL * (spread_in + route_out) + table_bytes + 4 * N_FULL,
+         route_bytes("range_match_spread", **full),
          "kernel.py:712", "range_match_spread_pallas", {}),
-        ("range_match_spread_dirty", K3, K3p, None, dirty_bytes,
+        ("range_match_spread_dirty", K3, K3p, None,
+         route_bytes("range_match_spread_dirty", **full),
          "kernel.py:631", "range_match_spread_dirty_pallas",
          {"filter_bits": 0}),
         ("range_match_spread_dirty", K3f, K3fp, None,
-         dirty_bytes + B_FULL * 4 + S * F_FULL,
+         route_bytes("range_match_spread_dirty", filter_bits=F_FULL, **full),
          "kernel.py:631", "range_match_spread_dirty_pallas",
          {"filter_bits": F_FULL}),
         ("slab_lookup", K4, K4p, K4lib,
-         B_FULL * (4 + 4 + 4 + 1) + B_FULL * probes * 4,
+         route_bytes("slab_lookup", C=C_FULL, **full),
          "kernel.py:582", "slab_lookup_pallas",
          {"dependent_loads": probes, "C": C_FULL}),
         ("range_match_apply", K4b, K4bp, None,
-         dirty_bytes + probe_bytes - B_FULL * 4,   # the key is the mval
+         route_bytes("range_match_apply", C=C_FULL, **full),
          "kernel.py:481", "range_match_apply_pallas",
          {"dependent_loads": probes, "C": C_FULL}),
-        # key and opcode in; sridx, server and divergent out; the W copies
-        # of lo, hi, clen, version and chains, and committed, once each
         ("range_match_stale", K5, K5p, None,
-         B_FULL * (4 + 4 + 4 + 4 + 1) + W_FULL * S * (4 * 4 + 4 * R_MAX)
-         + 4 * S,
+         route_bytes("range_match_stale", W=W_FULL, **full),
          "kernel.py:406", "range_match_stale_pallas", {"W": W_FULL}),
         ("range_match", K1r, K1rp, None,
-         ROUTER_B * (4 + 4 + 4 + 4 + 4 * r_rmax)
-         + r_S * (4 + 4 + 4 + 4 * r_rmax),
+         route_bytes("range_match", B=ROUTER_B, S=r_S, N=ROUTER_SHARDS,
+                     r_max=r_rmax),
          "kernel.py:782", "range_match_pallas",
          {"case": "serving_router", "main": False,
           "shape": {"B": ROUTER_B, "S": r_S, "r_max": r_rmax,
@@ -705,6 +704,7 @@ def _decode_attn_rows(seed: int) -> list[dict]:
 
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.decode_attn import ref as DAR
+    from repro_torch.telemetry.profiler import HBM_BYTES_PER_S
 
     dev = torch.device("cuda")
     gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
@@ -799,7 +799,6 @@ K7_CASES = (
 # test_kernels.py's 2e-4, scaled by the output (both sides sum in f32 in
 # other orders, over chunks whose terms reach |y| ~ 10 at mamba2's widths)
 K7_TOL = 2e-4
-F32_FLOP_PER_S = 67e12             # H100 SXM data sheet, f32 outside the tensor cores
 
 
 def _k7_compare(got, want) -> dict:
@@ -871,6 +870,7 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
     from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.kernels.ssd_chunk import ops as SSO
     from repro_torch.kernels.ssd_chunk import ref as SSR
+    from repro_torch.telemetry.profiler import HBM_BYTES_PER_S, PEAK_F32_FLOPS
 
     dev = torch.device("cuda")
     x, dt, A, Bm, Cm, s0 = _k7_inputs(seed, B, T, H, P, N, G, model_ranges,
@@ -891,7 +891,7 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
     plain_ms = time_cuda(plain, reps=3, warmup=1)
     SSK.launches["ssd_chunk"] = before   # comparison launches do not count
     macs, nbytes = _k7_work(B, T, H, P, N, G, Q)
-    flop_ms = 2 * macs / F32_FLOP_PER_S * 1e3
+    flop_ms = 2 * macs / PEAK_F32_FLOPS * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     row = {"name": "ssd_chunk", "route": "cuda",
            "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
@@ -919,14 +919,23 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
 # ---------------------------------------------------------------------------
 
 
+OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"  # gitignored
+# the parity phase's metrics plane: tests/test_metrics_plane.py's ring and
+# its forced p999 breach (bound 10, objective 0.9, windows 2 / 4)
+PARITY_SLO = dict(name="p999_fleet", series="p999", bound=10.0,
+                  objective=0.9, fast_window=2, slow_window=4)
+
+
 def _parity_driver(policy: str, device: str, fused: bool = True,
                    scenario: str = "shifting_hotspot", skw=None, n_epochs=6,
                    period=2, coord=None, ovl=None, pcfg=None, scfg=None,
-                   base=None, **ckw):
+                   base=None, planes=None, **ckw):
     """The parity phase's driver: the test configuration of
     ``tests/test_torch_epoch.py``, or ``scfg`` / ``base`` in place of its
     scenario / cluster knobs; ``ovl`` and ``pcfg`` are OverloadConfig and
-    PolicyConfig knobs."""
+    PolicyConfig knobs; ``planes`` TelemetryConfig knobs, which turn on
+    the trace plane and the metrics plane (``PARITY_SLO``), their flight
+    dumps under ``OUT``."""
     from repro_torch import cluster as TC
     from repro_torch import coordination_tier as CT
     from repro_torch import overload as OVL
@@ -942,6 +951,13 @@ def _parity_driver(policy: str, device: str, fused: bool = True,
     base = base or dict(num_nodes=8, num_ranges=32, replication=2, r_max=4,
                         n_clients=16, imbalance_threshold=1.1,
                         max_moves_per_round=6)
+    if planes is not None:
+        flight = OUT / "parity" / f"{scenario}_{policy}_{device}_{fused}"
+        ckw.update(
+            telemetry=TC.TelemetryConfig(**planes, flight_epochs=4,
+                                         flight_dir=str(flight)),
+            metrics=TC.MetricsConfig(window=32,
+                                     slos=(TC.SLO(**PARITY_SLO),)))
     cfg = TC.ClusterConfig(**base, report_every=period,
                            coordination=(None if coord is None
                                          else CT.CoordConfig(**coord)),
@@ -954,7 +970,50 @@ def _parity_driver(policy: str, device: str, fused: bool = True,
     return drv, drv.run()
 
 
-def _same_run(a, b) -> None:
+def _same_planes(a, b, snapshots: bool) -> None:
+    """The two planes of two runs: every epoch's span table, counts, DES
+    times and buckets, the breaches, the ring, the burn arrays over the
+    whole run and the alert timeline; with ``snapshots`` (two fused runs)
+    also the flight dumps, whose state snapshots are taken a segment."""
+    from repro_torch.telemetry import slo as SLOM
+
+    ta, tb = a.telemetry, b.telemetry
+    if (ta is None) != (tb is None) or (a.metrics is None) != (b.metrics is None):
+        raise AssertionError("one run has a plane the other lacks")
+    if ta is not None:
+        if len(ta.epochs) != len(tb.epochs):
+            raise AssertionError("span records differ in number")
+        for ra, rb in zip(ta.epochs, tb.epochs):
+            for k in ("span_i", "span_f", "lat", "comps", "issue", "hops"):
+                if not np.array_equal(ra[k], rb[k]):
+                    raise AssertionError(f"epoch {ra['epoch']}: {k} differs")
+            if ra["n_sampled"] != rb["n_sampled"]:
+                raise AssertionError(f"epoch {ra['epoch']}: counts differ")
+        if ta.breaches != tb.breaches:
+            raise AssertionError("breaches differ")
+        docs = lambda t: [{k: v for k, v in json.load(open(p)).items()
+                           if k != "tag"} for p in t.flight.dumps]
+        if snapshots and docs(ta) != docs(tb):
+            raise AssertionError("flight dumps differ")
+        if ta.verify_exact() != 0.0:
+            raise AssertionError("span attribution is not exact")
+    if a.metrics is not None:
+        if not torch.equal(a.metrics.ring.cpu(), b.metrics.ring.cpu()):
+            raise AssertionError("metrics rings differ")
+        if int(a.metrics.pos) != int(b.metrics.pos):
+            raise AssertionError("metrics ring positions differ")
+        n = int(a.metrics.pos)
+        burns = [SLOM.evaluate_segment(d.metrics, d.met_layout,
+                                       d.met_cfg.slos, n) for d in (a, b)]
+        for name, r in burns[0].items():
+            for k, v in r.items():
+                if not np.array_equal(v, burns[1][name][k]):
+                    raise AssertionError(f"SLO {name}: {k} differs")
+        if a.alert_timeline() != b.alert_timeline():
+            raise AssertionError("alert timelines differ")
+
+
+def _same_run(a, b, snapshots: bool = True) -> None:
     import dataclasses
 
     (da, ra), (db, rb) = a, b
@@ -986,6 +1045,7 @@ def _same_run(a, b) -> None:
                 raise AssertionError(f"overload state {f.name} differs")
     if da.growth_events != db.growth_events:
         raise AssertionError("pool growth events differ")
+    _same_planes(da, db, snapshots)
 
 
 LAG1 = dict(n_switches=4, lag_per_hop=1)
@@ -1025,6 +1085,17 @@ PARITY_RUNS = (
     ("overload/craq", "overload_adaptive", "ycsb_a",
      dict(ovl=OCFG, replication_mode="craq")),
     ("split_overflow", "full_adaptive", "keyspace_growth", GROW),
+    # both observability planes: tests/test_telemetry.py's traced run;
+    # craq under the lag-1 tier (bounce and redirect columns: six-hop
+    # plans); the overload plane under pool growth, orbits linked
+    ("planes/full_adaptive", "full_adaptive", "shifting_hotspot",
+     dict(planes=dict(sample_rate=1 / 2, max_spans=64))),
+    ("planes/coord/craq", "full_adaptive", "ycsb_a",
+     dict(replication_mode="craq", coord=LAG1,
+          planes=dict(sample_rate=1 / 2, max_spans=128))),
+    ("planes/overload/split_overflow", "overload_adaptive", "keyspace_growth",
+     dict(GROW, ovl=OCFG, planes=dict(sample_rate=1 / 2, max_spans=64,
+                                      link_retries=12))),
 )
 
 
@@ -1034,6 +1105,7 @@ def phase_parity() -> dict:
 
     from repro_torch import overload as OVL
     from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.telemetry import SI
 
     out = {"phase": "parity"}
     for label, policy, scenario, ckw in PARITY_RUNS:
@@ -1075,10 +1147,22 @@ def phase_parity() -> dict:
                 raise AssertionError(f"{label}: growth events {grows}")
             res.update(grow_pool=grows,
                        slots=drv.controller.num_slots)
+        if "planes" in ckw:
+            tel = cuda_f[0].telemetry
+            si = np.concatenate([r["span_i"] for r in tel.epochs])
+            res.update(spans=tel.span_count,
+                       spans_sampled=tel.summary()["spans_sampled"],
+                       bounced_spans=int(si[:, SI["bounced"]].sum()),
+                       alerts=len(cuda_f[0].alert_timeline()),
+                       flight_dumps=len(tel.flight.dumps))
+            if not tel.span_count or not res["alerts"]:
+                raise AssertionError(f"{label}: no spans or no alert {res}")
+            if "coord" in ckw and not res["bounced_spans"]:
+                raise AssertionError(f"{label}: no bounced or redirected span")
         if ckw.get("replication_mode") != "chain":
             # fused == per-epoch on the card (eventual and craq)
             cuda_e = _parity_driver(policy, "cuda", False, scenario, **ckw)
-            _same_run(cuda_e, cuda_f)
+            _same_run(cuda_e, cuda_f, snapshots=False)
             if not cuda_f[0].host_syncs < cuda_e[0].host_syncs:
                 raise AssertionError(f"{label}: fused loop did not save host syncs")
             res.update(fused_vs_per_epoch="bitwise",
@@ -1616,6 +1700,217 @@ def phase_overload() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase telemetry
+# ---------------------------------------------------------------------------
+
+# the metrics bench's own settings (benchmarks/metrics_bench.py:127-148,
+# not quick): spans sampled at 1/64 into 64 slots, a 4-epoch flight ring,
+# a 64-epoch ring and its forced p999 SLO (slo_spec(False)); the orbit
+# register at 12 bits
+TEL_FULL = dict(sample_rate=1 / 64, max_spans=64, flight_epochs=4,
+                link_retries=12)
+SLO_FULL = dict(name="p999_fleet", series="p999", bound=150.0,
+                objective=0.9, fast_window=2, slow_window=4, fast_burn=2.0,
+                slow_burn=1.0)
+# the incident report's keys the metrics bench checks (metrics_bench.py
+# :172-173), each non-empty
+INCIDENT_KEYS = ("alerts", "slos", "metrics", "breaches", "flight_dumps",
+                 "p999_attribution", "stage_timers")
+
+
+def _telemetry_run(planes: bool) -> dict:
+    """Phase overload's retry_storm deployment, with both planes or none:
+    the driver, its rows and what the run cost."""
+    from repro_torch import cluster as TC
+    from repro_torch import overload as OVL
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    label, sname, skw, _, okw, _ = OVL_RUNS[1]
+    scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
+                             epoch_ops=B_FULL, n_epochs=OVL_EPOCHS, seed=7)
+    extra = {}
+    if planes:
+        extra = dict(telemetry=TC.TelemetryConfig(
+            **TEL_FULL, flight_dir=str(OUT / "telemetry")),
+            metrics=TC.MetricsConfig(window=64, slos=(TC.SLO(**SLO_FULL),)))
+    cfg = TC.ClusterConfig(num_nodes=OVL_NODES, num_ranges=RANGES_FULL,
+                           replication=2, r_max=R_MAX,
+                           standby_nodes=OVL_STANDBY, report_every=2,
+                           overload=OVL.OverloadConfig(**{**OVL_FULL, **okw}),
+                           **extra)
+    scen = TC.make_scenario(sname, scfg, **skw)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()       # what another run still holds
+    RMK.reset_launches()                       # counts of the main path
+    t0 = time.perf_counter()
+    drv = TC.EpochDriver(
+        scen, TC.make_policy("overload_adaptive",
+                             TC.PolicyConfig(scale_patience=1)),
+        cfg, fused=True, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows = drv.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"drv": drv, "rows": rows, "scen": scen,
+            "launches": dict(RMK.launches), "setup_s": t1 - t0,
+            "run_s": t2 - t1, "epochs_per_s": len(rows) / (t2 - t1),
+            "stage_seconds": dict(drv.stage_seconds),
+            "device_step_s": drv.device_step_seconds,
+            "host_syncs": drv.host_syncs,
+            "max_memory_allocated_gb":
+                (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+
+def _planes_step_ms(drv) -> dict:
+    """Milliseconds of one epoch's ``collect_spans`` + ``record_epoch`` on
+    the card (CUDA events after an L2 flush, host enqueue included), at the
+    run's shapes: 65,536 queries over a six-hop plan, the run's final
+    registers, its ring and its sketch."""
+    from repro_torch.core import coordination as CO
+    from repro_torch.core import routing as R
+    from repro_torch.telemetry import collect_spans, rate_threshold
+    from repro_torch.telemetry import metrics as MTR
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    B, H, N = B_FULL, R_MAX + 2, OVL_NODES
+    S = drv.directory.num_slots
+    t = lambda a: torch.as_tensor(a, device=dev)
+    key = t(rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64))
+    q = R.QueryBatch(t(rng.integers(0, 3, B).astype(np.int32)), key, key,
+                     torch.zeros((B, 1), device=dev))
+    clen = t(np.full(B, 2))
+    dec = R.RoutingDecision(t(rng.integers(0, S, B)), t(rng.integers(0, N, B)),
+                            t(rng.integers(0, N, (B, R_MAX))), clen, clen)
+    plan = CO.HopPlan(t(np.zeros((B, H), np.int32)),
+                      t((40 * rng.random((B, H))).astype(np.float32)),
+                      t(np.full(B, 2.0, np.float32)))
+    ints = t(rng.integers(0, 3, B).astype(np.int32))
+    scale = t(np.ones(B, np.float32))
+    thr = rate_threshold(TEL_FULL["sample_rate"])
+    zero7 = torch.zeros(7, dtype=torch.int32, device=dev)
+    zero5 = torch.zeros(5, dtype=torch.int64, device=dev)
+    state = MTR.make_state(64, drv.met_layout.n_series, device=dev)
+    spans = lambda: collect_spans(q, 5, dec, dec.target, ints > 1, ints,
+                                  ints, ints, scale, plan, threshold=thr,
+                                  k_slots=TEL_FULL["max_spans"], lookup=0.25)
+    ring = lambda: MTR.record_epoch(
+        state, node_ops=drv.load_reg, ovl=drv.ovl, ostats=zero7,
+        cstats=zero5, coord=None, repl=drv.repl, sketch=drv.sketch,
+        keys=key, ridx=dec.ridx, topk=drv.met_layout.topk)
+    from torch.profiler import ProfilerActivity, profile
+
+    both = lambda: (spans(), ring())
+    out = {"collect_spans_ms": time_cuda(spans),
+           "record_epoch_ms": time_cuda(ring), "both_ms": time_cuda(both)}
+    # and the device time of the pair by kernel, over 5 calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            both()
+        torch.cuda.synchronize()
+    prof_5 = _device_summary(prof, time.perf_counter() - t0, top=8)
+    return {**out, "both_device_ms": 1e3 * prof_5["device_busy_s"] / 5,
+            "both_profile_5_calls": prof_5,
+            "shape": {"B": B, "H": H, "N": N, "S": S,
+                      "ring": [64, drv.met_layout.n_series]}}
+
+
+def phase_telemetry() -> dict:
+    """Both observability planes at full width on phase overload's
+    retry_storm deployment, against the same run with them off: equal
+    metric streams, final store and overload state (the orbit register,
+    which only the trace plane sizes, aside), exact attribution, the burn
+    alerts of the numpy oracle, a complete incident report, and the spans
+    sampled past the slot cap counted."""
+    from repro_torch.telemetry import incident, rate_threshold, sample_mask
+    from repro_torch.telemetry import slo as SLOM
+
+    import dataclasses
+
+    out = {"phase": "telemetry", "telemetry_config": TEL_FULL,
+           "slo": SLO_FULL, "metrics_window": 64}
+    off = _telemetry_run(False)
+    on = _telemetry_run(True)
+    d_off, d_on = off["drv"], on["drv"]
+    problems = []
+    if ([dataclasses.asdict(r) for r in off["rows"]]
+            != [dataclasses.asdict(r) for r in on["rows"]]):
+        problems.append("EpochMetrics streams differ")
+    pairs = [("store." + f, getattr(d_off.store, f), getattr(d_on.store, f))
+             for f in ("keys", "values", "overflow")]
+    pairs += [("ovl." + f.name, getattr(d_off.ovl, f.name),
+               getattr(d_on.ovl, f.name))
+              for f in dataclasses.fields(d_off.ovl) if f.name != "first_seen"]
+    pairs += [("load_reg", d_off.load_reg, d_on.load_reg),
+              ("sketch", d_off.sketch, d_on.sketch),
+              ("chains", d_off.directory.chains, d_on.directory.chains)]
+    for name, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            problems.append(f"{name} differs with the planes on")
+    tel = d_on.telemetry
+    exact = tel.verify_exact()
+    if exact != 0.0:
+        problems.append(f"attribution off by {exact}")
+    spec = d_on.met_cfg.slos[0]
+    p999 = np.asarray([r.p999 for r in on["rows"]], np.float32)
+    fired = d_on.met_engine.firing_epochs(spec.name)
+    want = SLOM.reference_alerts(p999, spec)["fire_epochs"]
+    if not fired or fired != want:
+        problems.append(f"alerts fired at {fired}, the oracle at {want}")
+    doc = incident.report(d_on, out_dir=str(OUT / "telemetry"),
+                          tag="telemetry_retry_storm")
+    missing = [k for k in INCIDENT_KEYS if not doc.get(k)]
+    if missing or "retry_orbits" not in doc:
+        problems.append(f"incident report lacks {missing}")
+    # every epoch's sampled count, recomputed from the scenario's keys on
+    # the host: the spans past the 64 slots are counted, not hidden
+    thr = rate_threshold(TEL_FULL["sample_rate"])
+    sampled = [int(sample_mask(torch.as_tensor(
+        on["scen"].epoch(e)[1].astype(np.int64)), e, thr).sum())
+        for e in range(OVL_EPOCHS)]
+    summ = tel.summary()
+    if ([r["n_sampled"] for r in tel.epochs] != sampled
+            or summ["spans"] != sum(min(n, TEL_FULL["max_spans"])
+                                    for n in sampled)
+            or summ["spans_sampled"] <= summ["spans"]):
+        problems.append(f"sampled {sampled}, recorded {summ['spans']}")
+    if problems:
+        raise AssertionError(f"telemetry: {problems}")
+    keep = ("setup_s", "run_s", "epochs_per_s", "stage_seconds",
+            "device_step_s", "host_syncs", "max_memory_allocated_gb",
+            "launches")
+    out.update(
+        planes_off={k: off[k] for k in keep},
+        planes_on={k: on[k] for k in keep},
+        planes_step=_planes_step_ms(d_on),
+        spans=summ["spans"], spans_sampled=summ["spans_sampled"],
+        spans_dropped=summ["spans_sampled"] - summ["spans"],
+        retry_orbits=summ.get("retry_orbits"),
+        orbits_completed=summ.get("orbits_completed"),
+        reconstruction_max_err=exact, alert_fire_epochs=fired,
+        alerts=len(d_on.alert_timeline()), breaches=len(tel.breaches),
+        flight_dumps=len(tel.flight.dumps),
+        p999_attribution_share=doc["p999_attribution"]["share"],
+        max_p999=float(p999.max()),
+        launches=on["launches"])
+    del off, on, d_off, d_on, tel, doc, pairs
+    torch.cuda.empty_cache()
+    # the cost of the planes, in turns on one card: off, on (above), on, off
+    for planes in (True, False):
+        run = _telemetry_run(planes)
+        out["planes_on" if planes else "planes_off"].setdefault(
+            "turn_2", {k: run[k] for k in keep if k != "launches"})
+        del run
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 # the full-width serving runs: decode_32k's batch of 128 cut to 32 slots;
 # for qwen2-1.5b its context of 32,768 cut to an 8,192-position cache (the
 # bf16 KV cache is then 7.5 GB), mamba2-370m keeps no KV cache (its decode
@@ -1949,6 +2244,7 @@ def main(argv=None) -> int:
         phase_parity()
     full = phase_full_width() if "full_width" in phases else None
     ovl = phase_overload() if "overload" in phases else None
+    tel = phase_telemetry() if "telemetry" in phases else None
     serving = phase_serving() if "serving" in phases else None
     serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
     if "profile" in phases:
@@ -1964,7 +2260,8 @@ def main(argv=None) -> int:
         # launches_by_path; launches is their sum
         paths = {name: p["launches"] for name, p in
                  (("full_width", full), ("overload", ovl),
-                  ("serving", serving), ("serving_ssm", serving_ssm))
+                  ("telemetry", tel), ("serving", serving),
+                  ("serving_ssm", serving_ssm))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]

@@ -20,11 +20,12 @@ from repro_torch.cluster.scenarios import (
     ScenarioConfig,
     make_scenario,
 )
+from repro_torch.telemetry import SLO, MetricsConfig, TelemetryConfig
 
 __all__ = [
     "ClusterConfig", "EpochDriver", "EpochMetrics", "imbalance_stats",
     "imbalance_stats_batch", "latency_percentiles", "latency_percentiles_batch",
     "masked_p99_batch", "p999_batch", "summarize", "POLICIES", "Policy",
     "PolicyConfig", "make_policy", "SCENARIOS", "Scenario", "ScenarioConfig",
-    "make_scenario",
+    "make_scenario", "TelemetryConfig", "MetricsConfig", "SLO",
 ]

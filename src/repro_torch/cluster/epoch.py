@@ -42,16 +42,27 @@ bit.  The reference's fused period is a donated ``lax.scan``; here the
 carries are updated in place (the store slabs are the big allocation).
 Capturing the period as one CUDA graph is later work.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the dist backend, telemetry and the metrics plane.  The
-coordination tier's fault
-events (``coordination_tier.EVENT_KINDS``) are ignored without the tier,
-so the same scenario is the no-tier baseline.
+With ``telemetry`` the step also builds the epoch's sampled span table
+(``telemetry.collect_spans``; the overload plane's orbit-identity
+register is then sized by ``link_retries`` and stamped by
+``overload.link_orbit``), and with ``metrics`` it writes the epoch's row of
+the device-resident metrics ring (``telemetry.metrics.record_epoch``).
+Both planes only observe: no PRNG is drawn and no carried register
+changes, so the metric stream and the final state are those of the run
+with them off.  The spans ride the segment's one copy home; at each
+segment's end the host attributes them, feeds the flight recorder,
+folds the DES columns into the ring and evaluates the SLO burn rates.
+
+Not ported yet: the dist backend (raises ``NotImplementedError`` naming
+its ROADMAP item).  The coordination tier's fault events
+(``coordination_tier.EVENT_KINDS``) are ignored without the tier, so the
+same scenario is the no-tier baseline.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -60,6 +71,7 @@ import torch
 from repro_torch import coordination_tier as CT
 from repro_torch import overload as OVL
 from repro_torch import prng
+from repro_torch import telemetry as TEL
 from repro_torch.cluster.metrics import (
     EpochMetrics,
     imbalance_stats_batch,
@@ -87,12 +99,13 @@ from repro_torch.core.stats import make_sketch, pull_report, sketch_query, sketc
 from repro_torch.core.store import apply_routed, make_store
 from repro_torch.device import resolve_device
 from repro_torch import replication as RPL
+from repro_torch.telemetry import metrics as MTR
+from repro_torch.telemetry import slo as SLOM
 
 
 @dataclasses.dataclass
 class ClusterConfig:
-    """Cluster geometry + timing knobs (the reference's fields; the ones
-    whose subsystem is not ported yet must keep their off value)."""
+    """Cluster geometry + timing knobs (the reference's fields)."""
 
     num_nodes: int = 8
     num_ranges: int = 64
@@ -120,9 +133,9 @@ class ClusterConfig:
     overload: OVL.OverloadConfig | None = None
     standby_nodes: tuple = ()
     split_overflow: bool = False
-    telemetry: object | None = None
+    telemetry: TEL.TelemetryConfig | None = None
     coordination: CT.CoordConfig | None = None
-    metrics: object | None = None
+    metrics: MTR.MetricsConfig | None = None
     craq_filter_bits: int = 0
     seed: int = 0
 
@@ -138,10 +151,6 @@ def _check_supported(cfg: ClusterConfig, backend: str) -> None:
         raise _not_ported("backend='dist'", "module-port step 11")
     if backend != "oracle":
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.telemetry is not None:
-        raise _not_ported("telemetry", "module-port step 10")
-    if cfg.metrics is not None:
-        raise _not_ported("the metrics plane", "module-port step 10")
     if cfg.des_backend not in (None, "auto", "native"):
         raise ValueError(
             f"DES backend {cfg.des_backend!r}: the port runs the native core only"
@@ -218,11 +227,15 @@ class EpochDriver:
         self.mode_plan = RPL.resolve_mode(
             cfg.replication_mode, policy.read_spread, cfg.replication
         )
-        # per-stage host wall seconds, taken without any synchronise (so
-        # "des" includes waiting for the period's device work), and on
-        # CUDA the device seconds of every step from a pair of CUDA events,
-        # read once the period's copy home has passed them
-        self.stage_seconds: dict[str, float] = {}
+        # per-stage host wall seconds (``stage_seconds``), taken without
+        # any synchronise (so "des" includes waiting for the period's
+        # device work) unless the trace plane's profile_stages blocks on
+        # each device step; and on CUDA the device seconds of every step
+        # from a pair of CUDA events, read once the period's copy home
+        # has passed them
+        tcfg = cfg.telemetry
+        self.timers = TEL.StageTimers(
+            sync=tcfg is not None and tcfg.profile_stages)
         self.device_step_seconds = 0.0
         self._step_events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
         pe = (cfg.report_every if cfg.report_every is not None
@@ -301,12 +314,50 @@ class EpochDriver:
         self._last_redirect_share = 0.0
         # the overload plane: per-node queue/retry registers on the device
         # (None when off, which leaves every other value bit-identical).
-        # Its orbit-identity register stays the (1,) placeholder until the
-        # trace plane that sizes it is ported
+        # Its orbit-identity register sizes off the trace plane's
+        # link_retries (0 bits: the (1,) placeholder)
         self.ovl_cfg = cfg.overload
-        self.ovl = (OVL.make_state(cfg.num_nodes, cfg.overload,
-                                   device=self.device)
-                    if cfg.overload is not None else None)
+        self.ovl = (OVL.make_state(
+            cfg.num_nodes, cfg.overload,
+            link_bits=tcfg.link_retries if tcfg is not None else 0,
+            device=self.device) if cfg.overload is not None else None)
+        # the trace plane: spans are built in the device step and ride the
+        # segment's copy home; the host recorder attributes and archives
+        # them (None: the step builds none)
+        self.tel_cfg = tcfg
+        self._tel_threshold = (TEL.rate_threshold(tcfg.sample_rate)
+                               if tcfg is not None else 0)
+        self.telemetry = (TEL.TelemetryRecorder(
+            tcfg, model=cfg.latency, scenario=scenario.name,
+            policy=policy.name, n_clients=cfg.n_clients, timers=self.timers)
+            if tcfg is not None else None)
+        # the fleet metrics plane: a (window, n_series) float32 ring on the
+        # device, a row written by every step, with SLO burn-rate alerts
+        # evaluated at each segment's end
+        self.met_cfg = cfg.metrics
+        self._met_pos = 0   # host mirror of metrics.pos (fold positions)
+        self.met_layout = self.metrics = self.met_engine = None
+        if self.met_cfg is not None:
+            self.met_layout = MTR.build_layout(
+                cfg.num_nodes,
+                n_switches=(self.coord_mgr.n_switches
+                            if self.coord_mgr is not None else 0),
+                topk=min(self.met_cfg.topk, n_slots))
+            for s in self.met_cfg.slos:
+                if s.series not in self.met_layout.index:
+                    raise ValueError(
+                        f"SLO {s.name!r} names unknown series {s.series!r}")
+                need = s.slow_window + self.period
+                if self.met_cfg.window < need:
+                    raise ValueError(
+                        f"metrics window {self.met_cfg.window} too short "
+                        f"for SLO {s.name!r}: needs >= slow_window + period "
+                        f"= {need} epochs of retained history")
+            self.metrics = MTR.make_state(self.met_cfg.window,
+                                          self.met_layout.n_series,
+                                          device=self.device)
+            self.met_engine = SLOM.AlertEngine(self.met_cfg.slos,
+                                               on_fire=self._on_slo_fire)
         self.sketch = make_sketch(cfg.sketch_width, cfg.sketch_depth,
                                   device=self.device)
         self.key = prng.PRNGKey(cfg.seed)
@@ -323,10 +374,10 @@ class EpochDriver:
         self._preload()
 
     # -- host-side helpers -------------------------------------------------
-    def _stage(self, name: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + t1 - t0
-        return t1
+    @property
+    def stage_seconds(self) -> dict[str, float]:
+        """Host wall seconds by pipeline stage (the stage timers' totals)."""
+        return self.timers.totals
 
     def _timed_step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool,
                     eid: int):
@@ -416,7 +467,10 @@ class EpochDriver:
         tier's staged tables install.  Updates the carries in place or by
         rebinding; returns ``(plan, node_ops, bounced, cstats, ostats)``,
         ``bounced`` None outside craq, ``cstats`` (5,) None without the
-        tier, ``ostats`` (7,) int32 None without the overload plane."""
+        tier, ``ostats`` (7,) int32 None without the overload plane; with
+        the trace plane a last item, the span table ``(span_i, span_f,
+        counts)`` (None without it).  With the metrics plane the step also
+        writes the epoch's ring row."""
         cfg = self.cfg
         N = cfg.num_nodes
         mp = self.mode_plan
@@ -473,16 +527,25 @@ class EpochDriver:
         bounce_kw = (dict(read_via=picked, read_bounce=bounced)
                      if mp.dirty_reads else {})
         # the overload step decides each query's timing fate (the store
-        # above applied every op regardless)
-        ostats = None
+        # above applied every op regardless); its pre-step state is the
+        # admission context the span table records
+        tcfg = self.tel_cfg
+        ostats = outcome = scale = first_epoch = None
+        ovl_pre = self.ovl
         if ocfg is not None:
-            self.ovl, rejected, scale, _, ostats = OVL.step(
+            self.ovl, rejected, scale, outcome, ostats = OVL.step(
                 self.ovl, decision.target, r_ovl, ocfg)
             bounce_kw.update(shed=rejected, service_scale=scale)
+            if tcfg is not None:
+                # cross-epoch retry linking: stamp / clear the hashed
+                # orbit-identity register (a no-op at the placeholder)
+                self.ovl, first_epoch = OVL.link_orbit(
+                    self.ovl, q.key, rejected,
+                    outcome == OVL.OUTCOME_ADMITTED, eid)
         # the switch tier observes the batch against its (possibly stale)
         # copies: accounting only, the decision above followed the true
         # tables, so the tier reprices hops and counts
-        cstats = None
+        cstats = redirect = None
         if self.coord_cfg is not None:
             self.coord, redirect, redirect_via, cstats = CT.observe_epoch(
                 self.coord, q, decision, eid, quorum=self.coord_cfg.quorum,
@@ -499,7 +562,58 @@ class EpochDriver:
             self.repl = RPL.advance(
                 self.repl, decision.ridx, is_write,
                 keys=q.key if cfg.craq_filter_bits else None)
-        return plan, node_ops, bounced, cstats, ostats
+        spans = None
+        if tcfg is not None:
+            spans = self._spans(q, eid, decision, picked, bounced, redirect,
+                                ovl_pre, outcome, scale, first_epoch, plan)
+        if self.metrics is not None:
+            # end-of-epoch state: post-step ovl, post-observe coord,
+            # post-advance repl (like the flight ring's snapshots)
+            dev = self.device
+            self.metrics = MTR.record_epoch(
+                self.metrics, node_ops=node_ops, ovl=self.ovl,
+                ostats=(ostats if ostats is not None else torch.zeros(
+                    len(OVL.STAT_FIELDS), dtype=torch.int32, device=dev)),
+                cstats=(cstats if cstats is not None
+                        else CT.empty_cstats(dev)),
+                coord=self.coord, repl=self.repl, sketch=self.sketch,
+                keys=q.key, ridx=decision.ridx, topk=self.met_layout.topk)
+        return plan, node_ops, bounced, cstats, ostats, spans
+
+    def _spans(self, q, eid, decision, picked, bounced, redirect, ovl_pre,
+               outcome, scale, first_epoch, plan):
+        """The epoch's span table: each query's admission context comes
+        from the PRE-step overload state (queue depth at its target, the
+        deepest occupied retry level there), as routing observes the
+        pre-epoch store.  A versioned redirect rides the span's bounce
+        flag (an extra pre-serve hop), while the metric stream's bounced
+        column stays CRAQ-only."""
+        B = q.batch
+        N = self.cfg.num_nodes
+        dev = self.device
+        if bounced is None:
+            bounced = torch.zeros(B, dtype=torch.bool, device=dev)
+        span_bounced = bounced if redirect is None else bounced | redirect
+        if picked is None:
+            picked = decision.target
+        if ovl_pre is not None:
+            t_safe = torch.clamp(decision.target, 0, N - 1)
+            qdepth = ovl_pre.queue[t_safe]
+            Lv = ovl_pre.retry.shape[1]
+            levels = torch.arange(1, Lv + 1, dtype=torch.int32, device=dev)
+            orbit = (torch.where(ovl_pre.retry > 0, levels[None, :], 0)
+                     .amax(dim=1) - 1)[t_safe]
+        else:
+            qdepth = torch.zeros(B, dtype=torch.int32, device=dev)
+            orbit = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            outcome = torch.where(decision.target >= 0, OVL.OUTCOME_ADMITTED,
+                                  OVL.OUTCOME_INVALID).to(torch.int32)
+            scale = torch.ones(B, dtype=torch.float32, device=dev)
+        return TEL.collect_spans(
+            q, eid, decision, picked, span_bounced, outcome, qdepth, orbit,
+            scale, plan, threshold=self._tel_threshold,
+            k_slots=self.tel_cfg.max_spans, lookup=self.cfg.latency.lookup,
+            first_epoch=first_epoch)
 
     # -- control -----------------------------------------------------------
     def _handle_events(self, e: int) -> tuple[list[str], int, int]:
@@ -554,9 +668,7 @@ class EpochDriver:
         t0 = time.perf_counter()
         self.coord, notes = method(*args, self.coord,
                                    self.controller.table_snapshot(), now=now)
-        self.stage_seconds["coord_control"] = (
-            self.stage_seconds.get("coord_control", 0.0)
-            + time.perf_counter() - t0)
+        self.timers.lap("coord_control", t0)
         return notes
 
     def _sync_repl(self) -> None:
@@ -677,7 +789,7 @@ class EpochDriver:
                 t0 = time.perf_counter()
                 self.coord = self.coord_mgr.rebuild(
                     self.controller.table_snapshot())
-                self._stage("coord_control", t0)
+                self.timers.lap("coord_control", t0)
             else:
                 # the period's control writes enter the switch chain:
                 # commit now, install per switch with its chain-position
@@ -838,12 +950,101 @@ class EpochDriver:
         return OVL.summary(self.ovl)
 
     def _time(self, plan: HopPlan):
+        """DES timing: ``(latency, makespans, issue, hops)``, the last two
+        (each query's issue time and per-hop completion times) only with
+        the trace plane, else None."""
         cfg = self.cfg
-        latency, makespan = simulate_closed_loop(
+        out = simulate_closed_loop(
             plan, n_clients=cfg.n_clients, num_nodes=cfg.num_nodes,
-            link=cfg.latency.link,
+            link=cfg.latency.link, return_issue=self.telemetry is not None,
+            return_hops=self.telemetry is not None,
         )
-        return latency.numpy(), np.atleast_1d(makespan.numpy())
+        latency, makespan, *extra = out
+        issue, hops = extra if extra else (None, None)
+        return latency.numpy(), np.atleast_1d(makespan.numpy()), issue, hops
+
+    # -- the observability planes ------------------------------------------
+    def _state_snapshot(self, extra: tuple = ()) -> tuple[dict, list]:
+        """Host view of the carried state for the flight-recorder ring, and
+        the host copies of ``extra`` tensors, in one device-to-host copy
+        (the caller counts it)."""
+        ts = [self.load_reg, *extra]
+        ovl = self.ovl
+        if ovl is not None:
+            ts += [ovl.queue, torch.stack([
+                ovl.cum_injected, ovl.cum_admitted, ovl.cum_requeued,
+                ovl.cum_deferred, ovl.cum_lost,
+                ovl.retry.sum(dtype=torch.int32)])]
+        track = self.mode_plan.track_state
+        if track:
+            ts += [RPL.dirty_bits(self.repl), self.repl.version]
+        host = _to_host(ts)
+        snap: dict = {"load_reg": host[0].astype(np.int64).tolist()}
+        at = 1 + len(extra)
+        if ovl is not None:
+            inj, adm, req, dfr, lost, backlog = host[at + 1].tolist()
+            snap["queue_depth"] = host[at].tolist()
+            snap["retry_backlog"] = backlog
+            snap["conservation_gap"] = inj - (adm + req + dfr + lost + backlog)
+            at += 2
+        if track:
+            snap["replication"] = RPL.summary_of(host[at], host[at + 1])
+        if self.coord_mgr is not None:
+            snap["coordination"] = self.coord_mgr.summary()
+        return snap, host[1:1 + len(extra)]
+
+    def _observe(self, e0: int, rows: list[EpochMetrics], lat, issue,
+                 makespans, hops, spans, t0: float) -> None:
+        """Segment-end work of the two planes, after the pull: attribute
+        and archive the spans (``spans``: host ``(span_i, span_f, counts)``
+        stacks, or device tensors of one epoch), then fold the DES columns
+        into the ring and evaluate the SLO burn rates.  The spans go
+        first: a burn alert's flight dump must already hold its
+        segment."""
+        if self.telemetry is not None:
+            on_device = isinstance(spans[0], torch.Tensor)
+            snap, host = self._state_snapshot(spans if on_device else ())
+            self.host_syncs += 1   # the state snapshot (and one epoch's spans)
+            si, sf, cnt = ([h[None] for h in host] if on_device else spans)
+            self.telemetry.on_segment(e0, rows, si, sf, cnt, lat, issue,
+                                      makespans, snap, hops=hops)
+            t0 = self.timers.lap("telemetry", t0)
+        if self.metrics is not None:
+            L = len(rows)
+            vals = np.array([[r.p50, r.p99, r.p999, r.imbalance]
+                             for r in rows], np.float64)
+            self.metrics = MTR.fold_host(self.metrics, self._met_pos, vals,
+                                         self.met_layout.host_cols)
+            self._met_pos += L
+            if self.met_cfg.slos:
+                res = SLOM.evaluate_segment(self.metrics, self.met_layout,
+                                            self.met_cfg.slos, L)
+                self.host_syncs += 1   # the burn-rate arrays come home
+                self.met_engine.observe(e0, res)
+            self.timers.lap("metrics", t0)
+
+    def _on_slo_fire(self, spec, ev: dict) -> None:
+        """Rising-edge hook: a burn alert is an invariant breach, so it
+        dumps the flight ring with the SLO context in the reason."""
+        if self.telemetry is not None:
+            self.telemetry.breach(
+                f"slo_burn:{spec.name}:epoch {ev['epoch']} "
+                f"value {ev['value']:.2f} > {spec.bound} "
+                f"fast {ev['fast_burn']:.2f} slow {ev['slow_burn']:.2f}"
+            )
+
+    def metrics_view(self) -> dict:
+        """Chronological host view of the metrics ring (one copy home)."""
+        if self.metrics is None:
+            raise ValueError("metrics plane disabled (metrics=None)")
+        self.host_syncs += 1
+        return MTR.series_view(self.metrics, self.met_layout)
+
+    def alert_timeline(self) -> list[dict]:
+        """The SLO alert timeline so far (empty when no SLO fired)."""
+        if self.met_engine is None:
+            return []
+        return list(self.met_engine.timeline)
 
     # -- the per-epoch reference loop --------------------------------------
     def run_epoch(self, e: int) -> EpochMetrics:
@@ -855,16 +1056,17 @@ class EpochDriver:
             )
         t0 = time.perf_counter()
         head = self._handle_events(e)
-        t0 = self._stage("control", t0)
+        t0 = self.timers.lap("control", t0)
         opcodes, q = self._queries(e)
-        t0 = self._stage("inject", t0)
-        plan, node_ops, bounced, cstats, ostats = self._timed_step(
+        t0 = self.timers.lap("inject", t0)
+        plan, node_ops, bounced, cstats, ostats, spans = self._timed_step(
             q, prng.fold_in(self.key, e), bool((opcodes == K.OP_SCAN).any()),
             e)
-        t0 = self._stage("route_apply", t0)
+        self.timers.block(self.device)
+        t0 = self.timers.lap("route_apply", t0)
         self.host_syncs += 1   # the DES engine pulls the plan to the host
-        lat, mks = self._time(plan)
-        t0 = self._stage("des", t0)
+        lat, mks, issue, hops = self._time(plan)
+        t0 = self.timers.lap("des", t0)
         node_ops_h = self._sync(node_ops)[None]
         ovf_h = np.array([int(self._sync(self.store.overflow).sum())], np.int64)
         bounced_h = None if bounced is None else self._sync(bounced)[None]
@@ -877,7 +1079,10 @@ class EpochDriver:
                   else (e + 1) % self.period == 0)
         if pulled:
             self._fold_pull(row, self._control_pull(e + 1))
-        self._stage("control", t0)
+        t0 = self.timers.lap("control", t0)
+        self._observe(e, [row], lat[None], None if issue is None else
+                      issue[None], mks, None if hops is None else hops[None],
+                      spans, t0)
         return row
 
     # -- the fused period loop ---------------------------------------------
@@ -897,29 +1102,34 @@ class EpochDriver:
     def _run_segment(self, e0: int, n: int) -> list[EpochMetrics]:
         t0 = time.perf_counter()
         head = self._handle_events(e0)
-        t0 = self._stage("control", t0)
+        t0 = self.timers.lap("control", t0)
         L = self._segment_len(e0, n)
         plans, nops, ovfs, bncs, csts, osts, op_l = [], [], [], [], [], [], []
+        spns = []
         for i in range(L):
             opcodes, q = self._queries(e0 + i)
-            t0 = self._stage("inject", t0)
+            t0 = self.timers.lap("inject", t0)
             op_l.append(opcodes)
-            plan, node_ops, bounced, cstats, ostats = self._timed_step(
+            plan, node_ops, bounced, cstats, ostats, spans = self._timed_step(
                 q, prng.fold_in(self.key, e0 + i),
                 bool((opcodes == K.OP_SCAN).any()), e0 + i)
+            self.timers.block(self.device)
             plans.append(plan)
             nops.append(node_ops)
             ovfs.append(self.store.overflow.sum())
             bncs.append(bounced)
             csts.append(cstats)
             osts.append(ostats)
-            t0 = self._stage("route_apply", t0)
+            spns.append(spans)
+            t0 = self.timers.lap("route_apply", t0)
         # ---- ONE device-to-host copy for the whole segment ----
         self.host_syncs += 1
-        # (the overload counters, and the registers a pull reads, ride it)
+        # (the overload counters, the registers a pull reads and the span
+        # tables ride it)
         craq = self.mode_plan.dirty_reads
         tier = self.coord is not None
         ovl = self.ovl is not None
+        traced = self.telemetry is not None
         nodes, service, reply, node_ops_h, ovf_h, *extra = _to_host([
             torch.stack([p.nodes for p in plans]),
             torch.stack([p.service for p in plans]),
@@ -929,23 +1139,29 @@ class EpochDriver:
             *([torch.stack(bncs)] if craq else []),
             *([torch.stack(csts)] if tier else []),
             *([torch.stack(osts), *self._ovl_view()] if ovl else []),
+            *([torch.stack([sp[k] for sp in spns]) for k in range(3)]
+              if traced else []),
         ])
+        spans_h = tuple(extra[-3:]) if traced else None
+        if traced:
+            del extra[-3:]
         bounced_h = extra.pop(0) if craq else None
         cst_h = extra.pop(0) if tier else None
         ost_h = extra.pop(0) if ovl else None
         ovl_view = tuple(extra) if ovl else None
         self._fold_step_events()
-        lat, mks = self._time(HopPlan(torch.from_numpy(nodes),
-                                      torch.from_numpy(service),
-                                      torch.from_numpy(reply)))
-        t0 = self._stage("des", t0)
+        lat, mks, issue, hops = self._time(HopPlan(torch.from_numpy(nodes),
+                                                   torch.from_numpy(service),
+                                                   torch.from_numpy(reply)))
+        t0 = self.timers.lap("des", t0)
         rows = self._rows(e0, lat, mks, node_ops_h, ovf_h, np.stack(op_l),
                           bounced_h, cst_h, ost_h, head)
         pulled = ((e0 + L) == self._next_pull if self.auto_period
                   else (e0 + L) % self.period == 0)
         if pulled:
             self._fold_pull(rows[-1], self._control_pull(e0 + L, ovl_view))
-        self._stage("control", t0)
+        t0 = self.timers.lap("control", t0)
+        self._observe(e0, rows, lat, issue, mks, hops, spans_h, t0)
         return rows
 
     def segments(self):
@@ -964,4 +1180,19 @@ class EpochDriver:
             e = rows[-1].epoch + 1
 
     def run(self) -> list[EpochMetrics]:
-        return [row for rows in self.segments() for row in rows]
+        """Run the scenario; with the trace plane's ``trace_dir`` set, under
+        ``torch.profiler``, whose Chrome trace lands in that directory."""
+        tdir = self.tel_cfg.trace_dir if self.tel_cfg is not None else None
+        if not tdir:
+            return [row for rows in self.segments() for row in rows]
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            rows = [row for rows in self.segments() for row in rows]
+        os.makedirs(tdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            tdir, f"trace_{self.scenario.name}_{self.policy.name}.json"))
+        return rows

@@ -31,6 +31,14 @@ def u32(x: torch.Tensor) -> torch.Tensor:
     return x & MASK32
 
 
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """The int32 with the same low 32 bits as ``x`` (a uint32 value or a
+    small signed int carried in int64): values of ``2**31`` and up wrap
+    negative explicitly, without relying on an int64 -> int32 cast."""
+    x = x.to(torch.int64) & MASK32
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``(x * c) mod 2**32`` for ``x`` in ``[0, 2**32)`` without int64
     overflow: ``c`` is split into 16-bit halves, so every partial product

@@ -99,6 +99,45 @@ def route_load_aware(directory: D.Directory, q: QueryBatch,
     return decision, directory, load_reg
 
 
+# byte lanes in a packed chain word; members past this ride the plan only
+CHAIN_PACK_SLOTS = 4
+_CHAIN_PACK_EMPTY = 0xFF
+
+
+def pack_chain(chain: torch.Tensor, chain_len: torch.Tensor) -> torch.Tensor:
+    """(B, r_max) chain + (B,) len -> (B,) int32, one member per byte.
+
+    The span table (:mod:`repro_torch.telemetry`) keeps each sampled
+    query's hop path in one int32: the live chain prefix in byte lanes,
+    ``0xFF`` empty, lossless for up to :data:`CHAIN_PACK_SLOTS` members of
+    clusters under 255 nodes.  A word whose fourth lane is set is
+    negative: the uint32 word is wrapped to int32 explicitly
+    (:func:`keys.to_i32`).  :func:`unpack_chain` is the host-side inverse.
+    """
+    B, r_max = chain.shape
+    k = min(r_max, CHAIN_PACK_SLOTS)
+    pos = torch.arange(k, device=chain.device)[None, :]
+    member = chain[:, :k].to(torch.int64)
+    live = (pos < chain_len[:, None]) & (member >= 0) & (member < 255)
+    byte = torch.where(live, member, _CHAIN_PACK_EMPTY)
+    packed = torch.zeros(B, dtype=torch.int64, device=chain.device)
+    for i in range(CHAIN_PACK_SLOTS):
+        lane = byte[:, i] if i < k else _CHAIN_PACK_EMPTY
+        packed = packed | (lane << (8 * i))
+    return K.to_i32(packed)
+
+
+def unpack_chain(packed) -> np.ndarray:
+    """Host-side inverse of :func:`pack_chain`: (n,) packed words ->
+    (n, CHAIN_PACK_SLOTS) int32 members, -1 where empty."""
+    p = np.asarray(packed, np.int32).view(np.uint32)
+    shifts = 8 * np.arange(CHAIN_PACK_SLOTS, dtype=np.uint32)
+    bytes_ = (p[:, None] >> shifts[None, :]) & np.uint32(0xFF)
+    return np.where(
+        bytes_ == _CHAIN_PACK_EMPTY, -1, bytes_.astype(np.int64)
+    ).astype(np.int32)
+
+
 def route_load_aware_dirty(
     directory: D.Directory, q: QueryBatch, load_reg: torch.Tensor,
     dirty: torch.Tensor, rng: np.ndarray, *,

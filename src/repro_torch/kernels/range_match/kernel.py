@@ -179,7 +179,9 @@ def _route_smem(mode: int, S: int, r_max: int, n_loads: int) -> int:
 def _check_smem(name: str, S: int, r_max: int, n_loads: int,
                 dev: torch.device) -> None:
     """Raise when route wrapper ``name``'s tables (a grown slot pool, say)
-    pass the shared memory a block may opt in to: no plain fallback."""
+    pass the 16-bit slot ids or the shared memory a block may opt in to:
+    no plain fallback."""
+    _check_ids(name, S)
     need = _route_smem(_ROUTE_MODE[name], S, r_max, n_loads)
     limit = _smem_optin(torch.cuda.current_device() if dev.index is None
                         else dev.index)

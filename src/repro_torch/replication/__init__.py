@@ -23,10 +23,11 @@ from repro_torch.replication.state import (
     dirty_bits,
     make_state,
     summary,
+    summary_of,
 )
 
 __all__ = [
     "CHAIN", "CRAQ", "EVENTUAL", "REPLICATION_MODES", "ModePlan",
     "resolve_mode", "ReplState", "make_state", "advance", "apply_events",
-    "dirty_bits", "summary",
+    "dirty_bits", "summary", "summary_of",
 ]

@@ -101,8 +101,12 @@ def advance(state: ReplState, ridx: torch.Tensor, is_write: torch.Tensor,
 
 def summary(state: ReplState) -> dict:
     """Host-side snapshot of the register file."""
-    dirty = dirty_bits(state).cpu().numpy()
-    version = state.version.cpu().numpy()
+    return summary_of(dirty_bits(state).cpu().numpy(),
+                      state.version.cpu().numpy())
+
+
+def summary_of(dirty: np.ndarray, version: np.ndarray) -> dict:
+    """:func:`summary` of host copies of the dirty bits and versions."""
     return {
         "max_version": int(version.max()) if version.size else 0,
         "total_commits": int(version.sum()),

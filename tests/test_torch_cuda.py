@@ -792,6 +792,166 @@ def test_queue_pen_wrap_card_matches_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# The trace and metrics planes on the card
+# ---------------------------------------------------------------------------
+
+# (scenario, policy, cluster knobs, TelemetryConfig knobs, SLO bound):
+# the trace tests' shifting-hotspot run, craq on ycsb_a under the lag-1
+# tier (bounce and redirect columns: six-hop plans), the overload breach
+# with split_overflow pool growth
+PLANE_RUNS = {
+    "traced": ("shifting_hotspot", "full_adaptive", {},
+               dict(sample_rate=1 / 2, max_spans=64), 10.0),
+    "craq_tier": ("ycsb_a", "full_adaptive",
+                  dict(replication_mode="craq",
+                       coordination=dict(n_switches=4, lag_per_hop=1)),
+                  dict(sample_rate=1 / 2, max_spans=128), 10.0),
+    "overload_growth": ("keyspace_growth", "overload_adaptive",
+                        dict(num_nodes=4, num_ranges=8, n_slots=8,
+                             capacity=128, split_overflow=True,
+                             overload=dict(queue_cap=32, service_rate=24,
+                                           inflation=3.0, queue_weight=2)),
+                        dict(sample_rate=1 / 2, max_spans=64,
+                             link_retries=12), 10.0),
+}
+
+
+def _plane_driver(name, device, fused, tmp):
+    from repro_torch import cluster as TC
+    from repro_torch import coordination_tier as CTm
+    from repro_torch import overload as OVL
+    from repro_torch.telemetry import SLO, MetricsConfig, TelemetryConfig
+
+    scen, pol, ckw, tkw, bound = PLANE_RUNS[name]
+    ckw = dict(ckw)
+    if "coordination" in ckw:
+        ckw["coordination"] = CTm.CoordConfig(**ckw["coordination"])
+    if "overload" in ckw:
+        ckw["overload"] = OVL.OverloadConfig(**ckw["overload"])
+    grow = scen == "keyspace_growth"
+    scfg = (TC.ScenarioConfig(n_epochs=10, epoch_ops=512, n_records=2048,
+                              read_ratio=0.3, value_dim=2) if grow else
+            TC.ScenarioConfig(n_epochs=8, epoch_ops=256, n_records=512,
+                              value_dim=2, seed=3))
+    base = {} if grow else dict(num_nodes=8, num_ranges=32, n_clients=16,
+                                imbalance_threshold=1.1,
+                                max_moves_per_round=6)
+    slo = SLO(name="p999", series="p999", bound=bound, objective=0.9,
+              fast_window=2, slow_window=4)
+    cfg = TC.ClusterConfig(
+        **base, report_every=2, **ckw,
+        telemetry=TelemetryConfig(**tkw, flight_epochs=4,
+                                  flight_dir=str(tmp / device)),
+        metrics=MetricsConfig(window=32, slos=(slo,)))
+    skw = dict(theta=1.2, shift_every=2) if scen == "shifting_hotspot" else {}
+    drv = TC.EpochDriver(TC.make_scenario(scen, scfg, **skw),
+                         TC.make_policy(pol), cfg, fused=fused, device=device)
+    return drv, drv.run()
+
+
+@pytest.mark.parametrize("name", list(PLANE_RUNS))
+def test_telemetry_planes_card_match_cpu(dev, name, tmp_path):
+    """Both planes on: the span tables, counts, DES-attributed buckets,
+    ring, alert timeline and flight ring on the card equal the CPU's, and
+    the card's fused loop equals its per-epoch loop."""
+    runs = {(d, f): _plane_driver(name, d, f, tmp_path)
+            for d, f in (("cuda", True), ("cpu", True), ("cuda", False))}
+    (g, grows), (c, crows) = runs[("cuda", True)], runs[("cpu", True)]
+    rows = lambda rs: [dataclasses.asdict(r) for r in rs]
+    for other in (runs[("cpu", True)], runs[("cuda", False)]):
+        o, orows = other
+        assert rows(grows) == rows(orows)
+        assert len(g.telemetry.epochs) == len(o.telemetry.epochs)
+        for a, b in zip(g.telemetry.epochs, o.telemetry.epochs):
+            for k in ("span_i", "span_f", "lat", "comps", "issue", "hops"):
+                assert np.array_equal(a[k], b[k]), (a["epoch"], k)
+            assert a["n_sampled"] == b["n_sampled"]
+        assert torch.equal(g.metrics.ring.cpu(), o.metrics.ring.cpu())
+        assert g.alert_timeline() == o.alert_timeline()
+    assert list(g.telemetry.flight.ring) == list(c.telemetry.flight.ring)
+    assert g.telemetry.verify_exact() == 0.0
+    assert g.telemetry.span_count > 0
+
+
+def test_spans_and_ring_at_full_width_card_match_cpu(dev):
+    """``collect_spans`` at B 65,536 over a six-hop plan (keys >= 2**31,
+    four-member chains) and ``record_epoch`` whose heat ties across most
+    slots: the card equals the CPU bit for bit, ties lowest slot first."""
+    from repro_torch import replication as RPL
+    from repro_torch.core import coordination as CO
+    from repro_torch.core import stats as ST
+    from repro_torch.telemetry import collect_spans, rate_threshold
+    from repro_torch.telemetry import metrics as MTR
+
+    B, N, S, H = 65536, 10, 2048, 6
+    rng = np.random.default_rng(21)
+    host = dict(
+        key=rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64),
+        op=rng.integers(0, 3, B).astype(np.int32),
+        chain=rng.integers(-1, N, (B, 4)), clen=rng.integers(1, 5, B),
+        ridx=rng.integers(0, S, B), target=rng.integers(-1, N, B),
+        bounced=rng.random(B) < 0.3, outcome=rng.integers(-1, 3, B),
+        depth=rng.integers(0, 90, B), orbit=rng.integers(-1, 3, B),
+        scale=(1 + 2 * rng.random(B)).astype(np.float32),
+        service=(40 * rng.random((B, H))).astype(np.float32),
+        reply=rng.integers(1, 5, B).astype(np.float32),
+        version=rng.integers(0, 4, S), acked=rng.integers(0, 4, (S, 4)),
+        node_ops=rng.integers(0, 9000, N))
+    out = {}
+    for d in ("cuda", "cpu"):
+        t = {k: torch.tensor(v, device=d) for k, v in host.items()}
+        q = R.QueryBatch(t["op"], t["key"], t["key"],
+                         torch.zeros((B, 1), device=d))
+        dec = R.RoutingDecision(t["ridx"], t["target"], t["chain"],
+                                t["clen"], t["clen"])
+        plan = CO.HopPlan(torch.zeros((B, H), dtype=torch.int32, device=d),
+                          t["service"], t["reply"])
+        spans = collect_spans(q, 7, dec, t["target"], t["bounced"],
+                              t["outcome"], t["depth"], t["orbit"],
+                              t["scale"], plan,
+                              threshold=rate_threshold(1 / 64), k_slots=64,
+                              lookup=0.25)
+        sketch = ST.sketch_update(ST.make_sketch(512, 4, device=d),
+                                  t["key"][:300])
+        repl = RPL.ReplState(version=t["version"],
+                             acked=torch.minimum(t["acked"],
+                                                 t["version"][:, None]),
+                             key_filter=torch.zeros((S, 1), dtype=torch.bool,
+                                                    device=d))
+        lay = MTR.build_layout(N, topk=4)
+        st = MTR.make_state(8, lay.n_series, device=d)
+        st = MTR.record_epoch(
+            st, node_ops=t["node_ops"], ovl=None,
+            ostats=torch.zeros(7, dtype=torch.int32, device=d),
+            cstats=torch.zeros(5, dtype=torch.int64, device=d), coord=None,
+            repl=repl, sketch=sketch, keys=t["key"][:300],
+            ridx=t["ridx"][:300], topk=4)
+        heat = torch.zeros(S, device=d)
+        heat[[5, 900, 17]] = 3.0
+        out[d] = (*spans, st.ring, *MTR.hot_slots(heat, 4))
+    _same(out["cuda"], out["cpu"])
+    assert out["cpu"][-1].tolist() == [5, 17, 900, 0]
+    assert int(out["cpu"][2][1]) == 64          # the cap binds at 1/64
+
+
+def test_kernel_roofline_rows_on_card(dev):
+    """The roofline rows time K1-K5 themselves on the card (each launch
+    counted) against the H100 peaks of ``telemetry.profiler``."""
+    from repro_torch.telemetry import profiler as P
+
+    before = dict(RMK.launches)
+    rows = P.kernel_roofline_rows(batch=4096, measure_iters=3)
+    assert [r["kernel"] for r in rows] == list(P.KERNELS)
+    for r in rows:
+        assert r["impl"] == "cuda"
+        assert r["device"] == torch.cuda.get_device_name(dev)
+        assert r["measured_us"] > 0
+        assert r["roofline_us"] == r["t_memory_us"] == (
+            r["bytes"] / P.HBM_BYTES_PER_S * 1e6)
+        assert RMK.launches[r["kernel"]] >= before[r["kernel"]] + 4
+
+
+# ---------------------------------------------------------------------------
 # K6 decode_attn and the serving path
 # ---------------------------------------------------------------------------
 

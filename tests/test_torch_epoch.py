@@ -7,8 +7,8 @@ equality), the final store ``keys`` / ``values`` / ``overflow`` and
 failure, a rack failure, chunked p2c routing and the adaptive pull
 cadence) and on ``ycsb_a`` under the ``chain`` and ``craq`` replication
 modes (with and without the CRAQ key filter; the register file too).  Also: the port's fused period loop equals its per-epoch loop
-with fewer host syncs, ``device=None`` never falls back to the CPU, and
-the features not ported yet raise."""
+with fewer host syncs, ``device=None`` never falls back to the CPU, the
+trace and metrics planes run, and the dist backend raises."""
 
 import sys
 
@@ -202,15 +202,23 @@ def test_device_none_means_cuda_and_never_the_cpu():
 
 
 @pytest.mark.parametrize("override", [
-    dict(telemetry=object()),
-    dict(metrics=object()),
+    dict(telemetry=TCl.TelemetryConfig()),
+    dict(metrics=TCl.MetricsConfig()),
 ])
 def test_features_not_ported_yet_raise(override):
+    """The trace and metrics planes are ported: the driver takes them and
+    runs (``tests/test_torch_telemetry.py`` and
+    ``tests/test_torch_metrics_plane.py`` hold them against the
+    reference); the dist backend still raises with them on."""
     case = CASES["shifting_frozen"]
+    scen = TCl.make_scenario(case[0], TCl.ScenarioConfig(**SCFG), **case[3])
+    drv = TCl.EpochDriver(scen, TCl.make_policy(case[1]),
+                          _ccfg(TCl, 2, **override), device="cpu")
+    assert len(drv.run()) == SCFG["n_epochs"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCl.EpochDriver(
-            TCl.make_scenario(case[0], TCl.ScenarioConfig(**SCFG), **case[3]),
-            TCl.make_policy(case[1]), _ccfg(TCl, 2, **override), device="cpu")
+        TCl.EpochDriver(scen, TCl.make_policy(case[1]),
+                        _ccfg(TCl, 2, **override), backend="dist",
+                        device="cpu")
 
 
 def test_dist_backend_not_ported_yet():

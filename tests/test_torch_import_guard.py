@@ -59,6 +59,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.ssd_chunk, repro_torch.models.ssm\n"
         "import repro_torch.models.hybrid, repro_torch.overload\n"
+        "import repro_torch.telemetry, repro_torch.telemetry.dashboard\n"
+        "import repro_torch.telemetry.profiler\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -77,6 +79,9 @@ def test_port_modules_found():
     assert "repro_torch/kernels/range_match/kernel.py" in MODULES
     assert "repro_torch/coordination_tier/state.py" in MODULES
     assert "repro_torch/core/hierarchy.py" in MODULES
+    for mod in ("trace", "attribution", "export", "profiler", "flight",
+                "recorder", "metrics", "slo", "incident", "dashboard"):
+        assert f"repro_torch/telemetry/{mod}.py" in MODULES
     for mod in ("configs/qwen2_1_5b.py", "models/transformer.py",
                 "kernels/decode_attn/kernel.py", "serving/engine.py",
                 "launch/serve.py", "kernels/ssd_chunk/kernel.py",
