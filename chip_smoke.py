@@ -10,7 +10,8 @@ exits non-zero):
                build of the CUDA kernels (range_match, decode_attn,
                ssd_chunk) and the DES core from the sources in this
                checkout, one compiler process each, all started together
-               (build seconds);
+               (build seconds); the DES must time with its native core,
+               not the heapq fallback;
 2. kernels     each range_match kernel (K1 ``range_match``, K2
                ``range_match_spread``, K3 ``range_match_spread_dirty`` without
                and with the 64-bit key filter, K4a ``slab_lookup``, K4b
@@ -68,6 +69,11 @@ exits non-zero):
                dumps too): ``tests/test_telemetry.py``'s traced run, craq
                under the lag-1 tier (bounce and redirect columns) and the
                overload plane under pool growth with linked retry orbits;
+               and the dist backend on an 8-shard mesh (the load
+               registers too): p2c with the overload plane and both
+               observability planes, craq on ``ycsb_a``, the lag-1 tier
+               through ``split_brain``, and a lognormal service model,
+               whose latencies card and CPU hold to ROADMAP F14's bound;
                then the replication bench
                (``repro_torch.replication.bench``) and the coordination-tier
                bench (``repro_torch.coordination_tier.bench``) on the card
@@ -121,6 +127,18 @@ exits non-zero):
                planes on and off, the device time of an epoch's
                ``collect_spans`` + ``record_epoch``, alerts and peak
                memory;
+   dist        the dist backend (``backend="dist"``, the sharded data
+               plane of ``core/dist_store.py``) at phase 4's full width on
+               an 8-shard mesh on the card, buckets of epoch_ops / N =
+               8,192: (a) ``shifting_hotspot`` x ``frozen``, whose metric
+               stream and final store must equal phase 4's oracle run bit
+               for bit, (b) ``full_adaptive`` (K2 once a shard and epoch),
+               (c) YCSB-A ``craq`` x ``full_adaptive`` (K3 likewise) and
+               (d) the four-switch lag-1 tier through ``split_brain``
+               (K5); bucket overflow 0 in every epoch, every acknowledged
+               write read back from every live replica; epochs/s, stage
+               seconds, device step, exchange rounds, dirty reads and peak
+               memory;
 6. serving     the serving path at full width: ``ServingEngine`` on
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
@@ -169,7 +187,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
-          "telemetry", "serving", "serving_ssm")
+          "telemetry", "dist", "serving", "serving_ssm")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
 
@@ -314,6 +332,12 @@ def phase_device() -> dict:
     RMK._load()
     DAK._load()
     SSK._load()
+    from repro_torch.core import des as TDes
+
+    # the C event core times every run below, not the heapq fallback
+    if not _des_native.available() or TDes.resolve_backend(None) != "native":
+        raise AssertionError("the native DES core is not the one in use: "
+                             f"{_des_native.unavailable_reason()}")
     here = Path(__file__).parent
     out = {"phase": "device", "card": card_line(),
            "kind": torch.cuda.get_device_name(0),
@@ -322,7 +346,7 @@ def phase_device() -> dict:
            "kernel_library": os.path.relpath(libs[0], here),
            "decode_attn_library": os.path.relpath(libs[1], here),
            "ssd_chunk_library": os.path.relpath(libs[2], here),
-           "build_s": build_s}
+           "des_backend": "native", "build_s": build_s}
     emit(out)
     return out
 
@@ -412,7 +436,116 @@ ROUTE_PARTS = ("span_order", "route_kernel")
 STALE_PARTS = ("span_order", "stale_kernel")
 
 
+# phase dist's shapes of K2, K3 and K4a (phase 2 checks them on its data):
+# K2 / K3 route each shard's slice of B_FULL / N_FULL queries with the
+# draws of fold_in(key, shard), and K4a takes every shard's inbound
+# buckets of a round, (N_FULL, N_FULL x BUCKET_CAP_FULL) queries, in one
+# launch against the (N_FULL, C_FULL) slabs
+BUCKET_CAP_FULL = B_FULL // N_FULL
+DIST_V = 4                 # value width of the K4a round (K4a reads keys)
+
+
+def _dist_route_check(fn, plain) -> dict:
+    """K2 / K3 as the dist plane launches them: ``fn(shard)`` is one
+    shard's launch on its slice with its own draws, ``plain(shard)`` the
+    plain version on the same inputs; all N_FULL launches bitwise, and
+    the time of the whole set (one epoch's routing)."""
+    for me in range(N_FULL):
+        got, want = fn(me), plain(me)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"shard {me}'s slice: kernel disagrees "
+                                     "with its plain version")
+    every = lambda f: lambda: [f(me) for me in range(N_FULL)]
+    return {"B": B_FULL // N_FULL, "launches": N_FULL, "draws": "fold_in",
+            "parity": "bitwise", "ms": time_cuda(every(fn)),
+            "plain_ms": time_cuda(every(plain), reps=5, warmup=1)}
+
+
+def _dist_read_round_check(RMK, REF, slabs, qkeys, target, opcodes,
+                           seed: int) -> dict:
+    """K4a at phase dist's read round and DEL-probe round: the batch
+    bucketed by target shard (``BUCKET_CAP_FULL`` a bucket) and
+    exchanged as the bucket plane does, then ``store.shards_read`` on the
+    card (one K4a launch a round) against the same call on CPU copies,
+    which runs K4a's plain version; and the flat launch itself against
+    ``slab_lookup_ref`` on the card, both bitwise."""
+    from repro_torch.core import dist_store as DS
+    from repro_torch.core import keys as K
+    from repro_torch.core import routing as R
+    from repro_torch.core import store as TS
+
+    dev = slabs.device
+    n, cap = N_FULL, BUCKET_CAP_FULL
+    rng = np.random.default_rng(seed + 23)
+    values = torch.tensor(rng.normal(size=(n, C_FULL, DIST_V))
+                          .astype(np.float32), device=dev)
+    store = TS.StoreState(keys=slabs, values=values,
+                          overflow=torch.zeros(n, dtype=torch.int64,
+                                               device=dev))
+    host = TS.StoreState(*(x.cpu() for x in (store.keys, store.values,
+                                             store.overflow)))
+    rows = lambda x: x.reshape(n, cap)
+    # the read round: GETs to their target; the write round: PUTs and
+    # DELs to a chain member, whose DEL hits are probed first
+    read_t = torch.where(opcodes == K.OP_GET, target, DS.DROP)
+    ops_w = torch.tensor(np.where(rng.random(B_FULL) < 0.5, K.OP_DEL,
+                                  K.OP_PUT).astype(np.int32), device=dev)
+    write_t = torch.where(opcodes != K.OP_GET, target, DS.DROP)
+    zeros_v = torch.zeros((), dtype=torch.float32,
+                          device=dev).expand(n, n * cap, DIST_V)
+    out = {"queries": n * n * cap, "shape": {"N": n, "C": C_FULL},
+           "parity": "bitwise"}
+    for rnd, tgt, ops in (("read", read_t, opcodes), ("del_probe", write_t,
+                                                      ops_w)):
+        slot, ovf = DS.bucketize(rows(tgt), n, cap)
+        if int(ovf.sum()):
+            raise AssertionError(f"K4a {rnd} round: a bucket overflowed")
+        bkeys, bop = (DS._a2a(DS.scatter_to_buckets(slot, rows(x), n * cap,
+                                                    fill), n)
+                      for x, fill in ((qkeys, K.EMPTY_KEY), (ops, K.OP_GET)))
+        q = R.QueryBatch(bop, bkeys, torch.zeros_like(bkeys), zeros_v)
+        live = bkeys != K.EMPTY_KEY
+        if rnd == "read":
+            mine = dict(read_mine=(bop == K.OP_GET) & live, del_mine=None)
+        else:
+            mine = dict(read_mine=None, del_mine=(bop == K.OP_DEL) & live)
+        call = lambda st, qq, m: TS.shards_read(
+            st, qq, m["read_mine"], max_scan_results=8, scans=False,
+            del_mine=m["del_mine"])
+        before = RMK.launches["slab_lookup"]
+        got = call(store, q, mine)
+        torch.cuda.synchronize()
+        if RMK.launches["slab_lookup"] - before != 1:
+            raise AssertionError(f"K4a {rnd} round: not one launch")
+        to_cpu = lambda m: {k: None if v is None else v.cpu()
+                            for k, v in m.items()}
+        want = call(host, R.QueryBatch(*(x.cpu() for x in (
+            q.opcode, q.key, q.end_key, q.value))), to_cpu(mine))
+        for f in ("value", "found"):
+            a, b = getattr(got, f).cpu(), getattr(want, f)
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"K4a {rnd} round: shards_read {f} on "
+                                     "the card differs from the CPU's")
+        # the round's one launch, flat, against the plain version
+        probe = mine["read_mine"] if rnd == "read" else mine["del_mine"]
+        fk = torch.where(probe, bkeys, K.EMPTY_KEY).reshape(-1).contiguous()
+        fnode = torch.arange(n, device=dev).repeat_interleave(n * cap)
+        k4 = lambda: RMK.slab_lookup(fk, fnode, slabs)
+        k4p = lambda: REF.slab_lookup_ref(fk, fnode, slabs)
+        for a, b in zip(k4(), k4p()):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"K4a {rnd} round: kernel disagrees "
+                                     "with its plain version")
+        out[rnd] = {"live": int(probe.sum()), "found": int(got.found.sum()),
+                    "ms": time_cuda(k4),
+                    "plain_ms": time_cuda(k4p, reps=5, warmup=1)}
+    return out
+
+
 def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
+    from repro_torch import prng
     from repro_torch.core import keys as TK
     from repro_torch.kernels.range_match import kernel as RMK
     from repro_torch.kernels.range_match import ops as OPS
@@ -511,6 +644,31 @@ def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
     K1rp = lambda: REF.range_match_ref(r_mvals, r_ops, r_lo, r_hi, r_chains,
                                        r_clen, num_slots=router.num_slots)
     r_S, r_rmax = router.num_slots, router.r_max
+    # phase dist's shapes: K2 / K3 a shard on its slice with its fold_in
+    # draws, K4a on a round of every shard's inbound buckets
+    Bl = B_FULL // N_FULL
+    pkey = prng.PRNGKey(seed)
+    draws = [OPS.p2c_draws(prng.fold_in(pkey, me), Bl, dev)
+             for me in range(N_FULL)]
+    sl = lambda x, me: x[me * Bl:(me + 1) * Bl].contiguous()
+    K2d = lambda me: RMK.range_match_spread(
+        sl(mvals, me), sl(opcodes, me), *draws[me], lo, hi, chains, clen,
+        loads, num_slots=directory.num_slots)
+    K2dp = lambda me: REF.range_match_spread_ref(
+        sl(mvals, me), sl(opcodes, me), *draws[me], lo, hi, chains, clen,
+        loads, num_slots=directory.num_slots)
+    K3d = lambda me: RMK.range_match_spread_dirty(
+        sl(ckeys, me), sl(ops_w, me), *draws[me], lo, hi, chains, clen,
+        loads, dirty, num_slots=directory.num_slots)
+    K3dp = lambda me: REF.range_match_spread_dirty_ref(
+        sl(ckeys, me), sl(ops_w, me), *draws[me], lo, hi, chains, clen,
+        loads, dirty, num_slots=directory.num_slots)
+    dist_checks = {
+        "range_match_spread": lambda: _dist_route_check(K2d, K2dp),
+        "range_match_spread_dirty": lambda: _dist_route_check(K3d, K3dp),
+        "slab_lookup": lambda: _dist_read_round_check(
+            RMK, REF, slabs, qkeys, target, opcodes, seed),
+    }
 
     # Bounds count the bytes the function needs (the port's
     # telemetry.profiler.route_bytes, which its roofline rows read too):
@@ -592,6 +750,8 @@ def phase_kernels(seed: int = 0, grid_study: bool = False) -> list[dict]:
                     raise AssertionError("range_match_stale: a controller "
                                          "copy took the exhaustive pass: "
                                          f"{extra['match']}")
+        if name in dist_checks and not extra.get("filter_bits"):
+            extra = {**extra, "dist_shape": dist_checks[name]()}
         RMK.launches[name] = before   # comparison launches do not count
         row = {"name": name, "route": "cuda",
                "source": "src/repro_torch/kernels/range_match/csrc/range_match.cu",
@@ -929,16 +1089,22 @@ PARITY_SLO = dict(name="p999_fleet", series="p999", bound=10.0,
 def _parity_driver(policy: str, device: str, fused: bool = True,
                    scenario: str = "shifting_hotspot", skw=None, n_epochs=6,
                    period=2, coord=None, ovl=None, pcfg=None, scfg=None,
-                   base=None, planes=None, **ckw):
+                   base=None, planes=None, dist=False, service=None, **ckw):
     """The parity phase's driver: the test configuration of
     ``tests/test_torch_epoch.py``, or ``scfg`` / ``base`` in place of its
     scenario / cluster knobs; ``ovl`` and ``pcfg`` are OverloadConfig and
     PolicyConfig knobs; ``planes`` TelemetryConfig knobs, which turn on
     the trace plane and the metrics plane (``PARITY_SLO``), their flight
-    dumps under ``OUT``."""
+    dumps under ``OUT``; ``dist`` the dist backend on an 8-shard mesh on
+    ``device``; ``service`` a ServiceModel kind."""
     from repro_torch import cluster as TC
     from repro_torch import coordination_tier as CT
     from repro_torch import overload as OVL
+    from repro_torch.core import ServiceModel
+    from repro_torch.core.dist_store import make_mesh
+
+    if service is not None:
+        ckw["service_model"] = ServiceModel(kind=service)
 
     if skw is None:
         skw = (dict(theta=1.2, shift_every=2)
@@ -952,7 +1118,8 @@ def _parity_driver(policy: str, device: str, fused: bool = True,
                         n_clients=16, imbalance_threshold=1.1,
                         max_moves_per_round=6)
     if planes is not None:
-        flight = OUT / "parity" / f"{scenario}_{policy}_{device}_{fused}"
+        flight = (OUT / "parity"
+                  / f"{scenario}_{policy}_{device}_{fused}_{int(dist)}")
         ckw.update(
             telemetry=TC.TelemetryConfig(**planes, flight_epochs=4,
                                          flight_dir=str(flight)),
@@ -966,7 +1133,8 @@ def _parity_driver(policy: str, device: str, fused: bool = True,
                            **ckw)
     drv = TC.EpochDriver(scen, TC.make_policy(
         policy, None if pcfg is None else TC.PolicyConfig(**pcfg)), cfg,
-        fused=fused, device=device)
+        fused=fused, device=device,
+        **(dict(backend="dist", mesh=make_mesh(8, device)) if dist else {}))
     return drv, drv.run()
 
 
@@ -1024,6 +1192,8 @@ def _same_run(a, b, snapshots: bool = True) -> None:
             raise AssertionError(f"final store {f} differs")
     if not torch.equal(da.directory.chains.cpu(), db.directory.chains.cpu()):
         raise AssertionError("directory.chains differ")
+    if not torch.equal(da.load_reg.cpu(), db.load_reg.cpu()):
+        raise AssertionError("load registers differ")
     for f in ("version", "acked", "key_filter"):
         if not torch.equal(getattr(da.repl, f).cpu(), getattr(db.repl, f).cpu()):
             raise AssertionError(f"replication register {f} differs")
@@ -1046,6 +1216,43 @@ def _same_run(a, b, snapshots: bool = True) -> None:
     if da.growth_events != db.growth_events:
         raise AssertionError("pool growth events differ")
     _same_planes(da, db, snapshots)
+
+
+# ROADMAP fault F14: the lognormal multiplier is within 4 ulp of the
+# reference's; card and CPU take its log1p and exp in float64 and round
+# once, so they may differ only where those roundings straddle
+F14_ULP = 4
+LATENCY_FIELDS = ("p50", "p99", "p999", "makespan", "throughput", "read_p99",
+                  "clean_read_p99")
+
+
+def _near_run(a, b) -> int:
+    """Two runs that may differ only in lognormal service draws (F14): every
+    other column equal, every latency column within F14's relative bound
+    (each latency is a sum of float32 service times, each within F14_ULP
+    of the other's, rounded to float32 once more); the store, registers
+    and chains are equal.  Returns the count of unequal latency values."""
+    import dataclasses
+
+    (da, ra), (db, rb) = a, b
+    tol = (F14_ULP + 1) * 2.0 ** -23
+    off = 0
+    for x, y in zip(ra, rb):
+        dx, dy = dataclasses.asdict(x), dataclasses.asdict(y)
+        for k in dx:
+            if k in LATENCY_FIELDS:
+                off += dx[k] != dy[k]
+                if abs(dx[k] - dy[k]) > tol * max(abs(dx[k]), abs(dy[k])):
+                    raise AssertionError(f"epoch {x.epoch}: {k} {dx[k]} vs "
+                                         f"{dy[k]} beyond F14")
+            elif dx[k] != dy[k]:
+                raise AssertionError(f"epoch {x.epoch}: {k} differs")
+    for f in ("keys", "values", "overflow"):
+        if not torch.equal(getattr(da.store, f).cpu(), getattr(db.store, f).cpu()):
+            raise AssertionError(f"final store {f} differs")
+    if not torch.equal(da.load_reg.cpu(), db.load_reg.cpu()):
+        raise AssertionError("load registers differ")
+    return off
 
 
 LAG1 = dict(n_switches=4, lag_per_hop=1)
@@ -1096,6 +1303,20 @@ PARITY_RUNS = (
     ("planes/overload/split_overflow", "overload_adaptive", "keyspace_growth",
      dict(GROW, ovl=OCFG, planes=dict(sample_rate=1 / 2, max_spans=64,
                                       link_retries=12))),
+    # the dist backend on an 8-shard mesh (tests/test_torch_dist_driver.py's
+    # cases): p2c with the overload plane and both observability planes;
+    # craq on YCSB-A; the lag-1 tier through a split brain; and a
+    # lognormal service, card against CPU within F14's bound
+    ("dist/overload/planes", "overload_adaptive", "shifting_hotspot",
+     dict(dist=True, ovl=OCFG, planes=dict(sample_rate=1 / 4, max_spans=64))),
+    ("dist/craq/full_adaptive", "full_adaptive", "ycsb_a",
+     dict(dist=True, replication_mode="craq")),
+    ("dist/coord/split_brain", "full_adaptive", "split_brain",
+     dict(dist=True, coord=LAG1,
+          skw=dict(theta=1.2, shift_every=2, split_epoch=2, heal_epoch=5,
+                   switch=1))),
+    ("dist/lognormal", "full_adaptive", "shifting_hotspot",
+     dict(dist=True, service="lognormal")),
 )
 
 
@@ -1113,8 +1334,14 @@ def phase_parity() -> dict:
         cuda_f = _parity_driver(policy, "cuda", True, scenario, **ckw)
         launches = {k: n for k, n in RMK.launches.items() if n}
         cpu_f = _parity_driver(policy, "cpu", True, scenario, **ckw)
-        _same_run(cuda_f, cpu_f)
-        res = {"cuda_vs_cpu": "bitwise", "epochs": len(cuda_f[1]),
+        if ckw.get("service") == "lognormal":
+            off = _near_run(cuda_f, cpu_f)
+            verdict = ("bitwise" if not off
+                       else f"within F14 ({off} latency values differ)")
+        else:
+            _same_run(cuda_f, cpu_f)
+            verdict = "bitwise"
+        res = {"cuda_vs_cpu": verdict, "epochs": len(cuda_f[1]),
                "host_syncs_fused": cuda_f[0].host_syncs,
                "dirty_reads": sum(r.dirty_reads for r in cuda_f[1]),
                "launches": launches}
@@ -1126,7 +1353,9 @@ def phase_parity() -> dict:
                  if ckw.get("replication_mode") == "craq"
                  else "range_match_spread")
             pen_epochs = [r.epoch + 1 for r in rows[:-1] if r.queue_peak]
-            if launches.get(k, 0) != len(rows) or not pen_epochs:
+            # the dist plane routes shard by shard: 8 launches an epoch
+            per_epoch = 8 if ckw.get("dist") else 1
+            if launches.get(k, 0) != per_epoch * len(rows) or not pen_epochs:
                 raise AssertionError(f"{label}: {k} launched "
                                      f"{launches.get(k, 0)}x in {len(rows)} "
                                      f"epochs, queue_pen epochs {pen_epochs}")
@@ -1159,6 +1388,12 @@ def phase_parity() -> dict:
                 raise AssertionError(f"{label}: no spans or no alert {res}")
             if "coord" in ckw and not res["bounced_spans"]:
                 raise AssertionError(f"{label}: no bounced or redirected span")
+        if ckw.get("dist"):
+            drv = cuda_f[0]
+            if drv.bucket_overflow_total or any(r.retries for r in cuda_f[1]):
+                raise AssertionError(f"{label}: bucket overflow")
+            if not launches.get("slab_lookup"):
+                raise AssertionError(f"{label}: no read round through K4a")
         if ckw.get("replication_mode") != "chain":
             # fused == per-epoch on the card (eventual and craq)
             cuda_e = _parity_driver(policy, "cuda", False, scenario, **ckw)
@@ -1428,110 +1663,224 @@ def _route_and_lookup_check(drv, scen) -> dict:
             "reads": reads}
 
 
-def phase_full_width() -> dict:
+def _full_run(label, sname, skw, policy, rep, mode, need, coord,
+              dist: bool = False) -> tuple:
+    """One full-width run of the epoch driver (the oracle backend, or the
+    dist backend on an 8-shard mesh with buckets of epoch_ops / N), its
+    gates checked: ``(res, drv, rows, scen)``."""
     from repro_torch import cluster as TC
     from repro_torch import coordination_tier as CT
+    from repro_torch.core.dist_store import DistConfig, make_mesh
     from repro_torch.kernels.range_match import kernel as RMK
 
+    read_ratio = {"read_ratio": 0.9} if sname != "ycsb_a" else {}
+    scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
+                             epoch_ops=B_FULL, n_epochs=6, seed=0,
+                             **read_ratio)
+    cfg = TC.ClusterConfig(num_nodes=N_FULL, num_ranges=RANGES_FULL,
+                           replication=rep, r_max=R_MAX, n_clients=64,
+                           replication_mode=mode,
+                           coordination=(None if coord is None
+                                         else CT.CoordConfig(**coord)))
+    scen = TC.make_scenario(sname, scfg, **skw)
+    dkw = (dict(backend="dist", mesh=make_mesh(N_FULL, "cuda"),
+                dist_cfg=DistConfig(bucket_cap=BUCKET_CAP_FULL))
+           if dist else {})
+    torch.cuda.reset_peak_memory_stats()
+    RMK.reset_launches()                       # counts of the main path
+    t0 = time.perf_counter()
+    drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=True,
+                         device="cuda", **dkw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows = drv.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(RMK.launches)
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} never launched")
+    drops = sum(r.drops for r in rows)
+    if drops:
+        raise AssertionError(f"{label}: {drops} capacity drops")
+    dirty_reads = sum(r.dirty_reads for r in rows)
+    if mode == "craq" and dirty_reads <= 0:
+        raise AssertionError(f"{label}: no dirty-read bounces")
+    for r in rows:
+        for f in ("p50", "p99", "p999", "throughput", "imbalance",
+                  "read_p99", "clean_read_p99"):
+            if not math.isfinite(getattr(r, f)) or getattr(r, f) < 0:
+                raise AssertionError(f"{label}: bad {f} at epoch {r.epoch}")
+    ss = drv.stage_seconds
+    res = {
+        "scenario": sname, "policy": policy, "replication": rep,
+        "mode": mode,
+        "setup_s": t1 - t0,
+        "run_s": t2 - t1,
+        "epochs_per_s": len(rows) / (t2 - t1),
+        "host_inject_s": ss.get("inject", 0.0),
+        "host_route_apply_enqueue_s": ss.get("route_apply", 0.0),
+        "host_des_s": ss.get("des", 0.0),
+        "host_control_s": ss.get("control", 0.0),
+        "device_step_s": drv.device_step_seconds,
+        "device_step_share": drv.device_step_seconds / (t2 - t1),
+        "host_syncs": drv.host_syncs,
+        "launches": launches,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "p50": [r.p50 for r in rows], "p99": [r.p99 for r in rows],
+        "p999": [r.p999 for r in rows],
+        "read_p99": [r.read_p99 for r in rows],
+        "clean_read_p99": [r.clean_read_p99 for r in rows],
+        "dirty_reads": [r.dirty_reads for r in rows],
+        "imbalance": [r.imbalance for r in rows],
+        "migration_entries": sum(r.migration_entries for r in rows),
+        "drops": drops,
+    }
+    if dist:
+        # buckets of epoch_ops / N: a source slice never overflows one, so
+        # every acknowledged write reaches every chain member
+        ovf = drv.bucket_overflow_total
+        if ovf or any(r.retries for r in rows):
+            raise AssertionError(f"{label}: bucket overflow {ovf}")
+        res.update(bucket_cap=BUCKET_CAP_FULL, bucket_overflow=ovf,
+                   bucket_overflow_by_epoch=[r.retries for r in rows],
+                   a2a_rounds=drv.exchange_rounds)
+    if coord is not None:
+        # once an epoch, redirects and never a wrong owner, conserved
+        if launches["range_match_stale"] != len(rows):
+            raise AssertionError(f"{label}: range_match_stale launched "
+                                 f"{launches['range_match_stale']}x in "
+                                 f"{len(rows)} epochs")
+        if not all(r.routed == r.direct + r.redirected == B_FULL
+                   for r in rows):
+            raise AssertionError(f"{label}: conservation broke")
+        red = [r.redirected for r in rows]
+        mis = [r.mis_served for r in rows]
+        if sum(red) <= 0 or any(mis):
+            raise AssertionError(f"{label}: redirected {red}, "
+                                 f"mis-served {mis}")
+        res.update(redirected=red, mis_served=mis,
+                   stale_switches=[r.stale_switches for r in rows],
+                   host_coord_control_s=ss.get("coord_control", 0.0),
+                   coord_summary=drv.coord_mgr.summary(),
+                   converged=drv.coord_mgr.converged(drv.coord))
+    return res, drv, rows, scen
+
+
+def _read_back_gate(label, drv, scen, rep) -> dict:
+    keys, expected = _expected_values(scen)
+    rb = _read_back(drv, keys, expected)
+    if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < rep * keys.size:
+        raise AssertionError(f"{label}: read-back failed {rb}")
+    return rb
+
+
+# phase 4's oracle frozen run (metric stream, and final store copied to
+# host memory, out of the later runs' device peaks), which the dist
+# phase's frozen run must equal bit for bit
+FROZEN_REF: dict = {}
+
+
+def _keep_frozen(drv, rows) -> None:
+    import dataclasses
+
+    FROZEN_REF.update(rows=[dataclasses.asdict(r) for r in rows],
+                      keys=drv.store.keys.cpu(), values=drv.store.values.cpu(),
+                      overflow=drv.store.overflow.cpu())
+
+
+def phase_full_width(keep_frozen: bool = False) -> dict:
+    """``keep_frozen``: keep the frozen run's stream and store for the dist
+    phase."""
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    _free_card()          # no earlier phase's garbage in the peaks
     out = {"phase": "full_width"}
     main_launches = {k: 0 for k in RMK.launches}
-    for label, sname, skw, policy, rep, mode, need, coord in FULL_RUNS:
-        read_ratio = {"read_ratio": 0.9} if sname != "ycsb_a" else {}
-        scfg = TC.ScenarioConfig(n_records=RECORDS_FULL, value_dim=256,
-                                 epoch_ops=B_FULL, n_epochs=6, seed=0,
-                                 **read_ratio)
-        cfg = TC.ClusterConfig(num_nodes=N_FULL, num_ranges=RANGES_FULL,
-                               replication=rep, r_max=R_MAX, n_clients=64,
-                               replication_mode=mode,
-                               coordination=(None if coord is None
-                                             else CT.CoordConfig(**coord)))
-        scen = TC.make_scenario(sname, scfg, **skw)
-        torch.cuda.reset_peak_memory_stats()
-        RMK.reset_launches()                       # counts of the main path
-        t0 = time.perf_counter()
-        drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=True,
-                             device="cuda")
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        rows = drv.run()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        launches = dict(RMK.launches)
-        for name in need:
-            if launches[name] <= 0:
-                raise AssertionError(f"{label}: kernel {name} never launched")
-        for name, n in launches.items():
+    for spec in FULL_RUNS:
+        label, sname, skw, policy, rep, mode, need, coord = spec
+        res, drv, rows, scen = _full_run(*spec)
+        for name, n in res["launches"].items():
             main_launches[name] += n
-        drops = sum(r.drops for r in rows)
-        if drops:
-            raise AssertionError(f"{label}: {drops} capacity drops")
-        dirty_reads = sum(r.dirty_reads for r in rows)
-        if mode == "craq" and dirty_reads <= 0:
-            raise AssertionError(f"{label}: no dirty-read bounces")
-        for r in rows:
-            for f in ("p50", "p99", "p999", "throughput", "imbalance",
-                      "read_p99", "clean_read_p99"):
-                if not math.isfinite(getattr(r, f)) or getattr(r, f) < 0:
-                    raise AssertionError(f"{label}: bad {f} at epoch {r.epoch}")
-        ss = drv.stage_seconds
-        res = {
-            "scenario": sname, "policy": policy, "replication": rep,
-            "mode": mode,
-            "setup_s": t1 - t0,
-            "run_s": t2 - t1,
-            "epochs_per_s": len(rows) / (t2 - t1),
-            "host_inject_s": ss.get("inject", 0.0),
-            "host_route_apply_enqueue_s": ss.get("route_apply", 0.0),
-            "host_des_s": ss.get("des", 0.0),
-            "host_control_s": ss.get("control", 0.0),
-            "device_step_s": drv.device_step_seconds,
-            "device_step_share": drv.device_step_seconds / (t2 - t1),
-            "host_syncs": drv.host_syncs,
-            "launches": launches,
-            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "p50": [r.p50 for r in rows], "p99": [r.p99 for r in rows],
-            "p999": [r.p999 for r in rows],
-            "read_p99": [r.read_p99 for r in rows],
-            "clean_read_p99": [r.clean_read_p99 for r in rows],
-            "dirty_reads": [r.dirty_reads for r in rows],
-            "imbalance": [r.imbalance for r in rows],
-            "migration_entries": sum(r.migration_entries for r in rows),
-            "drops": drops,
-        }
-        if coord is not None:
-            # once an epoch, redirects and never a wrong owner, conserved
-            if launches["range_match_stale"] != len(rows):
-                raise AssertionError(f"{label}: range_match_stale launched "
-                                     f"{launches['range_match_stale']}x in "
-                                     f"{len(rows)} epochs")
-            if not all(r.routed == r.direct + r.redirected == B_FULL
-                       for r in rows):
-                raise AssertionError(f"{label}: conservation broke")
-            red = [r.redirected for r in rows]
-            mis = [r.mis_served for r in rows]
-            if sum(red) <= 0 or any(mis):
-                raise AssertionError(f"{label}: redirected {red}, "
-                                     f"mis-served {mis}")
-            res.update(redirected=red, mis_served=mis,
-                       stale_switches=[r.stale_switches for r in rows],
-                       host_coord_control_s=ss.get("coord_control", 0.0),
-                       coord_summary=drv.coord_mgr.summary(),
-                       converged=drv.coord_mgr.converged(drv.coord))
         if mode == "craq":
             rl = _route_and_lookup_check(drv, scen)
             main_launches["range_match_apply"] += rl["launches"]["range_match_apply"]
             res["route_and_lookup"] = rl
-        keys, expected = _expected_values(scen)
-        rb = _read_back(drv, keys, expected)
-        if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < rep * keys.size:
-            raise AssertionError(f"{label}: read-back failed {rb}")
-        res.update(rb)
+        res.update(_read_back_gate(label, drv, scen, rep))
+        if label == "frozen" and keep_frozen:
+            _keep_frozen(drv, rows)
         # host stage times are taken without a synchronise (host_des_s
         # includes waiting for the period's device work); the device's
         # share is the steps' CUDA-event time
         out[label] = res
         del drv
-        torch.cuda.empty_cache()
+        _free_card()
+    out["launches"] = main_launches
+    emit(out)
+    return out
+
+
+def _free_card() -> None:
+    """Release a finished driver's tensors now: a driver can sit in a
+    reference cycle (its period program holds its bound methods), which
+    only the cycle collector frees, and the next run's peak memory must
+    not count it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase dist
+# ---------------------------------------------------------------------------
+
+# the dist backend at phase 4's full width: 8 shards on the card, buckets
+# of epoch_ops / N; (a) frozen, which must equal phase 4's oracle frozen
+# run bit for bit, (b) full_adaptive (K2 a shard), (c) craq on YCSB-A (K3
+# a shard), (d) the four-switch lag-1 tier through a split brain (K5)
+DIST_LABELS = ("frozen", "full_adaptive", "craq/full_adaptive",
+               "coord/split_brain")
+
+
+def phase_dist() -> dict:
+    import dataclasses
+
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    _free_card()          # no earlier phase's garbage in the peaks
+    out = {"phase": "dist", "shards": N_FULL, "bucket_cap": BUCKET_CAP_FULL}
+    if not FROZEN_REF:
+        # phase 4 did not run: its oracle frozen run, for (a)
+        spec = next(s for s in FULL_RUNS if s[0] == "frozen")
+        _, drv, rows, _ = _full_run(*spec)
+        _keep_frozen(drv, rows)
+        del drv
+        _free_card()
+    main_launches = {k: 0 for k in RMK.launches}
+    for spec in (s for s in FULL_RUNS if s[0] in DIST_LABELS):
+        label, sname, skw, policy, rep, mode, need, coord = spec
+        res, drv, rows, scen = _full_run(*spec, dist=True)
+        for name, n in res["launches"].items():
+            main_launches[name] += n
+        if policy != "frozen" and res["launches"][need[0]] != N_FULL * len(rows):
+            raise AssertionError(f"{label}: {need[0]} launched "
+                                 f"{res['launches'][need[0]]}x, not once a "
+                                 "shard and epoch")
+        if label == "frozen":
+            if [dataclasses.asdict(r) for r in rows] != FROZEN_REF["rows"]:
+                raise AssertionError("dist frozen: the metric stream differs "
+                                     "from phase 4's oracle run")
+            for f in ("keys", "values", "overflow"):
+                if not torch.equal(getattr(drv.store, f).cpu(), FROZEN_REF[f]):
+                    raise AssertionError(f"dist frozen: final store {f} "
+                                         "differs from phase 4's oracle run")
+            res["equals_oracle_frozen"] = "bitwise"
+            FROZEN_REF.clear()
+        res.update(_read_back_gate(label, drv, scen, rep))
+        out[label] = res
+        del drv
+        _free_card()
     out["launches"] = main_launches
     emit(out)
     return out
@@ -2242,9 +2591,11 @@ def main(argv=None) -> int:
                if "kernels" in phases else None)
     if "parity" in phases:
         phase_parity()
-    full = phase_full_width() if "full_width" in phases else None
+    full = (phase_full_width(keep_frozen="dist" in phases)
+            if "full_width" in phases else None)
     ovl = phase_overload() if "overload" in phases else None
     tel = phase_telemetry() if "telemetry" in phases else None
+    dist = phase_dist() if "dist" in phases else None
     serving = phase_serving() if "serving" in phases else None
     serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
     if "profile" in phases:
@@ -2256,11 +2607,12 @@ def main(argv=None) -> int:
         # at decode_32k and K7 over its 32,768-token prefill; their other
         # cases are in the kernels phase's own lines.  Launches: each main
         # path's count, read after its own run (the epoch driver's
-        # full-width runs, the qwen2 and mamba2 serving runs), in
+        # full-width runs on both backends, the qwen2 and mamba2 serving
+        # runs), in
         # launches_by_path; launches is their sum
         paths = {name: p["launches"] for name, p in
                  (("full_width", full), ("overload", ovl),
-                  ("telemetry", tel), ("serving", serving),
+                  ("telemetry", tel), ("dist", dist), ("serving", serving),
                   ("serving_ssm", serving_ssm))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")

@@ -53,8 +53,19 @@ with them off.  The spans ride the segment's one copy home; at each
 segment's end the host attributes them, feeds the flight recorder,
 folds the DES columns into the ring and evaluates the SLO burn rates.
 
-Not ported yet: the dist backend (raises ``NotImplementedError`` naming
-its ROADMAP item).  The coordination tier's fault events
+``backend="dist"`` runs the same epochs through the sharded data plane
+(:mod:`repro_torch.core.dist_store`) on a ``mesh`` of one storage node a
+shard, stacked on one device: each shard routes its slice of the batch
+(K1 for every slice at once under tail reads, K2 / K3 a shard under p2c,
+with draws of its own), one bounded-bucket exchange round serves the
+reads (K4a, one launch for every shard's inbound queries) and ``r_max``
+rounds carry the writes along the chain; the observe stage (op counts,
+sketch, overload step, tier accounting with K5, hop plans, register
+advance, spans, metrics row) is the oracle's, on the whole batch.  The
+fused loop runs each segment as one call of ``make_dist_period`` and
+brings its outputs home in one copy; ``EpochMetrics.retries`` is the
+first shard's bucket overflow, as the reference's replicated output
+reads it.  The coordination tier's fault events
 (``coordination_tier.EVENT_KINDS``) are ignored without the tier, so the
 same scenario is the no-tier baseline.
 """
@@ -93,7 +104,14 @@ from repro_torch.core.coordination import (
     ServiceModel,
     plan_hops,
 )
+from repro_torch.core.des import BACKENDS as DES_BACKENDS
 from repro_torch.core.des import simulate_closed_loop
+from repro_torch.core.dist_store import (
+    DistConfig,
+    stack_epochs,
+    make_dist_apply,
+    make_dist_period,
+)
 from repro_torch.core.migration import execute as execute_migrations
 from repro_torch.core.stats import make_sketch, pull_report, sketch_query, sketch_update
 from repro_torch.core.store import apply_routed, make_store
@@ -140,20 +158,21 @@ class ClusterConfig:
     seed: int = 0
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP, {item})"
-    )
-
-
-def _check_supported(cfg: ClusterConfig, backend: str) -> None:
-    if backend == "dist":
-        raise _not_ported("backend='dist'", "module-port step 11")
-    if backend != "oracle":
+def _check_supported(cfg: ClusterConfig, backend: str, mesh) -> None:
+    if backend not in ("oracle", "dist"):
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.des_backend not in (None, "auto", "native"):
+    if backend == "dist" and mesh is None:
+        raise ValueError("backend='dist' needs a mesh")
+    if backend == "dist" and cfg.craq_filter_bits:
         raise ValueError(
-            f"DES backend {cfg.des_backend!r}: the port runs the native core only"
+            "craq_filter_bits is an oracle-backend measurement "
+            "feature; the dist data plane keeps slot-granular "
+            "bouncing"
+        )
+    if cfg.des_backend not in (None, "auto") + DES_BACKENDS:
+        raise ValueError(
+            f"DES backend {cfg.des_backend!r}: pick one of {DES_BACKENDS} "
+            "or auto (native, else the heapq oracle)"
         )
 
 
@@ -216,12 +235,20 @@ class EpochDriver:
 
     def __init__(self, scenario: Scenario, policy: Policy,
                  cfg: ClusterConfig | None = None, *, backend: str = "oracle",
+                 mesh=None, dist_cfg: DistConfig | None = None,
                  fused: bool = True, device=None):
         self.scenario = scenario
         self.policy = policy
         self.cfg = cfg = cfg or ClusterConfig()
-        _check_supported(cfg, backend)
+        _check_supported(cfg, backend, mesh)
         self.device = resolve_device(device)
+        if backend == "dist" and (
+                mesh.device != self.device
+                or mesh.shape[(dist_cfg or DistConfig()).axis] != cfg.num_nodes):
+            raise ValueError(
+                f"mesh of {mesh.n_shards} shards on {mesh.device}: the dist "
+                f"backend holds one storage node a shard ({cfg.num_nodes}) "
+                f"on the driver's device ({self.device})")
         self.backend = backend
         self.fused = fused
         self.mode_plan = RPL.resolve_mode(
@@ -371,6 +398,29 @@ class EpochDriver:
         self._event_epochs = {
             e for e in range(scfg.n_epochs) if scenario.events(e)
         }
+        # the dist backend: the sharded data plane, one epoch a call
+        # (per-epoch loop) or a segment a call (fused loop); the bucket
+        # overflow of every source shard, summed over the run
+        self._mesh = mesh
+        self._dist_apply = self._period_fn = None
+        self.bucket_overflow_total = 0
+        self.exchange_rounds = 0    # the dist plane's a2a rounds run
+        if backend == "dist":
+            self._dist_cfg = dataclasses.replace(
+                dist_cfg or DistConfig(),
+                read_spread=self.mode_plan.spread,
+                return_decision=True,
+                replication_mode=cfg.replication_mode,
+                max_scan_results=cfg.max_scan_results,
+                queue_pen=(cfg.overload is not None
+                           and cfg.overload.queue_weight > 0
+                           and self.mode_plan.spread),
+            )
+            if fused:
+                self._period_fn = self._build_dist_period()
+            else:
+                self._dist_apply = make_dist_apply(mesh, directory,
+                                                   self._dist_cfg)
         self._preload()
 
     # -- host-side helpers -------------------------------------------------
@@ -379,16 +429,15 @@ class EpochDriver:
         """Host wall seconds by pipeline stage (the stage timers' totals)."""
         return self.timers.totals
 
-    def _timed_step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool,
-                    eid: int):
-        """:meth:`_step` between two CUDA events on the current stream
-        (recording them does not block the host)."""
+    def _timed(self, fn, *args, **kw):
+        """``fn(*args, **kw)`` (a device step) between two CUDA events on
+        the current stream (recording them does not block the host)."""
         if self.device.type != "cuda":
-            return self._step(q, rng, scans, eid)
+            return fn(*args, **kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self._step(q, rng, scans, eid)
+        out = fn(*args, **kw)
         end.record()
         self._step_events.append((start, end))
         return out
@@ -460,44 +509,33 @@ class EpochDriver:
             dec, self.directory = R.route(self.directory, q)
         return dec, None, None
 
-    def _step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool, eid: int):
-        """One epoch's device work (shared verbatim by the per-epoch and
-        the fused loops).  ``scans``: the batch holds a SCAN (known on the
-        host from the generated opcodes); ``eid``: the epoch, at which the
-        tier's staged tables install.  Updates the carries in place or by
-        rebinding; returns ``(plan, node_ops, bounced, cstats, ostats)``,
-        ``bounced`` None outside craq, ``cstats`` (5,) None without the
-        tier, ``ostats`` (7,) int32 None without the overload plane; with
-        the trace plane a last item, the span table ``(span_i, span_f,
-        counts)`` (None without it).  With the metrics plane the step also
-        writes the epoch's ring row."""
-        cfg = self.cfg
-        N = cfg.num_nodes
+    def _pre(self, repl, ovl):
+        """The routing inputs derived from the pre-epoch state: ``(dirty,
+        queue_pen)``.  Reads consult the PRE-epoch dirty bits, as they
+        observe the pre-batch store; deep queues repel p2c reads (the
+        pre-epoch queue depths join the load registers in the pick
+        comparison, the registers bump raw)."""
         mp = self.mode_plan
-        spread = mp.spread
-        chunks = cfg.p2c_chunks if spread else 1
         ocfg = self.ovl_cfg
-        if ocfg is not None:
-            # fold_in, not a wider split: the routing and hop-plan streams
-            # stay those of the plane switched off
-            r_ovl = prng.fold_in(rng, 0x0F10AD)
-        r_route, r_plan = prng.split(rng)
-        B = q.batch
-        # deep queues repel p2c reads: the pre-epoch queue depths join the
-        # load registers in the pick comparison (the registers bump raw)
         queue_pen = None
-        if ocfg is not None and ocfg.queue_weight > 0 and spread:
-            queue_pen = K.mul32(self.ovl.queue.to(torch.int64),
+        if ocfg is not None and ocfg.queue_weight > 0 and mp.spread:
+            queue_pen = K.mul32(ovl.queue.to(torch.int64),
                                 ocfg.queue_weight & K.MASK32)
-        # reads consult the PRE-epoch dirty state, as they observe the
-        # pre-batch store
-        dirty = RPL.dirty_bits(self.repl) if mp.dirty_reads else None
+        dirty = RPL.dirty_bits(repl) if mp.dirty_reads else None
+        return dirty, queue_pen
+
+    def _oracle_route_apply(self, q: R.QueryBatch, r_route: np.ndarray,
+                            dirty, queue_pen, scans: bool):
+        """Route the batch (in ``p2c_chunks`` sub-chunks with load-register
+        updates between them under p2c) and apply it to the store:
+        ``(decision, picked, bounced)``."""
+        cfg = self.cfg
+        mp = self.mode_plan
+        chunks = cfg.p2c_chunks if mp.spread else 1
         kf = (self.repl.key_filter
               if mp.dirty_reads and cfg.craq_filter_bits else None)
         if chunks > 1:
-            # intra-epoch p2c freshness: route the batch in sub-chunks with
-            # load-register updates between them
-            csize = B // chunks
+            csize = q.batch // chunks
             parts = []
             for ci in range(chunks):
                 sl = slice(ci * csize, (ci + 1) * csize)
@@ -517,68 +555,163 @@ class EpochDriver:
         else:
             decision, picked, bounced = self._route_chunk(
                 q, r_route, dirty, kf, queue_pen)
-        node_ops = _node_ops(decision, q.opcode, N)
-        if not spread:
-            # tail-read path: registers tracked in the same units
-            self.load_reg = K.u32(self.load_reg + node_ops)
-        self.sketch = sketch_update(self.sketch, q.key)
         apply_routed(self.store, q, decision,
                      max_scan_results=cfg.max_scan_results, scans=scans)
+        return decision, picked, bounced
+
+    def _dist_route_apply(self, q: R.QueryBatch, r_route: np.ndarray, dirty,
+                          queue_pen, scans: bool):
+        """One epoch through the sharded data plane (``make_dist_apply``):
+        ``(decision, picked, bounced, bucket_overflow)``, the last the
+        (n,) counts of every source shard."""
+        mp = self.mode_plan
+        fn = self._dist_apply
+        qp = (queue_pen,) if self._dist_cfg.queue_pen else ()
+        kw = dict(scans=scans, write_rounds=self._write_rounds())
+        if mp.dirty_reads:
+            (self.store, _resp, self.directory, self.load_reg, m) = fn(
+                self.store, self.directory, self.load_reg, *qp, dirty, q,
+                r_route, **kw)
+        elif mp.spread:
+            (self.store, _resp, self.directory, self.load_reg, m) = fn(
+                self.store, self.directory, self.load_reg, *qp, q, r_route,
+                **kw)
+        else:
+            self.store, _resp, self.directory, m = fn(
+                self.store, self.directory, q, **kw)
+        self.exchange_rounds += int(m["a2a_rounds"])   # a host count
+        decision = R.RoutingDecision(
+            ridx=m["ridx"], target=m["target"], chain=m["chain"],
+            chain_len=m["chain_len"], clength=torch.zeros_like(m["target"]))
+        return (decision, m.get("picked"), m.get("bounced"),
+                m["bucket_overflow_shards"])
+
+    def _write_rounds(self) -> int:
+        """The longest chain of any slot, from the controller's host
+        tables (which the device directory follows between pulls): the
+        dist plane's write rounds past it would be empty."""
+        return int(self.controller.chain_lengths().max())
+
+    def _step(self, q: R.QueryBatch, rng: np.ndarray, scans: bool, eid: int):
+        """One epoch's device work, for both backends and both loops.
+        ``scans``: the batch holds a SCAN (known on the host from the
+        generated opcodes); ``eid``: the epoch, at which the tier's staged
+        tables install.  Updates the carries; returns ``(plan, node_ops,
+        bounced, cstats, ostats, spans, bucket_overflow)``: ``bounced``
+        None outside craq, ``cstats`` (5,) None without the tier,
+        ``ostats`` (7,) int32 None without the overload plane, ``spans``
+        the trace plane's span table ``(span_i, span_f, counts)`` (None
+        without it), ``bucket_overflow`` the dist backend's (n,) per-shard
+        counts (None on the oracle).  With the metrics plane the step also
+        writes the epoch's ring row."""
+        mp = self.mode_plan
+        # fold_in, not a wider split: the routing and hop-plan streams stay
+        # those of the overload plane switched off
+        r_ovl = (prng.fold_in(rng, 0x0F10AD) if self.ovl_cfg is not None
+                 else rng)
+        r_route, r_plan = prng.split(rng)
+        dirty, queue_pen = self._pre(self.repl, self.ovl)
+        bucket_ovf = None
+        if self.backend == "dist":
+            decision, picked, bounced, bucket_ovf = self._dist_route_apply(
+                q, r_route, dirty, queue_pen, scans)
+        else:
+            decision, picked, bounced = self._oracle_route_apply(
+                q, r_route, dirty, queue_pen, scans)
+        if not mp.dirty_reads:
+            # placeholders keep observe's signature mode-independent
+            picked = decision.target
+            bounced = torch.zeros(q.batch, dtype=torch.bool,
+                                  device=self.device)
+        (self.sketch, plan, node_ops, self.repl, self.ovl, self.coord,
+         self.metrics, ostats, cstats, spans) = self._observe_epoch(
+            q, decision.ridx, decision.target, decision.chain,
+            decision.chain_len, self.sketch, r_plan, self.repl, picked,
+            bounced, self.ovl, r_ovl, eid, self.coord, self.metrics)
+        if not mp.spread:
+            # tail-read path: registers tracked in the same units
+            self.load_reg = K.u32(self.load_reg + node_ops)
+        return (plan, node_ops, bounced if mp.dirty_reads else None, cstats,
+                ostats, spans, bucket_ovf)
+
+    def _observe_epoch(self, q, ridx, target, chain, chain_len, sketch, rng,
+                       repl, picked, bounced, ovl, r_ovl, eid, coord,
+                       metrics):
+        """The observe stage: everything after the route and the store
+        apply, on the whole batch's decision (per-node op counts, the
+        sketch, the overload step, the tier's accounting, the hop plan,
+        the register advance, the span table, the metrics row).  A pure
+        function of its arguments, shared by both backends and by the
+        per-epoch and period loops (the reference's dist observe)::
+
+            -> (sketch, plan, node_ops, repl, ovl, coord, metrics,
+                ostats, cstats, spans)
+
+        The overload step decides each query's timing fate (the store
+        applied every op regardless); its pre-step state is the admission
+        context the span table records.  The switch tier observes the
+        batch against its (possibly stale) copies: accounting only, the
+        decision followed the true tables, so the tier reprices hops and
+        counts."""
+        cfg = self.cfg
+        N = cfg.num_nodes
+        mp = self.mode_plan
+        ocfg = self.ovl_cfg
+        tcfg = self.tel_cfg
+        dev = self.device
+        decision = R.RoutingDecision(ridx=ridx, target=target, chain=chain,
+                                     chain_len=chain_len,
+                                     clength=torch.zeros_like(target))
+        node_ops = _node_ops(decision, q.opcode, N)
+        sketch = sketch_update(sketch, q.key)
         bounce_kw = (dict(read_via=picked, read_bounce=bounced)
                      if mp.dirty_reads else {})
-        # the overload step decides each query's timing fate (the store
-        # above applied every op regardless); its pre-step state is the
-        # admission context the span table records
-        tcfg = self.tel_cfg
         ostats = outcome = scale = first_epoch = None
-        ovl_pre = self.ovl
+        ovl_pre = ovl
         if ocfg is not None:
-            self.ovl, rejected, scale, outcome, ostats = OVL.step(
-                self.ovl, decision.target, r_ovl, ocfg)
+            ovl, rejected, scale, outcome, ostats = OVL.step(
+                ovl, target, r_ovl, ocfg)
             bounce_kw.update(shed=rejected, service_scale=scale)
             if tcfg is not None:
                 # cross-epoch retry linking: stamp / clear the hashed
                 # orbit-identity register (a no-op at the placeholder)
-                self.ovl, first_epoch = OVL.link_orbit(
-                    self.ovl, q.key, rejected,
-                    outcome == OVL.OUTCOME_ADMITTED, eid)
-        # the switch tier observes the batch against its (possibly stale)
-        # copies: accounting only, the decision above followed the true
-        # tables, so the tier reprices hops and counts
+                ovl, first_epoch = OVL.link_orbit(
+                    ovl, q.key, rejected, outcome == OVL.OUTCOME_ADMITTED,
+                    eid)
         cstats = redirect = None
         if self.coord_cfg is not None:
-            self.coord, redirect, redirect_via, cstats = CT.observe_epoch(
-                self.coord, q, decision, eid, quorum=self.coord_cfg.quorum,
+            coord, redirect, redirect_via, cstats = CT.observe_epoch(
+                coord, q, decision, eid, quorum=self.coord_cfg.quorum,
                 hash_partitioned=self.directory.hash_partitioned,
             )
             bounce_kw.update(redirect=redirect, redirect_via=redirect_via)
         plan = plan_hops(
-            q, decision, cfg.mode, cfg.latency, rng=r_plan, num_nodes=N,
-            write_chain_cap=mp.write_cap_spread if spread else None,
+            q, decision, cfg.mode, cfg.latency, rng=rng, num_nodes=N,
+            write_chain_cap=mp.write_cap_spread if mp.spread else None,
             service_model=cfg.service_model, **bounce_kw,
         )
         if mp.track_state:
             is_write = (q.opcode == K.OP_PUT) | (q.opcode == K.OP_DEL)
-            self.repl = RPL.advance(
-                self.repl, decision.ridx, is_write,
+            repl = RPL.advance(
+                repl, ridx, is_write,
                 keys=q.key if cfg.craq_filter_bits else None)
         spans = None
         if tcfg is not None:
             spans = self._spans(q, eid, decision, picked, bounced, redirect,
                                 ovl_pre, outcome, scale, first_epoch, plan)
-        if self.metrics is not None:
+        if metrics is not None:
             # end-of-epoch state: post-step ovl, post-observe coord,
             # post-advance repl (like the flight ring's snapshots)
-            dev = self.device
-            self.metrics = MTR.record_epoch(
-                self.metrics, node_ops=node_ops, ovl=self.ovl,
+            metrics = MTR.record_epoch(
+                metrics, node_ops=node_ops, ovl=ovl,
                 ostats=(ostats if ostats is not None else torch.zeros(
                     len(OVL.STAT_FIELDS), dtype=torch.int32, device=dev)),
                 cstats=(cstats if cstats is not None
                         else CT.empty_cstats(dev)),
-                coord=self.coord, repl=self.repl, sketch=self.sketch,
-                keys=q.key, ridx=decision.ridx, topk=self.met_layout.topk)
-        return plan, node_ops, bounced, cstats, ostats, spans
+                coord=coord, repl=repl, sketch=sketch,
+                keys=q.key, ridx=ridx, topk=self.met_layout.topk)
+        return (sketch, plan, node_ops, repl, ovl, coord, metrics, ostats,
+                cstats, spans)
 
     def _spans(self, q, eid, decision, picked, bounced, redirect, ovl_pre,
                outcome, scale, first_epoch, plan):
@@ -591,11 +724,7 @@ class EpochDriver:
         B = q.batch
         N = self.cfg.num_nodes
         dev = self.device
-        if bounced is None:
-            bounced = torch.zeros(B, dtype=torch.bool, device=dev)
         span_bounced = bounced if redirect is None else bounced | redirect
-        if picked is None:
-            picked = decision.target
         if ovl_pre is not None:
             t_safe = torch.clamp(decision.target, 0, N - 1)
             qdepth = ovl_pre.queue[t_safe]
@@ -614,6 +743,15 @@ class EpochDriver:
             scale, plan, threshold=self._tel_threshold,
             k_slots=self.tel_cfg.max_spans, lookup=self.cfg.latency.lookup,
             first_epoch=first_epoch)
+
+    def _build_dist_period(self):
+        """The fused dist period program (``make_dist_period``): the
+        bucket plane and the observe stage, epoch after epoch, with the
+        routing inputs derived from the carried state in between."""
+        return make_dist_period(
+            self._mesh, self.directory, self._dist_cfg, pre=self._pre,
+            observe=self._observe_epoch,
+            fold_ovl=self.ovl_cfg is not None)
 
     # -- control -----------------------------------------------------------
     def _handle_events(self, e: int) -> tuple[list[str], int, int]:
@@ -865,14 +1003,17 @@ class EpochDriver:
     def _rows(self, e0: int, lat: np.ndarray, mks: np.ndarray,
               node_ops_h: np.ndarray, ovf_h: np.ndarray, opcodes_h: np.ndarray,
               bounced_h: np.ndarray | None, cst_h: np.ndarray | None,
-              ost_h: np.ndarray | None, head: tuple) -> list[EpochMetrics]:
+              ost_h: np.ndarray | None, bov_h: np.ndarray | None,
+              head: tuple) -> list[EpochMetrics]:
         """EpochMetrics rows for a segment of ``L`` epochs, computed before
         the period's pull (the live mask is the segment's); ``bounced_h``
         is the (L, B) craq tail-bounce mask (None outside craq), ``cst_h``
         the (L, 5) tier counters (None without the tier), which also set
         the redirect share the pull's backoff reads, ``ost_h`` the (L, 7)
-        overload counters (None without the plane); ``head`` carries the
-        segment-start events and migration traffic."""
+        overload counters (None without the plane), ``bov_h`` the dist
+        backend's (L, n) bucket overflow per source shard (None on the
+        oracle; the rows' ``retries`` is the first shard's); ``head``
+        carries the segment-start events and migration traffic."""
         cfg = self.cfg
         scfg = self.scenario.cfg
         L = lat.shape[0]
@@ -886,6 +1027,10 @@ class EpochDriver:
                                              / seg_routed)
         if ost_h is None:
             ost_h = np.zeros((L, len(OVL.STAT_FIELDS)), np.int64)
+        retries = np.zeros(L, np.int64)
+        if bov_h is not None:
+            retries = bov_h[:, 0].astype(np.int64)
+            self.bucket_overflow_total += int(bov_h.sum())
         p50s, p99s = latency_percentiles_batch(lat)
         p999s = p999_batch(lat)
         is_read = (opcodes_h == K.OP_GET) | (opcodes_h == K.OP_SCAN)
@@ -915,7 +1060,7 @@ class EpochDriver:
                 migration_entries=mig_entries,
                 migration_bytes=mig_bytes,
                 drops=int(drops[i]),
-                retries=0,          # bucket overflows exist on dist only
+                retries=int(retries[i]),
                 compiled_steps=1 + self.growth_events,
                 events=events,
                 p999=float(p999s[i]),
@@ -957,7 +1102,7 @@ class EpochDriver:
         out = simulate_closed_loop(
             plan, n_clients=cfg.n_clients, num_nodes=cfg.num_nodes,
             link=cfg.latency.link, return_issue=self.telemetry is not None,
-            return_hops=self.telemetry is not None,
+            return_hops=self.telemetry is not None, backend=cfg.des_backend,
         )
         latency, makespan, *extra = out
         issue, hops = extra if extra else (None, None)
@@ -1059,9 +1204,9 @@ class EpochDriver:
         t0 = self.timers.lap("control", t0)
         opcodes, q = self._queries(e)
         t0 = self.timers.lap("inject", t0)
-        plan, node_ops, bounced, cstats, ostats, spans = self._timed_step(
-            q, prng.fold_in(self.key, e), bool((opcodes == K.OP_SCAN).any()),
-            e)
+        plan, node_ops, bounced, cstats, ostats, spans, bovf = self._timed(
+            self._step, q, prng.fold_in(self.key, e),
+            bool((opcodes == K.OP_SCAN).any()), e)
         self.timers.block(self.device)
         t0 = self.timers.lap("route_apply", t0)
         self.host_syncs += 1   # the DES engine pulls the plan to the host
@@ -1072,9 +1217,11 @@ class EpochDriver:
         bounced_h = None if bounced is None else self._sync(bounced)[None]
         cst_h = None if cstats is None else self._sync(cstats)[None]
         ost_h = None if ostats is None else self._sync(ostats)[None]
+        bov_h = None if bovf is None else self._sync(bovf)[None]
         self._fold_step_events()
         (row,) = self._rows(e, lat[None], mks, node_ops_h, ovf_h,
-                            opcodes[None], bounced_h, cst_h, ost_h, head)
+                            opcodes[None], bounced_h, cst_h, ost_h, bov_h,
+                            head)
         pulled = ((e + 1) == self._next_pull if self.auto_period
                   else (e + 1) % self.period == 0)
         if pulled:
@@ -1099,52 +1246,97 @@ class EpochDriver:
                 return e2 - e0
         return max(end - e0, 1)
 
+    def _oracle_segment(self, e0: int, L: int, t0: float):
+        """The segment's epochs one device step after another, each batch
+        generated just before its step: the stacked outputs (as
+        :meth:`_dist_segment`) and the stage clock."""
+        outs, op_l = [], []
+        for i in range(L):
+            opcodes, q = self._queries(e0 + i)
+            t0 = self.timers.lap("inject", t0)
+            op_l.append(opcodes)
+            plan, node_ops, bounced, cstats, ostats, spans, _ = self._timed(
+                self._step, q, prng.fold_in(self.key, e0 + i),
+                bool((opcodes == K.OP_SCAN).any()), e0 + i)
+            self.timers.block(self.device)
+            outs.append((plan, node_ops, None, self.store.overflow.sum(),
+                         bounced, ostats, cstats, spans))
+            t0 = self.timers.lap("route_apply", t0)
+        return [stack_epochs([o[k] for o in outs]) for k in range(8)], op_l, t0
+
+    def _dist_segment(self, e0: int, L: int, t0: float):
+        """The segment through the fused dist period program in one call.
+        Its batches come from a generator, so each is made while the
+        device runs the epoch before it (as in the oracle loop); on CUDA
+        the generator also records each epoch's pair of step events
+        around the device work the program enqueues for it."""
+        op_l, scans = [], []
+        clock = [t0]
+        cuda = self.device.type == "cuda"
+
+        def step_event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def batches():
+            start = None
+            for e in range(e0, e0 + L):
+                # the previous epoch's enqueue, then this batch
+                if start is not None:
+                    self._step_events.append((start, step_event()))
+                clock[0] = self.timers.lap("route_apply", clock[0])
+                opcodes, q = self._queries(e)
+                op_l.append(opcodes)
+                scans.append(bool((opcodes == K.OP_SCAN).any()))
+                clock[0] = self.timers.lap("inject", clock[0])
+                start = step_event() if cuda else None
+                yield q
+            if start is not None:
+                self._step_events.append((start, step_event()))
+
+        (self.store, self.directory, self.load_reg, self.sketch, self.repl,
+         self.ovl, self.coord, self.metrics, rounds, *outs) = self._period_fn(
+            self.store, self.directory, self.load_reg, self.sketch,
+            self.repl, self.ovl, self.coord, self.metrics, batches(),
+            [prng.fold_in(self.key, e) for e in range(e0, e0 + L)],
+            list(range(e0, e0 + L)), scans=scans,
+            write_rounds=self._write_rounds())
+        self.exchange_rounds += rounds
+        self.timers.block(self.device)
+        t0 = self.timers.lap("route_apply", clock[0])
+        return outs, op_l, t0
+
     def _run_segment(self, e0: int, n: int) -> list[EpochMetrics]:
         t0 = time.perf_counter()
         head = self._handle_events(e0)
         t0 = self.timers.lap("control", t0)
         L = self._segment_len(e0, n)
-        plans, nops, ovfs, bncs, csts, osts, op_l = [], [], [], [], [], [], []
-        spns = []
-        for i in range(L):
-            opcodes, q = self._queries(e0 + i)
-            t0 = self.timers.lap("inject", t0)
-            op_l.append(opcodes)
-            plan, node_ops, bounced, cstats, ostats, spans = self._timed_step(
-                q, prng.fold_in(self.key, e0 + i),
-                bool((opcodes == K.OP_SCAN).any()), e0 + i)
-            self.timers.block(self.device)
-            plans.append(plan)
-            nops.append(node_ops)
-            ovfs.append(self.store.overflow.sum())
-            bncs.append(bounced)
-            csts.append(cstats)
-            osts.append(ostats)
-            spns.append(spans)
-            t0 = self.timers.lap("route_apply", t0)
+        seg = self._dist_segment if self._period_fn is not None else (
+            self._oracle_segment)
+        (plans, nops, bovf, ovfs, bncs, osts, csts, spns), op_l, t0 = seg(
+            e0, L, t0)
         # ---- ONE device-to-host copy for the whole segment ----
         self.host_syncs += 1
-        # (the overload counters, the registers a pull reads and the span
-        # tables ride it)
+        # (the overload counters, the registers a pull reads, the span
+        # tables and the dist backend's bucket overflow ride it)
         craq = self.mode_plan.dirty_reads
         tier = self.coord is not None
         ovl = self.ovl is not None
         traced = self.telemetry is not None
+        dist = bovf is not None
         nodes, service, reply, node_ops_h, ovf_h, *extra = _to_host([
-            torch.stack([p.nodes for p in plans]),
-            torch.stack([p.service for p in plans]),
-            torch.stack([p.reply_links for p in plans]),
-            torch.stack(nops),
-            torch.stack(ovfs),
-            *([torch.stack(bncs)] if craq else []),
-            *([torch.stack(csts)] if tier else []),
-            *([torch.stack(osts), *self._ovl_view()] if ovl else []),
-            *([torch.stack([sp[k] for sp in spns]) for k in range(3)]
-              if traced else []),
+            plans.nodes, plans.service, plans.reply_links, nops, ovfs,
+            *([bncs] if craq else []),
+            *([csts] if tier else []),
+            *([osts, *self._ovl_view()] if ovl else []),
+            *([bovf] if dist else []),
+            *(spns if traced else []),
         ])
         spans_h = tuple(extra[-3:]) if traced else None
         if traced:
             del extra[-3:]
+        bov_h = extra.pop() if dist else None
         bounced_h = extra.pop(0) if craq else None
         cst_h = extra.pop(0) if tier else None
         ost_h = extra.pop(0) if ovl else None
@@ -1155,7 +1347,7 @@ class EpochDriver:
                                                    torch.from_numpy(reply)))
         t0 = self.timers.lap("des", t0)
         rows = self._rows(e0, lat, mks, node_ops_h, ovf_h, np.stack(op_l),
-                          bounced_h, cst_h, ost_h, head)
+                          bounced_h, cst_h, ost_h, bov_h, head)
         pulled = ((e0 + L) == self._next_pull if self.auto_period
                   else (e0 + L) % self.period == 0)
         if pulled:

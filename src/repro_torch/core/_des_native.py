@@ -2,8 +2,10 @@
 also holds the float32 power of the Pareto service draw (:func:`powf`).
 
 Compiled once per source hash with the system C compiler into
-``_native_cache/`` next to this file, and bound with ctypes.  There is
-no other backend: if the core cannot be built, :func:`load` raises.
+``_native_cache/`` next to this file, and bound with ctypes.  If the core
+cannot be built, :func:`load` raises and :func:`available` says so (with
+the reason in :func:`unavailable_reason`); the engine then falls back to
+the heapq oracle (:mod:`repro_torch.core.des`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ _SRC = Path(__file__).with_name("des_core.c")
 _CACHE = Path(__file__).parent / "_native_cache"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_error: str | None = None
 
 _ARGTYPES = [
     ctypes.c_void_p,  # nodes (S,B,H) int32
@@ -70,6 +73,24 @@ def powf(u: np.ndarray, e: float) -> np.ndarray:
     load().des_powf(u.ctypes.data, float(np.float32(e)), out.ctypes.data,
                     u.size)
     return out
+
+
+def available() -> bool:
+    """Whether the core builds and loads here (tried once, then cached)."""
+    global _error
+    if _lib is not None:
+        return True
+    if _error is None:
+        try:
+            load()
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            _error = f"{type(e).__name__}: {e}"
+    return _lib is not None
+
+
+def unavailable_reason() -> str | None:
+    """Why :func:`available` is false (None when it is true or untried)."""
+    return None if _lib is not None else _error
 
 
 def load() -> ctypes.CDLL:

@@ -40,24 +40,29 @@ class LatencyModel:
 
 @dataclasses.dataclass(frozen=True)
 class ServiceModel:
-    """Per-hop mean-one service multiplier: ``fixed`` or ``pareto``.
-    ``lognormal`` needs ``prng.normal``, which is not ported yet."""
+    """Per-hop mean-one service multiplier: ``fixed``, ``lognormal`` or
+    ``pareto``.  The Pareto draw is the reference's bit for bit; the
+    lognormal one is within ROADMAP fault F14's bound of it (the normal
+    draw's log1p and the final exp are torch's, see :meth:`draw`)."""
 
     kind: str = "fixed"
     sigma: float = 0.6
     alpha: float = 2.2
 
-    def __post_init__(self):
-        if self.kind == "lognormal":
-            raise NotImplementedError(
-                "ServiceModel('lognormal') needs prng.normal "
-                "(ROADMAP, module-port step 1)"
-            )
-
     def draw(self, rng: np.ndarray, shape: tuple[int, ...], device) -> torch.Tensor:
         """(shape) float32 mean-one service multipliers."""
         if self.kind == "fixed":
             return torch.ones(shape, dtype=torch.float32, device=device)
+        if self.kind == "lognormal":
+            # exp(sigma * z - sigma^2 / 2) as the reference's compiled
+            # step computes it: z = sqrt(2) * erf_inv(u), the two constant
+            # factors folded into one, f32(sqrt(2)) * f32(sigma), and the
+            # argument one fused multiply-add; the exp is taken in float64
+            # and rounded once (the same bits on every device)
+            e = prng.normal_erf_inv(rng, shape, device)
+            k = prng.SQRT2_F32 * np.float32(self.sigma)
+            arg = prng.fma_f32(e, k, -np.float32(0.5 * self.sigma * self.sigma))
+            return torch.exp(arg.to(torch.float64)).to(torch.float32)
         if self.kind == "pareto":
             if self.alpha <= 1.0:
                 raise ValueError(f"pareto alpha must be > 1, got {self.alpha}")
@@ -220,16 +225,12 @@ def _plan_host(plan: HopPlan):
     return nodes, service.astype(np.float64)
 
 
-def simulate_reference(plan: HopPlan, arrivals, *, num_nodes: int,
-                       link: float = 1.0, return_hops: bool = False):
-    """Discrete-event per-node-FIFO queueing simulation (heapq).  Returns
-    ``(latency (B,) float32, makespan float32)`` tensors, plus the
-    (B, H) float64 per-hop completion times with ``return_hops``."""
+def _open_loop_heapq(nodes: np.ndarray, service: np.ndarray,
+                     arr: np.ndarray, num_nodes: int, link: float):
+    """The open-loop event loop on host arrays: ``(finish, hop_done)``
+    float64 (each query's arrival is ``arr``)."""
     import heapq
 
-    nodes, service = _plan_host(plan)
-    arr = np.asarray(arrivals.cpu() if isinstance(arrivals, torch.Tensor)
-                     else arrivals, dtype=np.float64)
     B, H = nodes.shape
     node_free = np.zeros((num_nodes,), np.float64)
     finish = np.zeros((B,), np.float64)
@@ -250,22 +251,16 @@ def simulate_reference(plan: HopPlan, arrivals, *, num_nodes: int,
         node_free[n] = done
         hop_done[qid, hop] = done
         heapq.heappush(heap, (done + link, qid, hop + 1))
-    latency = finish - arr
-    makespan = float(finish.max()) if B else 0.0
-    out = (torch.from_numpy(latency.astype(np.float32)),
-           torch.tensor(makespan, dtype=torch.float32))
-    return out + (hop_done,) if return_hops else out
+    return finish, hop_done
 
 
-def simulate_closed_loop_reference(plan: HopPlan, *, n_clients: int,
-                                   num_nodes: int, link: float = 1.0,
-                                   think: float = 0.0,
-                                   return_hops: bool = False):
-    """Closed-loop heapq DES: client c issues ops c, c+K, c+2K, ...
-    back to back."""
+def _closed_loop_heapq(nodes: np.ndarray, service: np.ndarray,
+                       n_clients: int, num_nodes: int, link: float,
+                       think: float):
+    """The closed-loop event loop on host arrays: ``(finish, issue,
+    hop_done)`` float64 (client c issues ops c, c+K, c+2K, ...)."""
     import heapq
 
-    nodes, service = _plan_host(plan)
     B, H = nodes.shape
     K_ = min(n_clients, B)
     node_free = np.zeros((num_nodes,), np.float64)
@@ -293,8 +288,36 @@ def simulate_closed_loop_reference(plan: HopPlan, *, n_clients: int,
         node_free[n] = done
         hop_done[qid, hop] = done
         heapq.heappush(heap, (done + link, qid, hop + 1))
+    return finish, issue, hop_done
+
+
+def _latency_out(finish, issue, hop_done, return_hops: bool):
     latency = finish - issue
-    makespan = float(finish.max()) if B else 0.0
+    makespan = float(finish.max()) if finish.size else 0.0
     out = (torch.from_numpy(latency.astype(np.float32)),
            torch.tensor(makespan, dtype=torch.float32))
     return out + (hop_done,) if return_hops else out
+
+
+def simulate_reference(plan: HopPlan, arrivals, *, num_nodes: int,
+                       link: float = 1.0, return_hops: bool = False):
+    """Discrete-event per-node-FIFO queueing simulation (heapq).  Returns
+    ``(latency (B,) float32, makespan float32)`` tensors, plus the
+    (B, H) float64 per-hop completion times with ``return_hops``."""
+    nodes, service = _plan_host(plan)
+    arr = np.asarray(arrivals.cpu() if isinstance(arrivals, torch.Tensor)
+                     else arrivals, dtype=np.float64)
+    finish, hop_done = _open_loop_heapq(nodes, service, arr, num_nodes, link)
+    return _latency_out(finish, arr, hop_done, return_hops)
+
+
+def simulate_closed_loop_reference(plan: HopPlan, *, n_clients: int,
+                                   num_nodes: int, link: float = 1.0,
+                                   think: float = 0.0,
+                                   return_hops: bool = False):
+    """Closed-loop heapq DES: client c issues ops c, c+K, c+2K, ...
+    back to back."""
+    nodes, service = _plan_host(plan)
+    finish, issue, hop_done = _closed_loop_heapq(nodes, service, n_clients,
+                                                 num_nodes, link, think)
+    return _latency_out(finish, issue, hop_done, return_hops)

@@ -1,5 +1,5 @@
 """Vectorized discrete-event coordination engine (counterpart of
-``repro.core.des``, native backend only).
+``repro.core.des``).
 
 Hop plans are compacted on the host (NO_HOP slots squeezed out by a
 stable argsort, live hop counts per query), scenarios stacked along a
@@ -10,19 +10,52 @@ perform the identical float64 ``max``/``add`` sequence, so latency and
 makespan match :func:`repro_torch.core.coordination.
 simulate_closed_loop_reference` bit for bit.  The DES stays on the host:
 it is one sequential event order, not a kernel.
+
+``backend``: ``"native"`` (the C core; raises if it cannot be built) or
+``None`` / ``"auto"``: native, falling back to the heapq oracle (query by
+query in Python) with a ``RuntimeWarning`` that says why when the C
+compiler cannot build the core.  This is the counterpart of the reference's fallback to its XLA
+engine; the oracle gives the native core's bits, only slower.
 """
 
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.core import _des_native
-from repro_torch.core.coordination import NO_HOP, HopPlan
+from repro_torch.core.coordination import (
+    NO_HOP,
+    HopPlan,
+    _closed_loop_heapq,
+    _open_loop_heapq,
+)
 
-__all__ = ["simulate", "simulate_closed_loop", "stack_plans", "compact_plans"]
+__all__ = ["simulate", "simulate_closed_loop", "stack_plans", "compact_plans",
+           "resolve_backend"]
+
+BACKENDS = ("native",)
+
+
+def resolve_backend(backend: str | None) -> str:
+    """``None`` / ``"auto"`` -> ``"native"`` when the C core builds here,
+    else the heapq oracle (``"reference"``, an internal value) with a
+    ``RuntimeWarning`` naming the reason; ``"native"`` stays native."""
+    if backend in (None, "auto"):
+        if _des_native.available():
+            return "native"
+        warnings.warn(
+            "the native DES core cannot be built "
+            f"({_des_native.unavailable_reason()}); timing with the heapq "
+            "oracle instead (same bits, slower)", RuntimeWarning,
+            stacklevel=3)
+        return "reference"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown DES backend {backend!r}")
+    return backend
 
 
 def _host(x) -> np.ndarray:
@@ -81,8 +114,34 @@ def _validate(nodes_c: np.ndarray, n_hops: np.ndarray, num_nodes: int) -> None:
         )
 
 
+def _run_reference(nodes_c, service_c, arrivals, *, K, N, link, think,
+                   closed, want_hops):
+    """The fallback: the heapq oracle scenario by scenario on the compacted
+    plans (it skips the NO_HOP tail the compaction leaves)."""
+    S, B, H = nodes_c.shape
+    finish = np.zeros((S, B), np.float64)
+    issue = np.zeros((S, B), np.float64)
+    hops = np.zeros((S, B, H), np.float64) if want_hops else None
+    for s in range(S):
+        sv = service_c[s].astype(np.float64)
+        if closed:
+            finish[s], issue[s], hd = _closed_loop_heapq(
+                nodes_c[s], sv, K, N, link, think)
+        else:
+            issue[s] = arrivals[s]
+            finish[s], hd = _open_loop_heapq(nodes_c[s], sv, arrivals[s],
+                                             N, link)
+        if want_hops:
+            hops[s] = hd
+    return finish, issue, hops
+
+
 def _run(nodes_c, service_c, n_hops, arrivals, *, K, N, link, think, closed,
-         want_hops=False):
+         want_hops=False, backend="native"):
+    if backend == "reference":
+        return _run_reference(nodes_c, service_c, arrivals, K=K, N=N,
+                              link=link, think=think, closed=closed,
+                              want_hops=want_hops)
     lib = _des_native.load()
     S, B, H = nodes_c.shape
     nodes = np.ascontiguousarray(nodes_c, np.int32)
@@ -125,8 +184,9 @@ def _uncompact_hops(hops_c: np.ndarray, order: np.ndarray) -> np.ndarray:
 
 
 def simulate(plan: HopPlan, arrivals, *, num_nodes: int, link: float = 1.0,
-             return_hops: bool = False):
+             return_hops: bool = False, backend: str | None = None):
     """Open-loop DES over a (B, H) plan or an (S, B, H) stack."""
+    backend = resolve_backend(backend)
     stacked = _host(plan.nodes).ndim == 3
     nodes_c, service_c, n_hops, order = compact_plans(plan, return_order=True)
     S, B, H = nodes_c.shape
@@ -143,7 +203,7 @@ def simulate(plan: HopPlan, arrivals, *, num_nodes: int, link: float = 1.0,
         arr = np.broadcast_to(arr[None], (S, B))
     finish, issue, hops = _run(
         nodes_c, service_c, n_hops, arr, K=0, N=num_nodes, link=link,
-        think=0.0, closed=False, want_hops=return_hops,
+        think=0.0, closed=False, want_hops=return_hops, backend=backend,
     )
     out = _finalize(finish, issue, stacked)
     if return_hops:
@@ -154,10 +214,12 @@ def simulate(plan: HopPlan, arrivals, *, num_nodes: int, link: float = 1.0,
 
 def simulate_closed_loop(plan: HopPlan, *, n_clients: int, num_nodes: int,
                          link: float = 1.0, think: float = 0.0,
-                         return_issue: bool = False, return_hops: bool = False):
+                         return_issue: bool = False, return_hops: bool = False,
+                         backend: str | None = None):
     """Closed-loop DES (K clients replaying the stream back to back);
     accepts an (S, B, H) stack.  ``return_issue`` / ``return_hops`` add the
     float64 issue and per-hop completion times as numpy arrays."""
+    backend = resolve_backend(backend)
     stacked = _host(plan.nodes).ndim == 3
     nodes_c, service_c, n_hops, order = compact_plans(plan, return_order=True)
     S, B, H = nodes_c.shape
@@ -173,7 +235,7 @@ def simulate_closed_loop(plan: HopPlan, *, n_clients: int, num_nodes: int,
     _validate(nodes_c, n_hops, num_nodes)
     finish, issue, hops = _run(
         nodes_c, service_c, n_hops, None, K=n_clients, N=num_nodes, link=link,
-        think=think, closed=True, want_hops=return_hops,
+        think=think, closed=True, want_hops=return_hops, backend=backend,
     )
     out = _finalize(finish, issue, stacked)
     if return_issue:

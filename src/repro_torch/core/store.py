@@ -11,6 +11,11 @@ Batch semantics: GET/SCAN observe the pre-batch state; DELs apply next;
 PUTs last (last write in batch order wins).  Capacity overflow drops the
 largest keys and counts them per shard.
 
+:func:`shard_apply` is the reference's one-shard apply; the sharded data
+plane (:mod:`repro_torch.core.dist_store`) runs its halves on every shard
+at once, :func:`shards_read` (each row's GET / DEL probes against its own
+slab, one K4a launch for all rows) and :func:`shards_write`.
+
 Two deliberate departures from the reference's program shape, neither
 visible in the results:
 
@@ -140,14 +145,45 @@ def slab_get(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
     return vals, found
 
 
+def pad_slab(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
+             max_results: int):
+    """Append ``max_results`` EMPTY / zero entries, so that every scan's
+    window of ``max_results`` entries from its start stays in bounds (one
+    pad covers the whole scan batch of :func:`_slab_scan_padded`)."""
+    dev = slab_keys.device
+    pad_k = torch.cat([slab_keys, torch.full((max_results,), EMPTY,
+                                             dtype=slab_keys.dtype,
+                                             device=dev)])
+    pad_v = torch.cat([slab_vals, torch.zeros(
+        (max_results, slab_vals.shape[1]), dtype=slab_vals.dtype,
+        device=dev)])
+    return pad_k, pad_v
+
+
+def _slab_scan_padded(pad_k: torch.Tensor, pad_v: torch.Tensor,
+                      k0: torch.Tensor, k1: torch.Tensor, max_results: int):
+    """Scan core over a pre-padded slab (:func:`pad_slab`): each query's
+    window starts at its ``k0`` rank and keeps ``count`` live entries."""
+    C = pad_k.shape[0] - max_results
+    live_keys = pad_k[:C]
+    lo = torch.searchsorted(live_keys, k0)
+    hi = torch.searchsorted(live_keys, k1, side="right")
+    count = torch.clamp(hi - lo, max=max_results)
+    j = torch.arange(max_results, device=pad_k.device)
+    idx = lo[:, None] + j[None, :]
+    live = j[None, :] < count[:, None]
+    ks = torch.where(live, pad_k[idx], EMPTY)
+    vs = torch.where(live[:, :, None], pad_v[idx], 0.0)
+    return ks, vs, count
+
+
 def slab_scan(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
               k0: torch.Tensor, k1: torch.Tensor, max_results: int):
     """Batched range scan of [k0, k1] (inclusive) on one slab, up to
     ``max_results`` each.  Returns (keys (B, S), values (B, S, V),
     count (B,))."""
-    one = StoreState(slab_keys[None], slab_vals[None],
-                     torch.zeros(1, dtype=torch.int64, device=slab_keys.device))
-    return slab_scan_rows(one, torch.zeros_like(k0), k0, k1, max_results)
+    pad_k, pad_v = pad_slab(slab_keys, slab_vals, max_results)
+    return _slab_scan_padded(pad_k, pad_v, k0, k1, max_results)
 
 
 def slab_delete(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
@@ -232,9 +268,6 @@ def apply_routed(store: StoreState, q: QueryBatch, decision: RoutingDecision,
     N = store.num_shards
     dev = store.keys.device
     is_write = (q.opcode == K.OP_PUT) | (q.opcode == K.OP_DEL)
-    is_get = q.opcode == K.OP_GET
-    is_del = q.opcode == K.OP_DEL
-    is_scan = (q.opcode == K.OP_SCAN) & (decision.target >= 0)
     r_max = decision.chain.shape[1]
     member_live = (torch.arange(r_max, device=dev)[None, :]
                    < decision.chain_len[:, None])
@@ -242,34 +275,112 @@ def apply_routed(store: StoreState, q: QueryBatch, decision: RoutingDecision,
     # --- reads against the pre-batch state, from the owning shard ---
     # K4a probes (key, target): GETs are owned by their read target, DELs
     # by the chain head, which is their write target
-    slot, hit = RM.slab_lookup(q.key, decision.target, store.keys)
-    t_safe = torch.clamp(decision.target, 0, N - 1)
-    found = hit & (is_get | is_del)
-    get_hit = hit & is_get
-    value = store.values[t_safe, slot.to(torch.int64)]
-    value = torch.where(get_hit[:, None], value, 0.0)
-    if scans:
-        sk, sv, scount = slab_scan_rows(
-            store, t_safe, torch.where(is_scan, q.key, EMPTY),
-            torch.where(is_scan, q.end_key, 0), max_scan_results,
-        )
-        scount = torch.where(is_scan, scount, 0)
-        sk = torch.where(is_scan[:, None], sk, EMPTY)
-        sv = torch.where(is_scan[:, None, None], sv, 0.0)
-    else:
-        B, S = q.batch, max_scan_results
-        scount = torch.zeros((), dtype=torch.int64, device=dev).expand(B)
-        sk = torch.full((), EMPTY, dtype=torch.int64, device=dev).expand(B, S)
-        sv = torch.zeros((), dtype=torch.float32, device=dev).expand(
-            B, S, store.value_dim)
+    every = torch.ones_like(is_write)
+    resp = serve_reads(store, decision.target, q, every, every,
+                       max_scan_results=max_scan_results, scans=scans)
 
     # --- writes, shard by shard ---
     for n in range(N):
         write_mine = is_write & ((decision.chain == n) & member_live).any(dim=1)
         _apply_writes(store, n, q, write_mine)
 
-    return store, Responses(value=value, found=found, scan_values=sv,
-                            scan_keys=sk, scan_count=scount)
+    return store, resp
+
+
+def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
+                q: QueryBatch, read_mine: torch.Tensor,
+                write_mine: torch.Tensor, *, max_scan_results: int):
+    """Apply the batch slice one shard owns (the reference's signature):
+    ``read_mine`` marks the GET / SCAN it serves (it is the chain tail),
+    ``write_mine`` the PUT / DEL it applies (it is a chain member).
+    Returns ``(keys', vals', dropped, responses)``; the slab arguments
+    are not modified."""
+    one = StoreState(slab_keys[None].clone(), slab_vals[None].clone(),
+                     torch.zeros(1, dtype=torch.int64, device=slab_keys.device))
+    rows = QueryBatch(*(x[None] for x in (q.opcode, q.key, q.end_key,
+                                          q.value)))
+    resp = shards_read(one, rows, read_mine[None],
+                       max_scan_results=max_scan_results,
+                       del_mine=write_mine[None])
+    resp = Responses(*(x[0] for x in (resp.value, resp.found,
+                                      resp.scan_values, resp.scan_keys,
+                                      resp.scan_count)))
+    shards_write(one, rows, write_mine[None])
+    return one.keys[0], one.values[0], one.overflow[0], resp
+
+
+def serve_reads(store: StoreState, node: torch.Tensor, q: QueryBatch,
+                read_mine: torch.Tensor | None,
+                del_mine: torch.Tensor | None, *, max_scan_results: int,
+                scans: bool = True) -> Responses:
+    """The read half of :func:`shard_apply` for queries each against its
+    own shard ``node`` (a negative node serves nothing): ``read_mine``
+    marks the GETs / SCANs served (None: none), ``del_mine`` the DELs
+    whose hit is reported (None: none), both against the pre-batch slabs.
+    The GET / DEL probes are ONE launch of K4a (``slab_lookup``).
+    ``scans=False`` is the caller's knowledge that the batch holds no
+    SCAN; the answers a call cannot give (no reads, no SCAN) are the empty
+    ones, as zero-stride views."""
+    B = q.batch
+    N = store.num_shards
+    dev = store.keys.device
+    S, V = max_scan_results, store.value_dim
+    none = torch.zeros_like(q.opcode, dtype=torch.bool)
+    is_get = none if read_mine is None else (q.opcode == K.OP_GET) & read_mine
+    is_del = none if del_mine is None else (q.opcode == K.OP_DEL) & del_mine
+    slot, hit = RM.slab_lookup(torch.where(is_get | is_del, q.key, EMPTY),
+                               node, store.keys)
+    found = hit & (is_get | is_del)
+    n_safe = torch.clamp(node, 0, N - 1)
+    if read_mine is not None:
+        value = store.values[n_safe, slot.to(torch.int64)]
+        value = torch.where((hit & is_get)[:, None], value, 0.0)
+    else:
+        value = torch.zeros((), dtype=torch.float32, device=dev).expand(B, V)
+    if scans and read_mine is not None:
+        is_scan = (q.opcode == K.OP_SCAN) & read_mine & (node >= 0)
+        sk, sv, scount = slab_scan_rows(
+            store, n_safe, torch.where(is_scan, q.key, EMPTY),
+            torch.where(is_scan, q.end_key, 0), S)
+        scount = torch.where(is_scan, scount, 0)
+        sk = torch.where(is_scan[:, None], sk, EMPTY)
+        sv = torch.where(is_scan[:, None, None], sv, 0.0)
+    else:
+        scount = torch.zeros((), dtype=torch.int64, device=dev).expand(B)
+        sk = torch.full((), EMPTY, dtype=torch.int64, device=dev).expand(B, S)
+        sv = torch.zeros((), dtype=torch.float32, device=dev).expand(B, S, V)
+    return Responses(value=value, found=found, scan_values=sv, scan_keys=sk,
+                     scan_count=scount)
+
+
+def shards_read(store: StoreState, q: QueryBatch,
+                read_mine: torch.Tensor | None, *, max_scan_results: int,
+                scans: bool = True,
+                del_mine: torch.Tensor | None = None) -> Responses:
+    """:func:`serve_reads` on every shard at once: row ``n`` of the
+    ``(N, M)`` query fields is the batch shard ``n`` received (one K4a
+    launch for all of them).  Responses are ``(N, M, ...)``."""
+    N, M = q.opcode.shape
+    node = torch.arange(N, device=q.key.device)[:, None].expand(N, M)
+    flat = QueryBatch(*(x.reshape((N * M,) + tuple(x.shape[2:]))
+                        for x in (q.opcode, q.key, q.end_key, q.value)))
+    rows = lambda x: None if x is None else x.reshape(-1)
+    got = serve_reads(store, node.reshape(-1), flat, rows(read_mine),
+                      rows(del_mine), max_scan_results=max_scan_results,
+                      scans=scans)
+    return Responses(*(x.reshape((N, M) + tuple(x.shape[1:])) for x in (
+        got.value, got.found, got.scan_values, got.scan_keys,
+        got.scan_count)))
+
+
+def shards_write(store: StoreState, q: QueryBatch,
+                 write_mine: torch.Tensor) -> None:
+    """The write half of :func:`shard_apply` on every shard, in place: the
+    DELs then the PUTs of row ``n`` on shard ``n``'s slab, the entries a
+    full slab drops added to its ``overflow``."""
+    for n in range(store.num_shards):
+        row = QueryBatch(q.opcode[n], q.key[n], q.end_key[n], q.value[n])
+        _apply_writes(store, n, row, write_mine[n])
 
 
 def slab_scan_rows(store: StoreState, node: torch.Tensor, k0: torch.Tensor,

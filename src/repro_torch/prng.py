@@ -17,8 +17,10 @@ Mapping to the reference source (``jax/_src/prng.py``, ``random.py``):
 :func:`threefry2x32`; ``_threefry_split_foldlike`` -> :func:`split`;
 ``_threefry_fold_in`` -> :func:`fold_in`;
 ``_threefry_random_bits_partitionable`` -> :func:`random_bits`;
-``_randint`` -> :func:`randint`; ``_uniform`` -> :func:`uniform`.
-``normal`` is not ported yet.
+``_randint`` -> :func:`randint`; ``_uniform`` -> :func:`uniform`;
+``_normal_real`` -> :func:`normal` (XLA's ``ErfInv32`` polynomial with
+fused multiply-adds, :func:`fma_f32`, on ``torch.log1p``: within a few
+ulp of the reference, ROADMAP fault F14).
 """
 
 from __future__ import annotations
@@ -140,3 +142,67 @@ def uniform(key: np.ndarray, shape: tuple[int, ...],
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``fma(a, b, c)`` of float32 operands with ONE rounding to float32,
+    as XLA's CPU backend contracts ``a * b + c``.  The product is exact in
+    float64; the float64 sum is rounded to odd (Knuth's two-sum gives its
+    error), so the final rounding to float32 is exact too."""
+    a, b, c = (torch.as_tensor(x).to(torch.float32).to(torch.float64)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+# XLA's ErfInv32 (the Giles single-precision polynomial), highest power
+# first: for w < 5 on w - 2.5, otherwise on sqrt(w) - 3
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: ``w = -log1p(-x * x)``, then the Horner
+    steps of the polynomial as fused multiply-adds.  ``torch.log1p`` in
+    float64, rounded once to float32 (the same bits on every device),
+    stands in for XLA's float32 log1p: the one source of difference."""
+    w = -torch.log1p((-x * x).to(torch.float64)).to(torch.float32)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = lambda i: torch.where(
+        lt, torch.tensor(_ERFINV_LT5[i], dtype=torch.float32, device=x.device),
+        torch.tensor(_ERFINV_GE5[i], dtype=torch.float32, device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma_f32(p, w, coef(i))
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, out)
+
+
+SQRT2_F32 = np.float32(np.sqrt(2.0))
+
+
+def normal_erf_inv(key: np.ndarray, shape: tuple[int, ...],
+                   device: str | torch.device) -> torch.Tensor:
+    """The normal draw before its ``sqrt(2)`` factor: ``erf_inv(u)`` of a
+    uniform draw on ``[nextafter(-1, 0), 1)`` (a caller that scales the
+    draw by a constant folds ``sqrt(2)`` into it, as XLA does)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return erf_inv(uniform(key, shape, device, minval=lo, maxval=1.0))
+
+
+def normal(key: np.ndarray, shape: tuple[int, ...],
+           device: str | torch.device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erf_inv(u)``."""
+    return SQRT2_F32 * normal_erf_inv(key, shape, device)

@@ -708,6 +708,135 @@ def test_apply_routed_card_matches_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# The sharded data plane and the lognormal draw on the card
+# ---------------------------------------------------------------------------
+
+# (strategy, read_spread, craq, queue_pen) of the dist-plane comparison
+DIST_CASES = (("bucket_a2a", False, False, False),
+              ("bucket_a2a", True, False, False),
+              ("bucket_a2a", True, True, True),
+              ("allgather", False, False, False),
+              ("allgather", True, True, False))
+
+
+@pytest.mark.parametrize("strategy,spread,craq,qpen", DIST_CASES)
+def test_dist_plane_card_matches_cpu(dev, strategy, spread, craq, qpen):
+    """``make_dist_apply`` at B 65,536 on an 8-shard mesh, card against
+    CPU, bit for bit over three calls (a preload of PUTs, then mixed
+    batches with every opcode): responses, store, counters, load
+    registers and metrics.  The bucket plane routes shard by shard under
+    p2c (8 launches of K2 / K3 a call) and probes each round's inbound
+    queries in one launch of K4a (1 + r_max a call: the directory's
+    widened chains reach r_max)."""
+    from repro_torch import replication as RPL
+    from repro_torch.core import dist_store as DS
+
+    N, V, C, B = 8, 4, 131072, 65536
+    cfg = DS.DistConfig(strategy=strategy, bucket_cap=B // N,
+                        read_spread=spread, return_decision=True,
+                        replication_mode="craq" if craq else "eventual",
+                        queue_pen=qpen)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        d = _directory(7, 64, 128, device, num_nodes=N)
+        store = S.make_store(N, C, V, device=device)
+        f = DS.make_dist_apply(DS.make_mesh(N, device=device), d, cfg)
+        load = torch.zeros(N, dtype=torch.int64, device=device)
+        dirty = RPL.dirty_bits(RPL.make_state(128, 4, 0, device=device))
+        calls = []
+        RMK.reset_launches()
+        for step in range(3):
+            r = np.random.default_rng(step)
+            keys = r.integers(0, 2**32 - 2, B, dtype=np.uint64).astype(np.uint32)
+            ops = (np.ones(B, np.int32) if step == 0
+                   else r.integers(0, 4, B).astype(np.int32))
+            ends = np.minimum(keys.astype(np.uint64) + 2**24, 2**32 - 2)
+            q = R.make_queries(keys, ops, r.normal(size=(B, V)).astype(np.float32),
+                               ends.astype(np.uint32), device=device)
+            if spread:
+                args = [store, d, load]
+                if qpen:
+                    args.append(torch.tensor(r.integers(0, 2**32, N),
+                                             device=device))
+                if craq:
+                    dirty = torch.tensor(r.random(dirty.shape) < 0.3,
+                                         device=device)
+                    args.append(dirty)
+                store, resp, d, load, m = f(*args, q,
+                                            np.array([0, step], np.uint32))
+            else:
+                store, resp, d, m = f(store, d, q)
+            calls.append((resp, dict(m), d.read_count, d.write_count,
+                          load.clone(), store.keys.clone(),
+                          store.values.clone(), store.overflow.clone()))
+        out[device.type] = (calls, dict(RMK.launches))
+    (cg, lg), (cc, _) = out["cuda"], out["cpu"]
+    for a, b in zip(cg, cc):
+        ra, rb = a[0], b[0]
+        _same((ra.value, ra.found, ra.scan_values, ra.scan_keys, ra.scan_count),
+              (rb.value, rb.found, rb.scan_values, rb.scan_keys, rb.scan_count))
+        assert a[1].keys() == b[1].keys()
+        _same([a[1][k] for k in sorted(a[1])], [b[1][k] for k in sorted(b[1])])
+        _same(a[2:], b[2:])
+    bucket = strategy == "bucket_a2a"
+    assert lg["slab_lookup"] == 3 * (1 + 4 if bucket else 1)
+    route = ("range_match_spread_dirty" if craq else
+             "range_match_spread" if spread else "range_match")
+    assert lg[route] == 3 * (N if bucket and spread else 1)
+    assert int(cg[-1][-1].sum()) == 0        # room for every write
+
+
+def test_dist_read_round_is_one_slab_lookup_launch(dev):
+    """A read round's inbound queries from all 8 shards against the
+    stacked (8, C) slabs: one launch of K4a, equal to its plain version
+    (slots, hits, gathered values)."""
+    rng = np.random.default_rng(5)
+    N, M, C, V = 8, 65536, 131072, 2
+    keys = np.sort(rng.integers(0, 2**32 - 1, (N, C), dtype=np.uint64), axis=1)
+    keys[:, C - 1000:] = 0xFFFFFFFF
+    pick = rng.integers(0, C, (N, M))
+    qk = np.take_along_axis(keys, pick, axis=1).astype(np.int64)
+    qk[:, ::4] = rng.integers(0, 2**32 - 1, (N, M // 4))
+    op = rng.integers(0, 4, (N, M)).astype(np.int32)
+    vals = rng.normal(size=(N, C, V)).astype(np.float32)
+    got = {}
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.tensor(a, device=device)
+        store = S.StoreState(t(keys.astype(np.int64)), t(vals),
+                             torch.zeros(N, dtype=torch.int64, device=device))
+        q = R.QueryBatch(t(op), t(qk),
+                         torch.zeros((N, M), dtype=torch.int64, device=device),
+                         torch.zeros((N, M, V), device=device))
+        every = torch.ones((N, M), dtype=torch.bool, device=device)
+        before = RMK.launches["slab_lookup"]
+        r = S.shards_read(store, q, every, max_scan_results=2, scans=False,
+                          del_mine=every)
+        got[device.type] = (r.value, r.found,
+                            RMK.launches["slab_lookup"] - before)
+    assert got["cuda"][2] == 1 and got["cpu"][2] == 0
+    _same(got["cuda"][:2], got["cpu"][:2])
+    assert bool(got["cuda"][1].any())
+
+
+def test_lognormal_service_card_matches_cpu(dev):
+    """The lognormal draw (ROADMAP F14): the float64 log1p and exp, each
+    rounded once to float32, give the card the CPU's column within F14's
+    bound (4 ulp at sigma 0.6), and the hop plan's service column too."""
+    from repro_torch import prng
+    from repro_torch.core import coordination as TCo
+
+    for sigma in (0.6, 1.0):
+        svc = TCo.ServiceModel(kind="lognormal", sigma=sigma)
+        card = svc.draw(prng.PRNGKey(3), (200_000,), dev)
+        cpu = svc.draw(prng.PRNGKey(3), (200_000,), "cpu")
+        assert card.device.type == "cuda" and card.dtype == torch.float32
+        ulps = (card.cpu().view(torch.int32).to(torch.int64)
+                - cpu.view(torch.int32).to(torch.int64)).abs()
+        assert int(ulps.max()) <= 4, (sigma, int((ulps > 0).sum()))
+        assert abs(float(card.mean()) - 1.0) < 0.02
+
+
+# ---------------------------------------------------------------------------
 # The overload plane on the card
 # ---------------------------------------------------------------------------
 

@@ -8,7 +8,7 @@ failure, a rack failure, chunked p2c routing and the adaptive pull
 cadence) and on ``ycsb_a`` under the ``chain`` and ``craq`` replication
 modes (with and without the CRAQ key filter; the register file too).  Also: the port's fused period loop equals its per-epoch loop
 with fewer host syncs, ``device=None`` never falls back to the CPU, the
-trace and metrics planes run, and the dist backend raises."""
+trace and metrics planes run, and the dist backend runs."""
 
 import sys
 
@@ -209,22 +209,46 @@ def test_features_not_ported_yet_raise(override):
     """The trace and metrics planes are ported: the driver takes them and
     runs (``tests/test_torch_telemetry.py`` and
     ``tests/test_torch_metrics_plane.py`` hold them against the
-    reference); the dist backend still raises with them on."""
+    reference), on the dist backend too, with the stream the planes-off
+    oracle run gives (``tests/test_torch_dist_driver.py`` holds the dist
+    backend against the reference's).  The name is the one the test had
+    while the port refused these features."""
+    from repro_torch.core.dist_store import make_mesh
+
     case = CASES["shifting_frozen"]
     scen = TCl.make_scenario(case[0], TCl.ScenarioConfig(**SCFG), **case[3])
     drv = TCl.EpochDriver(scen, TCl.make_policy(case[1]),
                           _ccfg(TCl, 2, **override), device="cpu")
-    assert len(drv.run()) == SCFG["n_epochs"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCl.EpochDriver(scen, TCl.make_policy(case[1]),
-                        _ccfg(TCl, 2, **override), backend="dist",
-                        device="cpu")
+    rows = drv.run()
+    assert len(rows) == SCFG["n_epochs"]
+    dist = TCl.EpochDriver(scen, TCl.make_policy(case[1]),
+                           _ccfg(TCl, 2, **override), backend="dist",
+                           mesh=make_mesh(8, device="cpu"), device="cpu")
+    drows = dist.run()
+    assert [dataclasses.asdict(r) for r in drows] == [
+        dataclasses.asdict(r) for r in rows]
+    if "telemetry" in override:
+        assert dist.telemetry.span_count == drv.telemetry.span_count > 0
+    else:
+        assert torch.equal(dist.metrics.ring, drv.metrics.ring)
 
 
 def test_dist_backend_not_ported_yet():
+    """The dist backend is ported: it runs the test configuration on an
+    8-shard mesh and, under ``frozen``, gives the oracle's stream and
+    final store bit for bit; without a mesh it is refused.  The name is
+    the one the test had while the port refused the backend."""
+    from repro_torch.core.dist_store import make_mesh
+
     case = CASES["shifting_frozen"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCl.EpochDriver(
-            TCl.make_scenario(case[0], TCl.ScenarioConfig(**SCFG), **case[3]),
-            TCl.make_policy(case[1]), _ccfg(TCl, 2), backend="dist",
-            device="cpu")
+    make = lambda backend, **kw: TCl.EpochDriver(
+        TCl.make_scenario(case[0], TCl.ScenarioConfig(**SCFG), **case[3]),
+        TCl.make_policy(case[1]), _ccfg(TCl, 2), backend=backend,
+        device="cpu", **kw)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make("dist")
+    oracle, dist = make("oracle"), make("dist", mesh=make_mesh(8, device="cpu"))
+    assert [dataclasses.asdict(r) for r in dist.run()] == [
+        dataclasses.asdict(r) for r in oracle.run()]
+    for f in ("keys", "values", "overflow"):
+        assert torch.equal(getattr(dist.store, f), getattr(oracle.store, f))

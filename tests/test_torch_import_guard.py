@@ -61,6 +61,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.hybrid, repro_torch.overload\n"
         "import repro_torch.telemetry, repro_torch.telemetry.dashboard\n"
         "import repro_torch.telemetry.profiler\n"
+        "import repro_torch.core.dist_store\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -78,6 +79,7 @@ def test_port_modules_found():
     assert "repro_torch/cluster/epoch.py" in MODULES
     assert "repro_torch/kernels/range_match/kernel.py" in MODULES
     assert "repro_torch/coordination_tier/state.py" in MODULES
+    assert "repro_torch/core/dist_store.py" in MODULES
     assert "repro_torch/core/hierarchy.py" in MODULES
     for mod in ("trace", "attribution", "export", "profiler", "flight",
                 "recorder", "metrics", "slo", "incident", "dashboard"):

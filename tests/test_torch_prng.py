@@ -1,7 +1,8 @@
 """The port's threefry2x32 stream is bit-identical to ``jax.random``
 (``PRNGKey``, ``split``, ``fold_in``, ``randint``, ``uniform``) over
 several seeds and shapes — the reason the whole EpochMetrics stream can
-match the reference bit for bit.  No tolerance."""
+match the reference bit for bit.  No tolerance, except ``normal``, held
+to ROADMAP fault F14's measured bound (its log1p is torch's)."""
 
 import sys
 
@@ -82,3 +83,73 @@ def test_uniform_tiny_minval():
     a = np.asarray(jax.random.uniform(k, (512,), jnp.float32, minval=tiny))
     b = prng.uniform(prng.PRNGKey(5), (512,), "cpu", minval=tiny).numpy()
     assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+# (seed, shape, draws that differ from jax.random.normal, largest ulp gap):
+# measured on the CPU; XLA's float32 log1p, which neither torch's nor the C
+# library's reproduces, is the only source (ROADMAP fault F14)
+NORMAL_F14 = [(0, (200_000,), 1856, 3), (1, (400, 500), 1916, 3),
+              (2, (200_000,), 1869, 3), (3, (1000, 200), 1945, 3)]
+
+
+@pytest.mark.parametrize("seed,shape,n_diff,max_ulp", NORMAL_F14)
+def test_normal_within_f14(seed, shape, n_diff, max_ulp):
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape,
+                                        jnp.float32))
+    got = prng.normal(prng.PRNGKey(seed), shape, "cpu").numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    ulps = np.abs(want.view(np.int32).astype(np.int64)
+                  - got.view(np.int32).astype(np.int64))
+    assert int((ulps > 0).sum()) == n_diff
+    assert int(ulps.max()) == max_ulp
+
+
+def test_erf_inv_polynomial_given_xla_log1p():
+    """Given XLA's own ``w = -log1p(-x * x)`` (jitted alone), the Horner
+    steps as fused multiply-adds (``prng.fma_f32``) give jax's
+    ``erf_inv``: measured, 2 of 50,000 values differ, by 1 ulp, both in
+    the ``w >= 5`` branch (where XLA's fused kernel forms its own log1p
+    and sqrt); the same steps unfused differ in 2,285."""
+    x = jax.random.uniform(jax.random.PRNGKey(11), (50_000,), jnp.float32,
+                           np.nextafter(np.float32(-1), np.float32(0)), 1.0)
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(x)).view(np.int32)
+    w = np.asarray(jax.jit(lambda v: -jnp.log1p(-v * v))(x))
+    xt = torch.from_numpy(np.asarray(x).copy())
+    wt = torch.from_numpy(w.copy())
+    lt = wt < 5.0
+    wt = torch.where(lt, wt - 2.5, torch.sqrt(wt) - 3.0)
+    coef = lambda i: torch.where(lt, torch.tensor(prng._ERFINV_LT5[i]),
+                                 torch.tensor(prng._ERFINV_GE5[i]))
+
+    def ulps(fused):
+        p = coef(0)
+        for i in range(1, len(prng._ERFINV_LT5)):
+            p = (prng.fma_f32(p, wt, coef(i)) if fused
+                 else p * wt + coef(i))
+        got = (p * xt).numpy().view(np.int32)
+        return np.abs(got.astype(np.int64) - want)
+
+    d = ulps(True)
+    assert int((d > 0).sum()) == 2 and int(d.max()) == 1
+    assert not bool(lt[torch.from_numpy(d > 0)].any())
+    assert int((ulps(False) > 0).sum()) == 2285
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` against an exact rational evaluation, rounded once."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.standard_normal(2000).astype(np.float32) for _ in range(3))
+    c[:500] = -(a[:500].astype(np.float64) * b[:500]).astype(np.float32)
+    got = prng.fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                       torch.from_numpy(c)).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        # the nearest float32 to the exact value, ties to even
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                 np.nextafter(lo, np.float32(np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.float32(v).view(np.int32)) & 1))
+        assert got[i] == best, (i, a[i], b[i], c[i])
