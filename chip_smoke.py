@@ -38,7 +38,11 @@ exits non-zero):
                output, ``K6_TOL``): (a) qwen2-1.5b's heads in bf16 at
                ``decode_32k`` cut to a batch of 32, (b) gemma3-1b's heads
                in f32 with its 512 window, (c) lengths past S (F8), (d)
-               the serving phase's shape (S 8,192, lengths 257-2,176), each
+               the serving phase's shape (S 8,192, lengths 257-2,176),
+               then phase families' shapes: deepseek-moe-16b's G 1 D 128
+               (S 4,096), llama4's G 5 (S 8,192), internvl2-26b's G 6
+               (S 4,096), whisper-small's G 1 D 64 self attention (S 448)
+               and cross attention (1,500 encoder rows), each
                with SDPA's time as the library yardstick; then K7
                ``ssd_chunk`` against its plain version within
                |err| <= 2e-4 (1 + |want|) on y and the final state
@@ -79,13 +83,17 @@ exits non-zero):
                bench (``repro_torch.coordination_tier.bench``) on the card
                at their full sizes, whose gates must come back empty; then
                the serving engine on the card against itself on the CPU
-               (reduced qwen2-1.5b, gemma3-1b, mamba2-370m and hymba-1.5b
-               in f32, TF32 off: 7 requests, 4 slots, a 64-position cache,
+               (reduced qwen2-1.5b, gemma3-1b, mamba2-370m, hymba-1.5b,
+               deepseek-moe-16b, minicpm3-4b, internvl2-26b and llama4 in
+               f32, TF32 off: 7 requests, 4 slots, a 64-position cache,
                4 shards, a rebalance every 2 steps and a shard failure at
                step 3): equal tokens, shards, migrations and failovers,
                every picked logits row within 1e-4, K1 launched, K6 on
-               every attention layer of every decode step and K7 on every
-               SSM layer of every prefill;
+               every GQA attention of every decode step (``gqa_attentions``:
+               none for MLA, two a llama4 pair) and K7 on every SSM layer
+               of every prefill; and reduced whisper-small through the
+               model facade (4 utterances, 8 greedy steps): equal tokens,
+               logits within 1e-4, K6 on both attentions of every layer;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
@@ -156,7 +164,27 @@ exits non-zero):
                the port's seeded init; no KV cache, 48 MiB of f32 decode
                state a slot): K7 on every layer of every prefill, held
                against its plain version on layer 0's live scan inputs of
-               the first prefill; decode by the recurrence.
+               the first prefill; decode by the recurrence;
+8. families    the families added last, at their published widths with
+               bf16 weights from the port's seeded init, one line each:
+               the serving traffic above, cut to 32 requests, through the
+               engine on
+               deepseek-moe-16b (a 4,096-position cache; the MoE drops of
+               one 2,048-token prompt), minicpm3-4b (MLA, no K6; one
+               decode step against the teacher-forced prefill), internvl2-
+               26b (a 4,096-position cache; then one facade prefill of 256
+               patch embeddings before 256 tokens and 16 decode steps) and
+               llama4-maverick cut to one dense + MoE pair (an 8,192-
+               position cache), K6 held against its plain version on layer
+               0's live caches (both sublayers of the pair); then whisper-
+               small through the facade: 32 utterances of 1,500 frame
+               embeddings, the start-of-transcript prompt, 128 greedy
+               steps in its 448-position context, K6 on the self and the
+               cross attention of every layer, held against its plain
+               version on layer 0's caches.  Gates: every request
+               finishes, none stays on the failed shard, K6 launches ==
+               ``gqa_attentions`` x steps, parameter counts within the
+               reference's ranges (the pair: its exact count).
 
 Three more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver),
@@ -174,6 +202,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -187,7 +216,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
-          "telemetry", "dist", "serving", "serving_ssm")
+          "telemetry", "dist", "serving", "serving_ssm", "families")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
 
@@ -826,6 +855,21 @@ K6_CASES = (
      (305, 400, 300, 1000)),
     ("serve_8k/qwen2-1.5b/bf16", 32, 8192, 12, 2, 128, torch.bfloat16, None,
      range(257, 2177)),
+    # the shapes of phase families: G 1 D 128 (deepseek-moe-16b, 16 / 16
+    # heads, its 4,096-position cache), G 5 (llama4, 40 / 8, 8,192), G 6
+    # (internvl2-26b, 48 / 8, 4,096), and whisper-small's G 1 D 64 self
+    # attention (448 positions, lengths 5-132) and cross attention (1,500
+    # encoder rows, all valid)
+    ("serve_4k/deepseek-moe-16b/bf16", 32, 4096, 16, 16, 128, torch.bfloat16,
+     None, range(257, 2177)),
+    ("serve_8k/llama4-maverick/bf16", 32, 8192, 40, 8, 128, torch.bfloat16,
+     None, range(257, 2177)),
+    ("serve_4k/internvl2-26b/bf16", 32, 4096, 48, 8, 128, torch.bfloat16,
+     None, range(257, 2177)),
+    ("self_448/whisper-small/bf16", 32, 448, 12, 12, 64, torch.bfloat16, None,
+     range(5, 133)),
+    ("cross_1500/whisper-small/bf16", 32, 1500, 12, 12, 64, torch.bfloat16,
+     None, [1500] * 32),
 )
 # K6 against its plain version, |got - want| <= atol + rtol * |want| for
 # every output: f32 at 1e-4; bf16 at two bf16 steps of each output (both
@@ -1451,11 +1495,43 @@ def phase_parity() -> dict:
             "max_stale_switches", "mean_p999")} for r in crows],
     }
     out["serving"] = {arch: _serving_parity(arch) for arch in SERVING_PARITY}
+    out["serving"][FACADE_PARITY] = _facade_parity(FACADE_PARITY)
     emit(out)
     return out
 
 
-SERVING_PARITY = ("qwen2-1.5b", "gemma3-1b", "mamba2-370m", "hymba-1.5b")
+SERVING_PARITY = ("qwen2-1.5b", "gemma3-1b", "mamba2-370m", "hymba-1.5b",
+                  "deepseek-moe-16b", "minicpm3-4b", "internvl2-26b",
+                  "llama4-maverick-400b-a17b")
+FACADE_PARITY = "whisper-small"   # the engine feeds tokens only
+
+
+def gqa_attentions(cfg) -> int:
+    """K6 launches in one decode step of ``cfg``: one a GQA attention,
+    that is a layer of the dense, moe and hybrid kinds and two a ``pair``
+    (llama4's dense and MoE sublayers), none for ``mla`` (plain einsums
+    against the latent) or ``ssm``; an encoder-decoder's decoder layer
+    attends to itself and across, two each."""
+    from repro_torch.models.transformer import layer_groups
+
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers
+    per = {"dense": 1, "moe": 1, "hybrid": 1, "pair": 2, "mla": 0, "ssm": 0}
+    return sum(per[g.kind] * g.n_layers for g in layer_groups(cfg))
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """TF32 off for matmuls and cuDNN, restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _to(tree: dict, device) -> dict:
@@ -1509,18 +1585,11 @@ def _serving_parity(arch: str) -> dict:
     from repro_torch import models as M
     from repro_torch.configs import get_config
 
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    with _tf32_off():
         params = M.init_params(cfg, 0, device="cpu")
         card = _serve_reduced(cfg, params, torch.device("cuda"))
         host = _serve_reduced(cfg, params, torch.device("cpu"))
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
     (trace, tokens, picked, k6, k1, k7), (htrace, htokens, hpicked, *_) = \
         card, host
     if tokens != htokens or len(tokens) != 7:
@@ -1533,10 +1602,10 @@ def _serving_parity(arch: str) -> dict:
     err = max(float(np.abs(a - b).max()) for a, b in zip(picked, hpicked))
     if not err <= 1e-4:
         raise AssertionError(f"serving {arch}: logits differ by {err}")
-    # K6 on every attention layer of every decode step, K7 on every SSM
+    # K6 on every GQA attention of every decode step, K7 on every SSM
     # layer of every prefill (7 admissions)
-    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
-    if (k6 != attn * cfg.n_layers * len(trace) or k1 <= 0
+    ssm = cfg.family in ("ssm", "hybrid")
+    if (k6 != gqa_attentions(cfg) * len(trace) or k1 <= 0
             or k7 != ssm * cfg.n_layers * 7):
         raise AssertionError(f"serving {arch}: K6 launched {k6}x in "
                              f"{len(trace)} steps, K1 {k1}x, K7 {k7}x")
@@ -1549,6 +1618,62 @@ def _serving_parity(arch: str) -> dict:
             "moved": sum(r["rebalance"][0] for r in trace
                          if "rebalance" in r),
             "failed_over": failed}
+
+
+def _facade_greedy(cfg, params, batch: dict, cache_len: int, steps: int,
+                   device) -> tuple:
+    """Prefill ``batch`` and decode ``steps`` greedy tokens through the
+    model facade on ``device``.  Returns the tokens (B, steps + 1), every
+    step's logits (host float32) and the K6 launches of the decode
+    steps."""
+    from repro_torch import models as M
+    from repro_torch.kernels.decode_attn import kernel as DAK
+
+    params = _to(params, device)
+    logits, cache = M.prefill(params, cfg, {k: v.to(device)
+                                            for k, v in batch.items()},
+                              cache_len=cache_len)
+    rows = [logits[:, :cfg.vocab_size].float().cpu().numpy()]
+    toks = [rows[-1].argmax(-1)]
+    DAK.reset_launches()
+    for _ in range(steps):
+        logits, cache = M.decode_step(
+            params, cfg, torch.tensor(toks[-1], device=device), cache)
+        rows.append(logits[:, :cfg.vocab_size].float().cpu().numpy())
+        toks.append(rows[-1].argmax(-1))
+    return np.stack(toks, 1), rows, DAK.launches["decode_attn"]
+
+
+def _facade_parity(arch: str) -> dict:
+    """The encoder-decoder through the model facade on the card against
+    the CPU, TF32 off: 4 utterances of the reduced config's frames, a
+    4-token prompt, 8 greedy steps; equal tokens, logits within 1e-4, K6
+    on both attentions of every decoder layer of every step."""
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(2)
+    batch = {"frames": torch.randn((4, cfg.encoder_len, cfg.d_model),
+                                   generator=gen),
+             "tokens": torch.randint(0, cfg.vocab_size, (4, 4), generator=gen)}
+    steps = 8
+    with _tf32_off():
+        params = M.init_params(cfg, 0, device="cpu")
+        toks, rows, k6 = _facade_greedy(cfg, params, batch, 32, steps,
+                                        torch.device("cuda"))
+        htoks, hrows, _ = _facade_greedy(cfg, params, batch, 32, steps,
+                                         torch.device("cpu"))
+    if not np.array_equal(toks, htoks):
+        raise AssertionError(f"facade {arch}: token streams differ")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(rows, hrows))
+    if not err <= 1e-4:
+        raise AssertionError(f"facade {arch}: logits differ by {err}")
+    if k6 != gqa_attentions(cfg) * steps:
+        raise AssertionError(f"facade {arch}: K6 launched {k6}x in {steps} "
+                             "steps")
+    return {"cuda_vs_cpu": "equal tokens", "steps": steps,
+            "logits_max_abs_err": err, "launches": {"decode_attn": k6}}
 
 
 # ---------------------------------------------------------------------------
@@ -2273,26 +2398,48 @@ SERVE_REBALANCE_EVERY, SERVE_FAIL_AT = 6, 8
 SERVE_K6_CHECK_STEP = 64
 
 
-def _k6_live_check(e, cfg, seed) -> dict:
-    """K6 against its plain version on layer 0's live cache, at the lengths
-    of the step just run (a check, not a main-path launch)."""
+def _k6_check(q, k, v, lengths) -> dict:
+    """K6 against its plain version on one layer's live cache (a check,
+    not a main-path launch)."""
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.decode_attn import ref as DAR
 
-    dev = e.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    q = torch.randn((SERVE_SLOTS, cfg.n_heads, cfg.head_dim),
-                    generator=gen, device=dev).to(torch.bfloat16)
-    k, v = e.cache["g0"]["k"][0], e.cache["g0"]["v"][0]
-    lengths = e.cache["length"]
     before = DAK.launches["decode_attn"]
     got = DAK.decode_attn(q, k, v, lengths)
     want = DAR.decode_attn_ref(q, k, v, lengths)
     torch.cuda.synchronize()
     DAK.launches["decode_attn"] = before
-    cmp = _k6_compare(got, want)
-    return {**cmp, "lengths": lengths.cpu().tolist()}
+    return {**_k6_compare(got, want), "G": q.shape[1] // k.shape[2],
+            "D": q.shape[2], "S": k.shape[1]}
+
+
+def _live_q(cfg, B: int, seed: int, dev) -> torch.Tensor:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((B, cfg.n_heads, cfg.head_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def _k6_live_check(e, cfg, seed) -> dict:
+    """K6 against its plain version on layer 0's live cache, at the lengths
+    of the step just run: the first attention group's ``k`` / ``v``, or a
+    pair's two sublayers ``ka`` / ``va`` and ``kb`` / ``vb``."""
+    group = next(g for key, g in e.cache.items() if key != "length"
+                 and ("k" in g or "ka" in g))
+    pairs = ([("k", "v")] if "k" in group else [("ka", "va"), ("kb", "vb")])
+    lengths = e.cache["length"]
+    q = _live_q(cfg, SERVE_SLOTS, seed, e.device)
+    return _k6_checks({f"{kn}/{vn}": (q, group[kn][0], group[vn][0], lengths)
+                       for kn, vn in pairs}, lengths)
+
+
+def _k6_checks(cases: dict, lengths) -> dict:
+    """Several ``_k6_check`` s: their worst error and ratio, each case."""
+    res = {name: _k6_check(*args) for name, args in cases.items()}
+    return {"ok": all(r.pop("ok") for r in res.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "tol_ratio": max(r["tol_ratio"] for r in res.values()),
+            "cases": res, "lengths": lengths.cpu().tolist()}
 
 
 class _K7Capture:
@@ -2335,15 +2482,21 @@ class _K7Capture:
                 "dt_range": [float(dt.min()), float(dt.max())]}
 
 
-def _serve_full_width(arch: str, seed: int, check_step: int, check) -> dict:
-    """The serving path at full width: ``ServingEngine`` on ``arch`` with
-    bf16 weights from the port's seeded init, the traffic above, a
-    rebalance every 6 steps and the most-loaded shard failed at step 8.
-    ``check(engine, cfg)`` runs after step ``check_step``; its time is
-    taken out of the run's.  Gates: every request finishes, no sequence
-    stays on the dead shard, and the kernels of the path launch as often as
-    its layers need them: K6 on every attention layer of every decode step,
-    K7 on every SSM layer of every prefill."""
+def _serve_full_width(arch: str, seed: int, check_step: int, check, *,
+                      cfg=None, cache_len: int = SERVE_CACHE,
+                      requests: int = SERVE_REQUESTS,
+                      reduced: dict | None = None, extra=None) -> dict:
+    """The serving path at full width: ``ServingEngine`` on ``arch`` (or on
+    ``cfg``, a cut of it) with bf16 weights from the port's seeded init,
+    the traffic above (``requests`` of them) into a cache of ``cache_len``
+    positions, a rebalance every 6 steps and the most-loaded shard failed
+    at step 8.
+    ``check(engine, cfg)`` runs after step ``check_step`` (None: no
+    check); ``extra(engine, params, cfg)`` after the run, for reports of
+    its own; neither's time is the run's.  Gates: every request finishes,
+    no sequence stays on the dead shard, and the kernels of the path
+    launch as often as its layers need them: K6 on every GQA attention of
+    every decode step, K7 on every SSM layer of every prefill."""
     from repro_torch import models as M
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import kernel as DAK
@@ -2353,24 +2506,25 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check) -> dict:
     from repro_torch.serving.engine import ServingEngine
 
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
+    _free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed, device=dev)
     eng = ServingEngine(cfg, params, n_slots=SERVE_SLOTS,
-                        cache_len=SERVE_CACHE, n_shards=SERVE_SHARDS,
+                        cache_len=cache_len, n_shards=SERVE_SHARDS,
                         device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
-    plens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    plens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, requests)
     for n in plens:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)),
                    max_new_tokens=SERVE_NEW)
     live: dict = {}
 
     def on_step(step, e):
-        if step != check_step:
+        if step != check_step or check is None:
             return
         torch.cuda.synchronize()
         tc = time.perf_counter()
@@ -2396,9 +2550,9 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check) -> dict:
     # every sequence off the dead shard and none sat on it afterwards
     done = eng.finished
     short = [r for r in done.values() if len(r.out_tokens) != SERVE_NEW]
-    if len(done) != SERVE_REQUESTS or short:
+    if len(done) != requests or short:
         raise AssertionError(f"serving {arch}: {len(done)} of "
-                             f"{SERVE_REQUESTS} finished, {len(short)} short")
+                             f"{requests} finished, {len(short)} short")
     (victim, failed_over), = [r["failed"] for r in records if "failed" in r]
     # (a step's record holds its seats before that step's failure)
     seated = sum(sh == victim for r in records if r["step"] > SERVE_FAIL_AT
@@ -2408,28 +2562,30 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check) -> dict:
         raise AssertionError(f"serving {arch}: shard {victim} failed over "
                              f"{len(failed_over)}; {seated} seats and "
                              f"{stayed} failed-over requests on it after")
-    attn, ssm = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
-    if (launches["decode_attn"] != attn * cfg.n_layers * len(decode_ms)
-            or launches["ssd_chunk"] != ssm * cfg.n_layers * SERVE_REQUESTS
-            or launches["range_match"] <= 0 or not live):
+    ssm = cfg.family in ("ssm", "hybrid")
+    if (launches["decode_attn"] != gqa_attentions(cfg) * len(decode_ms)
+            or launches["ssd_chunk"] != ssm * cfg.n_layers * requests
+            or launches["range_match"] <= 0
+            or (check is not None and not live)):
         raise AssertionError(f"serving {arch}: launches {launches} over "
                              f"{len(decode_ms)} decode steps and "
-                             f"{SERVE_REQUESTS} prefills, check {live}")
+                             f"{requests} prefills, check {live}")
     tokens = sum(len(r.out_tokens) for r in done.values())
     rebal = [r["rebalance"] for r in records if "rebalance" in r]
-    reduced = {"batch": "decode_32k's 128 -> 32 slots"}
-    if attn:
-        reduced["cache_len"] = "decode_32k's 32,768 -> 8,192"
+    cut = {"batch": "decode_32k's 128 -> 32 slots"}
+    if eng.kv_cache:
+        cut["cache_len"] = f"decode_32k's 32,768 -> {cache_len:,}"
+    cut.update(reduced or {})
     out = {
-        "arch": arch, "dtype": cfg.dtype,
+        "arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
         "params": M.param_count(params), "param_bytes": M.param_bytes(params),
         "cache_bytes": sum(t.numel() * t.element_size()
                            for k, g in eng.cache.items() if k != "length"
                            for t in g.values()),
-        "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+        "slots": SERVE_SLOTS, "cache_len": cache_len,
         "shards": SERVE_SHARDS, "replication": 2,
-        "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
-        "prompt_tokens": int(plens.sum()), "reduced": reduced,
+        "requests": requests, "new_tokens": SERVE_NEW,
+        "prompt_tokens": int(plens.sum()), "reduced": cut,
         "setup_s": setup_s, "run_s": run_s, "steps": len(records),
         "tokens": tokens, "tokens_per_s": tokens / run_s,
         "prefill_s_p50": float(np.percentile(eng.prefill_seconds, 50)),
@@ -2446,9 +2602,280 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check) -> dict:
         "failed_shard": victim, "failed_over": len(failed_over),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
+    if extra is not None:
+        out.update(extra(eng, params, cfg))
     del eng, params
-    torch.cuda.empty_cache()
+    _free_card()
     return out
+
+
+# phase families: the MoE, MLA, vlm and encdec families, at their
+# published widths, bf16 weights from the port's seeded init, with the
+# serving phases' traffic (whisper through the facade); each cut is in the
+# line's ``reduced``.  Parameter ranges are the reference's own
+# (tests/test_models.py:102-114); llama4 is cut to one pair (its 400e9
+# parameters, 800 GB in bf16, fit no card) and held to that pair's count
+FAMILY_PARAMS = {"deepseek-moe-16b": (15e9, 18e9), "minicpm3-4b": (3.5e9, 5e9),
+                 "internvl2-26b": (19e9, 27e9), "whisper-small": (0.2e9, 0.35e9)}
+FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
+                "internvl2-26b": 4096, "llama4-maverick-400b-a17b": 8192}
+# half the serving phases' 64 requests: the four engine runs took 145-270
+# s of host time with 64 each (NVIDIA H100 80GB HBM3, 700 W), and the
+# script must stay well inside its time limit
+FAMILY_REQUESTS = 32
+LLAMA4_DEPTH = 2
+MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
+VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
+# whisper: 32 utterances of 30 s (1,500 frames), the start-of-transcript
+# prompt <|startoftranscript|><|en|><|transcribe|><|notimestamps|>, 128
+# greedy steps in the published 448-position decoder context
+WHISPER_BATCH, WHISPER_STEPS, WHISPER_CACHE = 32, 128, 448
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+
+
+def _pair_param_count(cfg) -> int:
+    """The parameters of a ``pair`` stack counted from its widths:
+    embeddings, lm_head and final norm, then per pair a dense layer and a
+    MoE layer (two norms and GQA attention each; the MoE's router, routed
+    and shared experts)."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    attn = 2 * D * cfg.q_dim + 2 * D * cfg.kv_dim
+    dense = 2 * D + attn + 3 * D * cfg.d_ff
+    moe = (2 * D + attn + D * cfg.n_experts
+           + 3 * cfg.n_experts * D * cfg.expert_d_ff
+           + 3 * D * cfg.expert_d_ff * cfg.n_shared_experts)
+    return 2 * V * D + D + cfg.n_layers // 2 * (dense + moe)
+
+
+def _moe_drops(eng, params, cfg) -> dict:
+    """``forward_seq``'s MoE aux on one seeded prompt of 2,048 tokens."""
+    from repro_torch.models import transformer as TT
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_PROMPT), generator=gen,
+                         device="cuda")
+    x, _ = TT.assemble_inputs(params, cfg, {"tokens": toks})
+    _, aux, _ = TT.forward_seq(params, cfg, x)
+    layers = sum(g.n_layers for g in TT.layer_groups(cfg)
+                 if g.kind in ("moe", "pair"))
+    n = MOE_PROMPT * cfg.top_k * layers
+    dropped = int(aux["moe_dropped"])
+    return {"moe": {"prompt_tokens": MOE_PROMPT, "layers": layers,
+                    "capacity_factor": cfg.moe_capacity_factor,
+                    "assignments": n, "dropped": dropped,
+                    "dropped_share": dropped / n,
+                    "aux_loss": float(aux["moe_aux_loss"])}}
+
+
+def _decode_vs_prefill(eng, params, cfg) -> dict:
+    """One decode step's logits against the teacher-forced prefill of the
+    same 257 tokens (reported; phase 3 is the gate)."""
+    from repro_torch import models as M
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, 257), generator=gen,
+                         device="cuda")
+    _, cache = M.prefill(params, cfg, {"tokens": toks[:, :-1]}, cache_len=512)
+    dec, _ = M.decode_step(params, cfg, toks[:, -1], cache)
+    full, _ = M.prefill(params, cfg, {"tokens": toks}, cache_len=512)
+    return {"decode_vs_prefill": {
+        "tokens": 257, "max_abs_diff": float((dec.float() - full.float())
+                                             .abs().max()),
+        "logits_abs_max": float(full.float().abs().max())}}
+
+
+def _vlm_facade(eng, params, cfg) -> dict:
+    """One facade prefill of 256 seeded patch embeddings (width 3,200)
+    before 256 tokens, then 16 greedy decode steps; K6 on every layer of
+    every step."""
+    from repro_torch import models as M
+    from repro_torch.kernels.decode_attn import kernel as DAK
+
+    eng.cache = None                    # the engine's KV cache is done
+    _free_card()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"patches": torch.randn((1, VLM_PATCHES, cfg.vit_embed_dim),
+                                    generator=gen, device=dev),
+             "tokens": torch.randint(0, cfg.vocab_size, (1, VLM_TOKENS),
+                                     generator=gen, device=dev)}
+    torch.cuda.synchronize()
+    before = DAK.launches["decode_attn"]
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, batch,
+                              cache_len=VLM_PATCHES + VLM_TOKENS + VLM_STEPS)
+    tok = logits[:, :cfg.vocab_size].argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    events, finite = [], bool(torch.isfinite(logits).all())
+    for _ in range(VLM_STEPS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        logits, cache = M.decode_step(params, cfg, tok, cache)
+        ev[1].record()
+        events.append(ev)
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        finite &= bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    k6 = DAK.launches["decode_attn"] - before
+    DAK.launches["decode_attn"] = before      # not the engine run's count
+    length = int(cache["length"][0])
+    if (not finite or k6 != gqa_attentions(cfg) * VLM_STEPS
+            or length != VLM_PATCHES + VLM_TOKENS + VLM_STEPS):
+        raise AssertionError(f"vlm facade: finite {finite}, K6 {k6}, "
+                             f"length {length}")
+    ms = [a.elapsed_time(b) for a, b in events]
+    return {"vlm_facade": {"patches": VLM_PATCHES, "tokens": VLM_TOKENS,
+                           "decode_steps": VLM_STEPS, "prefill_s": prefill_s,
+                           "decode_ms_p50": float(np.percentile(ms, 50)),
+                           "decode_ms_p99": float(np.percentile(ms, 99)),
+                           "decode_attn_launches": k6, "length": length}}
+
+
+def _whisper_full_width(seed: int) -> dict:
+    """whisper-small at its published widths through the model facade:
+    32 utterances of 1,500 seeded frame embeddings, the start-of-transcript
+    prompt, 128 greedy steps (host picks, as the engine's) in a cache of
+    448 positions.  K6 on the self and the cross attention of every layer
+    of every step, held against its plain version on layer 0's self and
+    cross caches after step 64."""
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    dev = torch.device("cuda")
+    arch = "whisper-small"
+    cfg = get_config(arch)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randn((WHISPER_BATCH, cfg.encoder_len, cfg.d_model),
+                         generator=gen, device=dev)
+    prompt = torch.tensor(WHISPER_PROMPT, device=dev).repeat(WHISPER_BATCH, 1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    DAK.reset_launches()
+    RMK.reset_launches()
+    t1 = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, {"frames": frames,
+                                            "tokens": prompt},
+                              cache_len=WHISPER_CACHE)
+    picks = [logits[:, :cfg.vocab_size].float().cpu().numpy().argmax(-1)]
+    prefill_s = time.perf_counter() - t1
+    events, live, check_s = [], {}, 0.0
+    for step in range(1, WHISPER_STEPS + 1):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        logits, cache = M.decode_step(
+            params, cfg, torch.tensor(picks[-1], device=dev), cache)
+        ev[1].record()
+        events.append(ev)
+        picks.append(logits[:, :cfg.vocab_size].float().cpu().numpy()
+                     .argmax(-1))
+        if step == WHISPER_STEPS // 2:
+            tc = time.perf_counter()
+            q = _live_q(cfg, WHISPER_BATCH, seed, dev)
+            enc = torch.full((WHISPER_BATCH,), cfg.encoder_len,
+                             dtype=torch.int32, device=dev)
+            live = _k6_checks({
+                "self": (q, cache["k"][0], cache["v"][0], cache["length"]),
+                "cross": (q, cache["ck"][0], cache["cv"][0], enc)},
+                cache["length"])
+            if not live.pop("ok"):
+                raise AssertionError(f"whisper: K6 off its plain version: "
+                                     f"{live}")
+            check_s = time.perf_counter() - tc
+            live.update(step=step, seconds=check_s)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1 - check_s
+    ms = [a.elapsed_time(b) for a, b in events]
+    launches = {"decode_attn": DAK.launches["decode_attn"],
+                "range_match": RMK.launches["range_match"], "ssd_chunk": 0}
+    finite = bool(torch.isfinite(logits).all())
+    if (launches["decode_attn"] != gqa_attentions(cfg) * WHISPER_STEPS
+            or not finite or int(cache["length"][0])
+            != len(WHISPER_PROMPT) + WHISPER_STEPS):
+        raise AssertionError(f"whisper: launches {launches}, finite "
+                             f"{finite}, length {cache['length'][0]}")
+    tokens = WHISPER_BATCH * (WHISPER_STEPS + 1)
+    out = {
+        "arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "n_encoder_layers": cfg.n_encoder_layers,
+        "params": M.param_count(params), "param_bytes": M.param_bytes(params),
+        "cache_bytes": sum(t.numel() * t.element_size() for k, t in
+                           cache.items() if k != "length"),
+        "batch": WHISPER_BATCH, "frames": cfg.encoder_len,
+        "prompt_tokens": len(WHISPER_PROMPT), "cache_len": WHISPER_CACHE,
+        "reduced": {"batch": "decode_32k's 128 -> 32 utterances",
+                    "cache_len": "the published decoder context, 448"},
+        "setup_s": setup_s, "run_s": run_s, "tokens": tokens,
+        "tokens_per_s": tokens / run_s,
+        # one prefill of the whole batch: its p50 and p99 are its time
+        "prefill_s_p50": prefill_s, "prefill_s_p99": prefill_s,
+        "prefill_s_total": prefill_s, "decode_steps": len(ms),
+        "decode_ms_p50": float(np.percentile(ms, 50)),
+        "decode_ms_p99": float(np.percentile(ms, 99)),
+        "decode_ms_total": float(sum(ms)), "launches": launches,
+        "live_check": live,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    del params, cache, frames
+    _free_card()
+    return out
+
+
+def phase_families(seed: int = 0) -> list[dict]:
+    """deepseek-moe-16b, minicpm3-4b, internvl2-26b and llama4-maverick
+    (one pair) through the engine, whisper-small through the facade; one
+    line each, with its parameter gate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    live = lambda e, cfg: _k6_live_check(e, cfg, seed)  # noqa: E731
+    llama4 = get_config("llama4-maverick-400b-a17b")
+    llama4 = dataclasses.replace(llama4, n_layers=LLAMA4_DEPTH)
+    runs = (
+        ("deepseek-moe-16b", dict(check=live, extra=_moe_drops)),
+        ("minicpm3-4b", dict(check=None, extra=_decode_vs_prefill)),
+        ("internvl2-26b", dict(check=live, extra=_vlm_facade)),
+        ("llama4-maverick-400b-a17b", dict(
+            check=live, extra=_moe_drops, cfg=llama4,
+            reduced={"depth": "48 -> 2 layers (one dense + MoE pair): the "
+                              "full model's ~800 GB of bf16 fits no card"})),
+    )
+    lines = []
+    for arch, kw in runs + (("whisper-small", None),):
+        if kw is None:
+            out = _whisper_full_width(seed)
+        else:
+            check = kw.pop("check")
+            out = _serve_full_width(
+                arch, seed, SERVE_K6_CHECK_STEP, check,
+                cache_len=FAMILY_CACHE[arch], requests=FAMILY_REQUESTS,
+                reduced={"requests": f"{SERVE_REQUESTS} -> "
+                                     f"{FAMILY_REQUESTS}: the script's "
+                                     "time limit", **kw.pop("reduced", {})},
+                **kw)
+        if arch in FAMILY_PARAMS:
+            lo, hi = FAMILY_PARAMS[arch]
+            ok = lo <= out["params"] <= hi
+            out["params_gate"] = f"{lo:.3g} <= params <= {hi:.3g}"
+        else:
+            want = _pair_param_count(llama4)
+            ok = out["params"] == want
+            out["params_gate"] = f"params == {want} (the pair's count)"
+        if not ok:
+            raise AssertionError(f"families {arch}: {out['params']} "
+                                 f"parameters, gate {out['params_gate']}")
+        emit({"phase": "families", **out})
+        lines.append(out)
+    return lines
 
 
 def phase_serving(seed: int = 0) -> dict:
@@ -2598,6 +3025,11 @@ def main(argv=None) -> int:
     dist = phase_dist() if "dist" in phases else None
     serving = phase_serving() if "serving" in phases else None
     serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
+    families = phase_families() if "families" in phases else None
+    if families is not None:      # the five runs' launches as one path
+        families = {"launches": {name: sum(f["launches"][name]
+                                           for f in families)
+                                 for name in families[0]["launches"]}}
     if "profile" in phases:
         phase_profile()
     if "serving_profile" in phases:
@@ -2608,12 +3040,12 @@ def main(argv=None) -> int:
         # cases are in the kernels phase's own lines.  Launches: each main
         # path's count, read after its own run (the epoch driver's
         # full-width runs on both backends, the qwen2 and mamba2 serving
-        # runs), in
+        # runs, the five runs of phase families summed), in
         # launches_by_path; launches is their sum
         paths = {name: p["launches"] for name, p in
                  (("full_width", full), ("overload", ovl),
                   ("telemetry", tel), ("dist", dist), ("serving", serving),
-                  ("serving_ssm", serving_ssm))
+                  ("serving_ssm", serving_ssm), ("families", families))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]

@@ -163,7 +163,10 @@ def _tree_from_numpy(tree, device, dtype):
 
 def params_from_numpy(cfg, tree, device=None, dtype: torch.dtype | None = None):
     """The reference's parameter pytree (nested dicts of numpy arrays) ->
-    the port's dict of tensors, leaf for leaf, every float leaf cast to
+    the port's dict of tensors, leaf for leaf (every family's tree: the
+    ``moe`` router / experts / ``shared`` leaves, a pair's ``a`` / ``b``,
+    the MLA leaves, the vlm's ``mlp1``, whisper's ``enc`` / ``dec`` stacks
+    and layer-norm biases), every float leaf cast to
     ``dtype`` (default ``cfg.dtype``, the dtype the model serves in: the
     reference's float32 master weights do not serve under a bfloat16
     config, ROADMAP F7; the SSM's float32 ``A_log``, ``D`` and ``dt_bias``
@@ -174,8 +177,10 @@ def params_from_numpy(cfg, tree, device=None, dtype: torch.dtype | None = None):
 
 def cache_from_numpy(tree, device=None) -> dict:
     """The reference's decode cache (``length`` and each group's stacked
-    ``k`` / ``v`` and Mamba ``conv`` / ``ssm`` states) as the port's
-    tensors, in the arrays' own dtypes."""
+    ``k`` / ``v``, a pair's ``ka`` / ``va`` / ``kb`` / ``vb``, MLA's
+    ``ckv`` / ``krope``, the Mamba ``conv`` / ``ssm`` states; whisper's
+    flat ``k`` / ``v`` / ``ck`` / ``cv``) as the port's tensors, in the
+    arrays' own dtypes."""
     return _tree_from_numpy(tree, resolve_device(device), None)
 
 

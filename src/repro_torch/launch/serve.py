@@ -10,9 +10,11 @@ injection):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --reduced --device cpu
 
-Any ported family serves: dense (qwen2, qwen3, gemma3), ssm (mamba2) and
-hybrid (hymba, whose meta tokens take cache rows: ``--cache-len`` must
-hold them and the prompt).
+Every decoder-only family serves: dense (qwen2, qwen3, gemma3), MLA
+(minicpm3), MoE (deepseek-moe, llama4), vlm (internvl2, text only), ssm
+(mamba2) and hybrid (hymba, whose meta tokens take cache rows:
+``--cache-len`` must hold them and the prompt).  The encoder-decoder
+(whisper) needs its frames and is driven through the model facade.
 
 ``--device`` defaults to the CUDA card; ``--device cpu`` runs the plain
 versions on the host.  The weights come from the port's seeded init, in

@@ -1,4 +1,5 @@
-"""Model zoo on PyTorch: the dense, SSM and hybrid decoder-only families
+"""Model zoo on PyTorch: all ten assigned architectures, the decoder-only
+families (dense, MLA, MoE, SSM, hybrid, vlm) and the encoder-decoder
 (counterpart of ``repro.models``)."""
 
 from repro_torch.models.model import (

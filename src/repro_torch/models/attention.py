@@ -1,16 +1,23 @@
-"""Attention, the GQA half (counterpart of ``repro.models.attention``):
-qk-norm, QKV bias and sliding windows.
+"""Attention variants (counterpart of ``repro.models.attention``): GQA
+(qk-norm, QKV bias, sliding windows) and MLA (multi-head latent
+attention, minicpm3).
 
 * :func:`gqa_seq`    full sequence (prefill) through the blockwise flash
                      attention; optionally returns the K/V it computed.
 * :func:`gqa_decode` one token against a fixed-capacity cache, through the
                      decode-attention wrapper (K6 on the card).
+* :func:`mla_seq`    full sequence: K/V decompressed from the latent, then
+                     the flash attention (q / k of width nd + rd, v of vd).
+* :func:`mla_decode` one token in the absorbed form, against the latent
+                     cache (ckv, krope): plain float32 einsums, as the
+                     reference computes it outside Pallas (its score width
+                     kvr + rd and value width kvr are none of K6's head
+                     dims).
 
 Parameter leaves carry no layer axis here; the transformer stacks them
 (L, ...) and loops.  Projections compute in the parameters' dtype (which
 must be ``cfg.dtype``); softmax and norms in f32.  The reference's
 ``constrain`` sharding hints are no-ops on one device and are dropped.
-MLA (minicpm3) is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
-from repro_torch.models.flash import flash_attention
+from repro_torch.models.flash import NEG_INF, flash_attention
 
 
 def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
@@ -122,8 +129,99 @@ def _decode_attend(q, k, v, lengths, *, window: int | None = None,
                        scale=scale)
 
 
-def init_mla(*args, **kwargs):
-    raise NotImplementedError("MLA (minicpm3) is not ported yet")
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek lineage)
+# ---------------------------------------------------------------------------
 
 
-mla_seq = mla_decode = init_mla
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             n_layers: int) -> dict:
+    """The MLA parameters of ``n_layers`` stacked layers."""
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    L, dev = (n_layers,), gen.device
+    return {
+        "wdq": dense_init(gen, L + (D, qr), dtype),
+        "q_norm": torch.ones(L + (qr,), dtype=dtype, device=dev),
+        "wuq": dense_init(gen, L + (qr, H * (nd + rd)), dtype),
+        "wdkv": dense_init(gen, L + (D, kvr + rd), dtype),
+        "kv_norm": torch.ones(L + (kvr,), dtype=dtype, device=dev),
+        "wukv": dense_init(gen, L + (kvr, H * (nd + vd)), dtype),
+        "wo": dense_init(gen, L + (H * vd, D), dtype),
+    }
+
+
+def _mla_q(x, p, cfg: ArchConfig, positions):
+    B, T, _ = x.shape
+    H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(B, T, H, nd + rd)
+    qn, qr = q[..., :nd], q[..., nd:]
+    return qn, apply_rope(qr, positions, cfg.rope_theta)
+
+
+def _mla_ckv(x, p, cfg: ArchConfig, positions):
+    """The latent (B, T, kvr) and the shared rotary key (B, T, rd)."""
+    kvr = cfg.kv_lora_rank
+    ckv_full = x @ p["wdkv"]
+    ckv = rms_norm(ckv_full[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    krope = apply_rope(ckv_full[..., kvr:][:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0]
+    return ckv, krope
+
+
+def mla_seq(x, p, cfg: ArchConfig, *, positions=None, q_block: int = 256,
+            kv_block: int = 512, return_kv: bool = False):
+    """Full-sequence MLA: decompress K/V and run the flash attention."""
+    B, T, _ = x.shape
+    H, nd, rd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)
+    qn, qr = _mla_q(x, p, cfg, positions)
+    ckv, krope = _mla_ckv(x, p, cfg, positions)
+    kv = (ckv @ p["wukv"]).reshape(B, T, H, nd + vd)
+    kn, v = kv[..., :nd], kv[..., nd:]
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, krope[:, :, None, :].expand(B, T, H, rd)], dim=-1)
+    out = flash_attention(q, k, v, causal=True, q_block=q_block,
+                          kv_block=kv_block, scale=(nd + rd) ** -0.5)
+    y = out.reshape(B, T, -1) @ p["wo"]
+    if return_kv:
+        return y, (ckv, krope)
+    return y
+
+
+def mla_decode(x_t, p, cfg: ArchConfig, ckv_cache, krope_cache, length):
+    """Absorbed-form MLA decode: scores and context against the latent
+    cache, ckv (B, S, kvr) and krope (B, S, rd), both updated in place.
+    q_nope is mapped into latent space once, so a token costs O(S * (kvr +
+    rd)) a head instead of decompressing O(S * H * (nd + vd)).  Returns
+    ``(y, ckv_cache, krope_cache)``."""
+    B = x_t.shape[0]
+    H, nd, rd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    positions = length[:, None]
+    qn, qr = _mla_q(x_t, p, cfg, positions)          # (B,1,H,nd),(B,1,H,rd)
+    ckv_t, krope_t = _mla_ckv(x_t, p, cfg, positions)
+    _write_at(ckv_cache, ckv_t[:, 0], length)
+    _write_at(krope_cache, krope_t[:, 0], length)
+    new_len = length + 1
+
+    wukv = p["wukv"].reshape(kvr, H, nd + vd)
+    wuk, wuv = wukv[..., :nd], wukv[..., nd:]
+    # absorb: q'(B, H, kvr) = qn . wuk^T
+    q_lat = torch.einsum("bhn,rhn->bhr", qn[:, 0].float(), wuk.float())
+    s = torch.einsum("bhr,bsr->bhs", q_lat, ckv_cache.float())
+    s = s + torch.einsum("bhr,bsr->bhs", qr[:, 0].float(), krope_cache.float())
+    s = s * (nd + rd) ** -0.5
+    S = ckv_cache.shape[1]
+    valid = (torch.arange(S, device=s.device)[None, None, :]
+             < new_len[:, None, None])
+    s = torch.where(valid, s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    attn = e / e.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    ctx = torch.einsum("bhs,bsr->bhr", attn, ckv_cache.float())  # latent ctx
+    out = torch.einsum("bhr,rhv->bhv", ctx, wuv.float())         # (B, H, vd)
+    y = out.reshape(B, 1, H * vd).to(x_t.dtype) @ p["wo"]
+    return y, ckv_cache, krope_cache

@@ -63,6 +63,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoid_pos(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positions (T, D), float32."""
+    half = dim // 2
+    # log(10000) rounded to float32, then a float32 division, as the
+    # reference forms its constant
+    step = torch.tensor(math.log(10000.0), dtype=torch.float32,
+                        device=device) / (half - 1)
+    scale = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                      * step)
+    pos = (torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+           * scale[None, :])
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -78,6 +92,8 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     std = scale if scale is not None else min(0.02, fan_in ** -0.5)
     u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
     lo = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))          # Phi(-3)
-    z = torch.special.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
-    z = (z * math.sqrt(2.0)).clamp_(-3.0, 3.0)
-    return (z * std).to(dtype)
+    # in place, so a stack of experts (16e9 values for llama4's MoE layer)
+    # needs one float32 copy besides its weights
+    z = u.mul_(1.0 - 2.0 * lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_()
+    z = z.mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0)
+    return z.mul_(std).to(dtype)

@@ -24,6 +24,17 @@ def swiglu(x, p, cfg: ArchConfig):
     return (act(x @ p["wg"]) * (x @ p["wu"])) @ p["wo"]
 
 
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype, n_layers: int) -> dict:
+    L, dev = (n_layers,), gen.device
+    return {
+        "wi": dense_init(gen, L + (d_model, d_ff), dtype),
+        "bi": torch.zeros(L + (d_ff,), dtype=dtype, device=dev),
+        "wo": dense_init(gen, L + (d_ff, d_model), dtype),
+        "bo": torch.zeros(L + (d_model,), dtype=dtype, device=dev),
+    }
+
+
 def mlp(x, p, cfg: ArchConfig):
     act = activation(cfg.act)
     return act(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]

@@ -1,38 +1,34 @@
 """Public model facade (counterpart of ``repro.models.model``): family
-dispatch for init / prefill / decode.  The encoder-decoder family
-(whisper) is not ported yet and raises."""
+dispatch for init / prefill / decode, the encoder-decoder family
+(whisper) to ``encdec``, every other to ``transformer``."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 
 
-def _decoder_only(cfg: ArchConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encdec family is not "
-                                  "ported yet")
+def _family(cfg: ArchConfig):
+    return ED if cfg.family == "encdec" else TF
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
-    _decoder_only(cfg)
-    return TF.init_params(cfg, seed, device=device)
+    return _family(cfg).init_params(cfg, seed, device=device)
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
-    _decoder_only(cfg)
-    return TF.prefill(params, cfg, batch, cache_len=cache_len)
+    return _family(cfg).prefill(params, cfg, batch, cache_len=cache_len)
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens_t, cache: dict):
-    _decoder_only(cfg)
-    return TF.decode_step(params, cfg, tokens_t, cache)
+    return _family(cfg).decode_step(params, cfg, tokens_t, cache)
 
 
 def empty_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                 length: int = 0, device=None) -> dict:
-    _decoder_only(cfg)
-    return TF.empty_cache(cfg, batch, cache_len, length=length, device=device)
+    return _family(cfg).empty_cache(cfg, batch, cache_len, length=length,
+                                    device=device)
 
 
 def _leaves(tree: dict):

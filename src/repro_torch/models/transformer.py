@@ -1,5 +1,7 @@
-"""Decoder-only transformer stack, the ``dense``, ``ssm`` and ``hybrid``
-layer kinds (counterpart of ``repro.models.transformer``).
+"""Decoder-only transformer stack for every LM family: the ``dense``,
+``mla``, ``moe``, ``pair`` (llama4's dense + MoE sublayers), ``ssm`` and
+``hybrid`` layer kinds, and the ``vlm`` family's patch prefix
+(counterpart of ``repro.models.transformer``).
 
 Parameters are a dict of tensors mirroring the reference's pytree: every
 layer leaf is stacked with a leading layer axis under its group's name
@@ -10,20 +12,20 @@ layer's ``is_global`` flag a host bool (window or no window).
 
 The cache returned by :func:`prefill` and threaded by :func:`decode_step`
 keeps one stacked entry per group and the shared ``length`` (B,) int32:
-``{"k", "v"}`` (L, B, S, Hkv, Dh) for ``dense``; the Mamba states
-``{"conv", "ssm"}``, (L, B, d_conv - 1, conv_ch) in ``cfg.dtype`` and (L,
-B, H, P, N) float32, for ``ssm``; all four for ``hybrid``.  The states are
-not sequence-indexed, so :func:`prefill` pads only K/V.
-:func:`decode_step` writes the new token's K/V and the new states into
-those tensors in place.
+``{"k", "v"}`` (L, B, S, Hkv, Dh) for ``dense`` and ``moe``; ``{"ka",
+"va", "kb", "vb"}`` for ``pair`` (one K/V a sublayer); the latent
+``{"ckv", "krope"}`` (L, B, S, kvr) and (L, B, S, rd) for ``mla``; the
+Mamba states ``{"conv", "ssm"}``, (L, B, d_conv - 1, conv_ch) in
+``cfg.dtype`` and (L, B, H, P, N) float32, for ``ssm``; ``k``, ``v`` and
+the states for ``hybrid``.  The states are not sequence-indexed, so
+:func:`prefill` pads only the rest.  :func:`decode_step` writes the new
+token's rows and the new states into those tensors in place.
 
 Every floating parameter must be in ``cfg.dtype`` (ROADMAP F7): the
 reference's serving path fails on float32 weights under a bfloat16 config,
 and PyTorch does not promote ``bf16 @ f32`` either, so a mismatch raises.
 That includes the SSM's ``A_log``, ``D`` and ``dt_bias``, which the
 reference keeps in float32 and its training step casts like the rest.
-The ``mla``, ``moe`` and ``pair`` kinds and the ``vlm`` family are not
-ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FF
 from repro_torch.models import hybrid as HY
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 from repro_torch.models.common import dense_init, rms_norm
 
@@ -86,19 +89,7 @@ def global_flags(cfg: ArchConfig, layer_ids: tuple[int, ...]) -> list[bool]:
     return flags
 
 
-PORTED_KINDS = ("dense", "ssm", "hybrid")
 STATE_KEYS = ("conv", "ssm")    # cache entries that are not sequence-indexed
-
-
-def _ported_groups(cfg: ArchConfig) -> list[GroupSpec]:
-    groups = layer_groups(cfg)
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: the vlm family is not ported yet")
-    for g in groups:
-        if g.kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {g.kind!r} is not ported yet")
-    return groups
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -127,6 +118,33 @@ def check_param_dtypes(params: dict, cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _init_layers(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                 dtype: torch.dtype, L: int) -> dict:
+    """The stacked parameters of ``L`` layers of ``kind``."""
+    D = cfg.d_model
+    fill = torch.zeros if cfg.norm_plus_one else torch.ones
+    norm = lambda: fill((L, D), dtype=dtype, device=gen.device)  # noqa: E731
+    if kind == "ssm":
+        return {"ln1": norm(), "ssm": S.init_ssm(gen, cfg, dtype, L)}
+    if kind == "hybrid":
+        return {"ln1": norm(), "mix": HY.init_hybrid(gen, cfg, dtype, L),
+                "ln2": norm(),
+                "mlp": FF.init_swiglu(gen, D, cfg.d_ff, dtype, L)}
+    if kind == "pair":
+        return {"a": _init_layers(gen, cfg, "dense", dtype, L),
+                "b": _init_layers(gen, cfg, "moe", dtype, L)}
+    attn = (A.init_mla if kind == "mla" else A.init_gqa)(gen, cfg, dtype, L)
+    p = {"ln1": norm(), "attn": attn, "ln2": norm()}
+    if kind == "moe":
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, L)
+    else:
+        p["mlp"] = FF.init_swiglu(gen, D, cfg.d_ff, dtype, L)
+    if cfg.post_norms:
+        p["ln1_post"] = norm()
+        p["ln2_post"] = norm()
+    return p
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     """The port's own seeded init (truncated normals from a
     ``torch.Generator`` on ``device``; it cannot equal ``jax.random``, so
@@ -134,7 +152,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     are made in ``cfg.dtype``, the dtype they serve in."""
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
-    groups = _ported_groups(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     D = cfg.d_model
@@ -145,28 +162,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, cfg.padded_vocab), dtype)
+    if cfg.family == "vlm":
+        params["mlp1"] = {
+            "w1": dense_init(gen, (cfg.vit_embed_dim, D), dtype),
+            "w2": dense_init(gen, (D, D), dtype),
+        }
     if cfg.n_meta_tokens:
         params["meta_tokens"] = dense_init(gen, (cfg.n_meta_tokens, D), dtype,
                                            scale=0.02)
-    for g in groups:
-        L = g.n_layers
-        norm = lambda: fill((L, D), dtype=dtype, device=dev)  # noqa: E731
-        if g.kind == "ssm":
-            params[g.name] = {"ln1": norm(),
-                              "ssm": S.init_ssm(gen, cfg, dtype, L)}
-            continue
-        mlp = lambda: FF.init_swiglu(gen, D, cfg.d_ff, dtype, L)  # noqa: E731
-        if g.kind == "hybrid":
-            params[g.name] = {"ln1": norm(),
-                              "mix": HY.init_hybrid(gen, cfg, dtype, L),
-                              "ln2": norm(), "mlp": mlp()}
-            continue
-        p = {"ln1": norm(), "attn": A.init_gqa(gen, cfg, dtype, L),
-             "ln2": norm(), "mlp": mlp()}
-        if cfg.post_norms:
-            p["ln1_post"] = norm()
-            p["ln2_post"] = norm()
-        params[g.name] = p
+    for g in layer_groups(cfg):
+        params[g.name] = _init_layers(gen, cfg, g.kind, dtype, g.n_layers)
     return params
 
 
@@ -185,32 +190,48 @@ def _norm(x, w, cfg: ArchConfig):
     return rms_norm(x, w, cfg.norm_eps, plus_one=cfg.norm_plus_one)
 
 
-def _attn_seq(x, lp, cfg: ArchConfig, is_global: bool, return_cache: bool):
+def _residual(x, y, cfg: ArchConfig):
+    """x + residual_scale * y, the scale rounded to y's dtype first (the
+    reference's weakly typed Python float)."""
+    return x + _in_dtype(cfg.residual_scale, y.dtype) * y
+
+
+def _attn_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
+              return_cache: bool):
     h = _norm(x, lp["ln1"], cfg)
-    out = A.gqa_seq(h, lp["attn"], cfg, is_global=is_global,
-                    return_kv=return_cache)
+    if kind == "mla":
+        out = A.mla_seq(h, lp["attn"], cfg, return_kv=return_cache)
+    else:
+        out = A.gqa_seq(h, lp["attn"], cfg, is_global=is_global,
+                        return_kv=return_cache)
     y, kv = out if return_cache else (out, None)
     if cfg.post_norms:
         y = _norm(y, lp["ln1_post"], cfg)
-    return x + cfg.residual_scale * y, kv
+    return _residual(x, y, cfg), kv
 
 
-def _ffn_seq(x, lp, cfg: ArchConfig):
-    y = FF.swiglu(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
+def _ffn_seq(x, lp, cfg: ArchConfig, kind: str = "dense"):
+    """The FFN sublayer; returns (x, aux), aux the MoE's terms or {}."""
+    h = _norm(x, lp["ln2"], cfg)
+    aux = {}
+    if kind == "moe":
+        y, aux = MOE.moe_layer(h, lp["moe"], cfg)
+    else:
+        y = FF.swiglu(h, lp["mlp"], cfg)
     if cfg.post_norms:
         y = _norm(y, lp["ln2_post"], cfg)
-    return x + cfg.residual_scale * y
+    return _residual(x, y, cfg), aux
 
 
 def _layer_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
                return_cache: bool):
-    """One layer of ``kind``; returns (x, its cache entry or None)."""
+    """One layer of ``kind``; returns (x, aux, its cache entry or None)."""
     if kind == "ssm":
         h = _norm(x, lp["ln1"], cfg)
         if return_cache:
             y, sstate, cstate = S.ssm_seq(h, lp["ssm"], cfg, return_state=True)
-            return x + y, {"conv": cstate, "ssm": sstate}
-        return x + S.ssm_seq(h, lp["ssm"], cfg), None
+            return x + y, {}, {"conv": cstate, "ssm": sstate}
+        return x + S.ssm_seq(h, lp["ssm"], cfg), {}, None
     if kind == "hybrid":
         h = _norm(x, lp["ln1"], cfg)
         cache = None
@@ -220,30 +241,53 @@ def _layer_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
             cache = {"k": k, "v": v, "conv": cstate, "ssm": sstate}
         else:
             y = HY.hybrid_seq(h, lp["mix"], cfg, is_global=is_global)
-        return _ffn_seq(x + y, lp, cfg), cache
-    x, kv = _attn_seq(x, lp, cfg, is_global, return_cache)
-    return _ffn_seq(x, lp, cfg), ({"k": kv[0], "v": kv[1]} if return_cache
-                                  else None)
+        x, _ = _ffn_seq(x + y, lp, cfg)
+        return x, {}, cache
+    if kind == "pair":
+        x, kva = _attn_seq(x, lp["a"], cfg, "dense", is_global, return_cache)
+        x, _ = _ffn_seq(x, lp["a"], cfg)
+        x, kvb = _attn_seq(x, lp["b"], cfg, "dense", is_global, return_cache)
+        x, aux = _ffn_seq(x, lp["b"], cfg, "moe")
+        cache = None
+        if return_cache:
+            cache = {"ka": kva[0], "va": kva[1], "kb": kvb[0], "vb": kvb[1]}
+        return x, aux, cache
+    # dense / mla / moe
+    x, kv = _attn_seq(x, lp, cfg, kind, is_global, return_cache)
+    x, aux = _ffn_seq(x, lp, cfg, kind)
+    cache = None
+    if return_cache:
+        cache = ({"ckv": kv[0], "krope": kv[1]} if kind == "mla"
+                 else {"k": kv[0], "v": kv[1]})
+    return x, aux, cache
 
 
 def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
                 return_cache: bool = False):
     """Run all layer groups over x (B, T, D) embeddings (already scaled).
 
-    Returns ``(x, caches)``: caches maps each group to its stacked entries
-    (K/V (L, B, T, Hkv, Dh), the Mamba states (L, B, ...)), or is None."""
+    Returns ``(x, aux, caches)``: aux sums the MoE layers' ``moe_aux_loss``
+    (float32) and ``moe_dropped`` (int32) in layer order; caches maps each
+    group to its stacked entries (K/V (L, B, T, Hkv, Dh), the latent, the
+    Mamba states (L, B, ...)), or is None."""
     caches = {}
-    for g in _ported_groups(cfg):
+    aux_total = {
+        "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=x.device),
+        "moe_dropped": torch.zeros((), dtype=torch.int32, device=x.device)}
+    for g in layer_groups(cfg):
         flags = global_flags(cfg, g.layer_ids)
         entries = []
         for l in range(g.n_layers):
             lp = _layer(params[g.name], l)
-            x, entry = _layer_seq(x, lp, cfg, g.kind, flags[l], return_cache)
+            x, aux, entry = _layer_seq(x, lp, cfg, g.kind, flags[l],
+                                       return_cache)
+            for k, v in aux.items():
+                aux_total[k] = aux_total[k] + v
             entries.append(entry)
         if return_cache:
             caches[g.name] = {k: torch.stack([e[k] for e in entries])
                               for k in entries[0]}
-    return x, (caches if return_cache else None)
+    return x, aux_total, (caches if return_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -263,11 +307,23 @@ def embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
     return x * _in_dtype(cfg.embed_scale, x.dtype)
 
 
+def project_patches(params: dict, cfg: ArchConfig, patches: torch.Tensor):
+    """The vlm's stub frontend output (B, P, vit_embed_dim) -> d_model
+    tokens (InternVL's mlp1, tanh-approximate gelu)."""
+    h = patches.to(model_dtype(cfg)) @ params["mlp1"]["w1"]
+    return F.gelu(h, approximate="tanh") @ params["mlp1"]["w2"]
+
+
 def assemble_inputs(params: dict, cfg: ArchConfig, batch: dict):
-    """Token embeds + meta-token prefix.  Returns (x, n_prefix)."""
+    """Token embeds + the vlm's patch prefix + the meta-token prefix.
+    Returns (x, n_prefix)."""
     x = embed_tokens(params, cfg, batch["tokens"])
     B = x.shape[0]
     n_prefix = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        pv = project_patches(params, cfg, batch["patches"])
+        x = torch.cat([pv, x], dim=1)
+        n_prefix += pv.shape[1]
     if cfg.n_meta_tokens:
         meta = params["meta_tokens"].to(x.dtype)[None].expand(
             B, cfg.n_meta_tokens, cfg.d_model)
@@ -288,21 +344,21 @@ def lm_head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
-    """Full forward building the cache, K/V sized to ``cache_len`` (or to
-    T when the prompt and its meta tokens are longer); the Mamba states
-    are not sequence-indexed and stay as they are.
+    """Full forward building the cache, its sequence-indexed entries sized
+    to ``cache_len`` (or to T when the prompt and its patch or meta
+    prefix are longer); the Mamba states are not sequence-indexed and stay
+    as they are.
 
     Returns (last_logits (B, V), cache dict)."""
     check_param_dtypes(params, cfg)
     x, _ = assemble_inputs(params, cfg, batch)
     B, T, _ = x.shape
-    cache_len = max(cache_len, T)  # prefix tokens (meta) may exceed it
-    x, caches = forward_seq(params, cfg, x, return_cache=True)
+    cache_len = max(cache_len, T)  # prefix tokens (meta/patches) may exceed it
+    x, _, caches = forward_seq(params, cfg, x, return_cache=True)
     xl = _norm(x[:, -1:], params["final_norm"], cfg)
     logits = lm_head(params, cfg, xl)[:, 0]
     padded: dict = {
-        gname: {k: (t if k in STATE_KEYS
-                    else F.pad(t, (0, 0, 0, 0, 0, cache_len - T)))
+        gname: {k: (t if k in STATE_KEYS else _pad_positions(t, cache_len))
                 for k, t in cache.items()}
         for gname, cache in caches.items()
     }
@@ -310,28 +366,49 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
     return logits, padded
 
 
+def _pad_positions(t: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """A stacked (L, B, T, ...) cache entry zero-padded to ``cache_len``
+    positions."""
+    return F.pad(t, (0, 0) * (t.dim() - 3) + (0, cache_len - t.shape[2]))
+
+
 def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
                 cache: dict):
     """One decode step.  tokens_t (B,) ids; cache from prefill/empty_cache,
-    whose K/V tensors take the new token's rows, and whose Mamba states
-    the new states, in place.
+    whose K/V and latent tensors take the new token's rows, and whose
+    Mamba states the new states, in place.
 
     Returns (logits (B, V), new cache)."""
     check_param_dtypes(params, cfg)
     x = embed_tokens(params, cfg, tokens_t[:, None])
     length = cache["length"]
     new_cache: dict = {"length": length + 1}
-    for g in _ported_groups(cfg):
+    for g in layer_groups(cfg):
         flags = global_flags(cfg, g.layer_ids)
         gc = cache[g.name]
         for l in range(g.n_layers):
             lp = _layer(params[g.name], l)
-            if g.kind == "dense":
+            if g.kind in ("dense", "moe"):
                 x = _attn_decode(x, lp, cfg, gc["k"][l], gc["v"][l], length,
                                  flags[l])
-                x = _ffn_seq(x, lp, cfg)
+                x, _ = _ffn_seq(x, lp, cfg, g.kind)
+                continue
+            if g.kind == "pair":
+                x = _attn_decode(x, lp["a"], cfg, gc["ka"][l], gc["va"][l],
+                                 length, flags[l])
+                x, _ = _ffn_seq(x, lp["a"], cfg)
+                x = _attn_decode(x, lp["b"], cfg, gc["kb"][l], gc["vb"][l],
+                                 length, flags[l])
+                x, _ = _ffn_seq(x, lp["b"], cfg, "moe")
                 continue
             h = _norm(x, lp["ln1"], cfg)
+            if g.kind == "mla":
+                y, _, _ = A.mla_decode(h, lp["attn"], cfg, gc["ckv"][l],
+                                       gc["krope"][l], length)
+                if cfg.post_norms:
+                    y = _norm(y, lp["ln1_post"], cfg)
+                x, _ = _ffn_seq(_residual(x, y, cfg), lp, cfg)
+                continue
             if g.kind == "ssm":
                 y, conv, sst = S.ssm_decode(h, lp["ssm"], cfg, gc["conv"][l],
                                             gc["ssm"][l])
@@ -340,7 +417,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
                 y, _, _, conv, sst = HY.hybrid_decode(
                     h, lp["mix"], cfg, gc["k"][l], gc["v"][l], length,
                     gc["conv"][l], gc["ssm"][l], is_global=flags[l])
-                x = _ffn_seq(x + y, lp, cfg)
+                x, _ = _ffn_seq(x + y, lp, cfg)
             gc["conv"][l].copy_(conv)
             gc["ssm"][l].copy_(sst)
         new_cache[g.name] = gc
@@ -356,29 +433,33 @@ def _attn_decode(xc, lp, cfg: ArchConfig, k_cache, v_cache, length,
                            is_global=is_global)
     if cfg.post_norms:
         y = _norm(y, lp["ln1_post"], cfg)
-    return xc + cfg.residual_scale * y
+    return _residual(xc, y, cfg)
 
 
 def empty_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                 length: int = 0, device=None) -> dict:
     """A zeroed cache of ``batch`` sequences of ``cache_len`` positions:
-    K/V in ``cfg.dtype``, the conv state in ``cfg.dtype``, the SSM state in
-    float32."""
+    K/V and the latent in ``cfg.dtype``, the conv state in ``cfg.dtype``,
+    the SSM state in float32."""
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
     caches: dict = {"length": torch.full((batch,), length, dtype=torch.int32,
                                          device=dev)}
-    for g in _ported_groups(cfg):
+    zeros = lambda *shape, dt=dtype: torch.zeros(  # noqa: E731
+        shape, dtype=dt, device=dev)
+    for g in layer_groups(cfg):
         L, entry = g.n_layers, {}
-        if g.kind in ("dense", "hybrid"):
-            shape = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-            entry["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-            entry["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        kv = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        if g.kind in ("dense", "moe", "hybrid"):
+            entry["k"], entry["v"] = zeros(*kv), zeros(*kv)
+        elif g.kind == "pair":
+            entry = {name: zeros(*kv) for name in ("ka", "va", "kb", "vb")}
+        elif g.kind == "mla":
+            entry["ckv"] = zeros(L, batch, cache_len, cfg.kv_lora_rank)
+            entry["krope"] = zeros(L, batch, cache_len, cfg.qk_rope_dim)
         if g.kind in ("ssm", "hybrid"):
             H, P, N, _, _, conv_ch, _ = S._dims(cfg)
-            entry["conv"] = torch.zeros((L, batch, cfg.d_conv - 1, conv_ch),
-                                        dtype=dtype, device=dev)
-            entry["ssm"] = torch.zeros((L, batch, H, P, N),
-                                       dtype=torch.float32, device=dev)
+            entry["conv"] = zeros(L, batch, cfg.d_conv - 1, conv_ch)
+            entry["ssm"] = zeros(L, batch, H, P, N, dt=torch.float32)
         caches[g.name] = entry
     return caches

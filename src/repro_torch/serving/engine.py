@@ -9,7 +9,11 @@ each request a shard by hashed request id (K1 on the card); the
 controller can migrate slots between shards (load balancing) or fail a
 shard over to its chain replica.  Free slots decode too (token 0), as in
 the reference, so their lengths keep growing past ``cache_len``: the
-cache write drops such rows and decode attention reads the S rows it has.
+cache write drops such rows and decode attention reads the S rows it has;
+in a MoE layer they take expert capacity like any token.  Every
+decoder-only family serves (the vlm text-only: the engine feeds tokens,
+as the reference's does); the encoder-decoder is served through the
+model facade.
 
 ``device=None`` means the CUDA card.  Sampling is on the host: each
 step's logits are copied to the host as float32 and picked with numpy
@@ -33,7 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.keys import hash_key
 from repro_torch.device import resolve_device
 from repro_torch.models import model as MODEL
-from repro_torch.models.transformer import check_param_dtypes
+from repro_torch.models.transformer import STATE_KEYS, check_param_dtypes
 from repro_torch.serving.router import SequenceRouter
 
 
@@ -52,6 +56,10 @@ class ServingEngine:
     def __init__(self, cfg: ArchConfig, params: dict, *, n_slots: int = 8,
                  cache_len: int = 256, n_shards: int = 4, eos_token: int = -1,
                  greedy: bool = True, seed: int = 0, device=None):
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the engine feeds tokens only; "
+                             "serve an encoder-decoder through the model "
+                             "facade (prefill with frames, decode_step)")
         check_param_dtypes(params, cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -64,10 +72,11 @@ class ServingEngine:
         self.router = SequenceRouter.create(n_shards, device=self.device)
         self.cache = MODEL.empty_cache(cfg, n_slots, cache_len,
                                        device=self.device)
-        # K/V rows are sequence-indexed (the Mamba states are not): a
-        # prompt and its meta tokens must fit the cache
-        self.kv_cache = any("k" in entry for key, entry in self.cache.items()
-                            if key != "length")
+        # K/V and latent rows are sequence-indexed (the Mamba states are
+        # not): a prompt and its meta tokens must fit the cache
+        self.kv_cache = any(name not in STATE_KEYS
+                            for key, entry in self.cache.items()
+                            if key != "length" for name in entry)
         self.slot_shard = np.full((n_slots,), -1, np.int32)
         self.free = list(range(n_slots))
         self.active: dict[int, Request] = {}

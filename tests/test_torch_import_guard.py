@@ -62,6 +62,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.telemetry, repro_torch.telemetry.dashboard\n"
         "import repro_torch.telemetry.profiler\n"
         "import repro_torch.core.dist_store\n"
+        "import repro_torch.models.moe, repro_torch.models.encdec\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -78,6 +79,8 @@ def test_port_modules_found():
     # the scan above must see the whole package, kernels and C core included
     assert "repro_torch/cluster/epoch.py" in MODULES
     assert "repro_torch/kernels/range_match/kernel.py" in MODULES
+    assert "repro_torch/models/moe.py" in MODULES
+    assert "repro_torch/models/encdec.py" in MODULES
     assert "repro_torch/coordination_tier/state.py" in MODULES
     assert "repro_torch/core/dist_store.py" in MODULES
     assert "repro_torch/core/hierarchy.py" in MODULES

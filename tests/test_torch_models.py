@@ -1,9 +1,12 @@
 """The port's model path against the reference on the CPU: the building
 blocks (RMSNorm, RoPE, the blockwise prefill attention, GQA decode and its
-cache write), then prefill + decode of the dense family at the reduced
-sizes, with the reference's weights carried across by
-``convert.params_from_numpy``; the init layouts and layer groups of every
-family (the ssm and hybrid model path is in ``test_torch_ssm.py``)."""
+cache write), then prefill + decode of the dense family and of the MoE
+(deepseek, llama4's pairs), MLA (minicpm3) and vlm (internvl2, with its
+patch prefix) families at the reduced sizes, with the reference's weights
+carried across by ``convert.params_from_numpy``; the init layouts and
+layer groups of every family (the ssm and hybrid model path is in
+``test_torch_ssm.py``, whisper's in ``test_torch_encdec.py``, the MoE
+layer and MLA alone in ``test_torch_moe.py`` / ``test_torch_mla.py``)."""
 
 import sys
 
@@ -279,8 +282,7 @@ def test_ssm_family_init_layout_matches_reference(arch):
                                   "deepseek-moe-16b", "whisper-small",
                                   "mamba2-370m"])
 def test_layer_groups_match_reference(arch):
-    """The layer groups of every config, ported or not, equal the
-    reference's."""
+    """The layer groups of every config equal the reference's."""
     cfg = get_config(arch).reduced()
     assert TT.layer_groups(cfg) == [
         TT.GroupSpec(**dataclasses.asdict(g))
@@ -289,11 +291,71 @@ def test_layer_groups_match_reference(arch):
                                 j_get_config(arch).reduced())]
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b",
-                                  "whisper-small", "internvl2-26b"])
-def test_unported_families_raise(arch):
+FAMILIES = ["deepseek-moe-16b", "llama4-maverick-400b-a17b", "minicpm3-4b",
+            "internvl2-26b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_layout_matches_reference(arch):
+    """The port's own init of the MoE, pair, MLA and vlm layouts gives the
+    reference's tree (the ``moe`` router / experts / shared leaves, the
+    ``a`` / ``b`` sublayers, the MLA leaves, ``mlp1``), every float leaf in
+    cfg.dtype, and an empty cache of the reference's shapes."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.empty_cache(cfg, 1, 8, device="cpu")
+    jcfg = j_get_config(arch).reduced()
+    jshapes = jax.tree.map(lambda a: tuple(a.shape), _tree_np(
+        JM.init_params(jcfg, jax.random.PRNGKey(0))))
+    params = TM.init_params(cfg, 0, device="cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), params) == jshapes
+    TT.check_param_dtypes(params, cfg)
+    jcache = jax.tree.map(lambda a: tuple(a.shape),
+                          JM.empty_cache(jcfg, 3, 16))
+    assert jax.tree.map(lambda t: tuple(t.shape),
+                        TM.empty_cache(cfg, 3, 16, device="cpu")) == jcache
+
+
+def _family_batch(cfg, B=2, T=12, seed=8):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(B, cfg.n_patches, cfg.vit_embed_dim)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode(arch, dtype, tol):
+    """Prefill (internvl2 with 8 patch embeddings before its 12 tokens)
+    then 3 decode steps fed the reference's greedy tokens: logits and
+    every cache entry (K/V, the pair's ka / va / kb / vb, the latent ckv /
+    krope) within ``tol``, in f32 and in bf16 (the reference's weights
+    cast to bf16 on both sides, F7)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    jcfg = dataclasses.replace(j_get_config(arch).reduced(), dtype=dtype)
+    master = JM.init_params(jcfg, jax.random.PRNGKey(2))
+    jparams = jax.tree.map(lambda a: a.astype(jnp.dtype(dtype)), master)
+    params = convert.params_from_numpy(cfg, _tree_np(master), "cpu")
+    batch = _family_batch(cfg)
+    jl, jc = JM.prefill(jparams, jcfg,
+                        {k: jnp.asarray(v) for k, v in batch.items()},
+                        cache_len=32)
+    tl, tc = TM.prefill(params, cfg,
+                        {k: torch.tensor(v) for k, v in batch.items()},
+                        cache_len=32)
+    for step in range(4):
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=tol,
+                                   err_msg=f"step {step}")
+        got, want = convert.cache_to_numpy(tc), _tree_np(jc)
+        np.testing.assert_array_equal(got["length"], want["length"])
+        for g in (k for k in want if k != "length"):
+            assert sorted(got[g]) == sorted(want[g])
+            for name in want[g]:
+                np.testing.assert_allclose(
+                    got[g][name], np.asarray(want[g][name], np.float32),
+                    atol=tol, err_msg=f"step {step} {g}.{name}")
+        if step == 3:
+            break
+        tok = _np(jl)[:, :cfg.vocab_size].argmax(-1).astype(np.int32)
+        jl, jc = JM.decode_step(jparams, jcfg, jnp.asarray(tok), jc)
+        tl, tc = TM.decode_step(params, cfg, torch.tensor(tok), tc)

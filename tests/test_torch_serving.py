@@ -2,7 +2,9 @@
 ``tests/test_serving.py`` on the port (its own seeded weights, CPU), and
 the engine against the reference's ``ServingEngine`` on the same requests
 and weights — token streams, logits, slot shards, rebalance ops and
-failovers — for reduced qwen2 (dense), mamba2 (ssm) and hymba (hybrid)."""
+failovers — for reduced qwen2 (dense), mamba2 (ssm), hymba (hybrid),
+deepseek-moe (dense + moe groups), llama4 (pair), minicpm3 (mla) and
+internvl2 (vlm, text only, as the reference's engine feeds it)."""
 
 import sys
 
@@ -230,6 +232,50 @@ def _check_engines(model, n_slots, loop):
     assert len(tpicked) == len(jpicked)
     for i, (a, b) in enumerate(zip(tpicked, jpicked)):
         np.testing.assert_allclose(a, b, atol=1e-4, err_msg=f"pick {i}")
+
+
+@pytest.fixture(scope="module")
+def family_models():
+    """The reference's reduced configs of the families served since the
+    MoE / MLA / vlm port, and their weights, built on first use."""
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            jcfg = j_get_config(arch).reduced()
+            jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+            cfg = get_config(arch).reduced()
+            built[arch] = (jcfg, jparams, cfg, convert.params_from_numpy(
+                cfg, jax.tree.map(np.asarray, jparams), "cpu"))
+        return built[arch]
+
+    return get
+
+
+@pytest.mark.parametrize("arch,n_slots", [
+    ("deepseek-moe-16b", 4), ("deepseek-moe-16b", 5),
+    ("llama4-maverick-400b-a17b", 3), ("llama4-maverick-400b-a17b", 5),
+    ("minicpm3-4b", 3), ("minicpm3-4b", 5),
+    ("internvl2-26b", 3), ("internvl2-26b", 5)])
+def test_family_engine_matches_reference_engine(family_models, arch, n_slots):
+    """The same, under the failure of the most-loaded shard at step 2, for
+    the MoE families (the whole decode batch, idle slots too, dispatched
+    under capacity: deepseek's dense layer then MoE layers, llama4's
+    dense + MoE pairs), MLA (the slots' latent rows ``ckv`` / ``krope``)
+    and the vlm's text backbone.  deepseek runs 4 slots, not 3: its MoE
+    group stacks 3 layers, and at 3 slots the reference's slot write takes
+    that layer axis for the batch axis (F9)."""
+    _check_engines(family_models(arch), n_slots,
+                   dict(rebalance_every=0, fail_shard_at=2))
+
+
+def test_engine_refuses_an_encoder_decoder():
+    """The engine feeds tokens only; whisper needs its frames and is
+    served through the model facade, as in the reference."""
+    cfg = get_config("whisper-small").reduced()
+    with pytest.raises(ValueError, match="facade"):
+        ServingEngine(cfg, M.init_params(cfg, 0, device="cpu"), n_slots=2,
+                      cache_len=16, n_shards=2, device="cpu")
 
 
 def test_submit_refuses_a_prompt_past_the_cache(ssm_models):
