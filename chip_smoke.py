@@ -94,6 +94,12 @@ exits non-zero):
                of every prefill; and reduced whisper-small through the
                model facade (4 utterances, 8 greedy steps): equal tokens,
                logits within 1e-4, K6 on both attentions of every layer;
+               then one train step of reduced qwen2-1.5b and deepseek-
+               moe-16b (f32, remat, TF32 off) on the card against the CPU
+               from one state and batch: loss, every gradient and every
+               updated leaf within 1e-4; and K7 refusing a call that asks
+               for a gradient (it has no backward) while serving one that
+               does not;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
@@ -184,7 +190,20 @@ exits non-zero):
                version on layer 0's caches.  Gates: every request
                finishes, none stays on the failed shard, K6 launches ==
                ``gqa_attentions`` x steps, parameter counts within the
-               reference's ranges (the pair: its exact count).
+               reference's ranges (the pair: its exact count);
+9. training    ``launch/train.py``'s loop on qwen2-1.5b at its published
+               widths and depth (28 layers, d 1536, vocab 151,936): bf16
+               compute over float32 master weights and AdamW state,
+               remat, the copy task, 20 steps of 8 x 2,048 tokens, lr
+               3e-4 with the launcher's warmup, a checkpoint every 10
+               steps on a thread; then step 10's checkpoint restored and
+               steps 10-11 replayed.  tokens/s, step ms p50 / p99 (CUDA
+               events), peak memory, ``train_mfu`` (model FLOPs over the
+               H100's dense bf16 peak) and the device's busy share of one
+               more, profiled step; gates: the loss falls (the mean of
+               the last 5 steps under that of the first 5), no kernel
+               launches (the reference trains through jnp), the replay
+               within 1e-3 (and whether bit for bit).
 
 Three more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver),
@@ -216,7 +235,8 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
-          "telemetry", "dist", "serving", "serving_ssm", "families")
+          "telemetry", "dist", "serving", "serving_ssm", "families",
+          "training")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
 
@@ -1496,6 +1516,8 @@ def phase_parity() -> dict:
     }
     out["serving"] = {arch: _serving_parity(arch) for arch in SERVING_PARITY}
     out["serving"][FACADE_PARITY] = _facade_parity(FACADE_PARITY)
+    out["training"] = {arch: _train_parity(arch) for arch in TRAIN_PARITY}
+    out["training"]["k7_guard"] = _k7_guard()
     emit(out)
     return out
 
@@ -1618,6 +1640,98 @@ def _serving_parity(arch: str) -> dict:
             "moved": sum(r["rebalance"][0] for r in trace
                          if "rebalance" in r),
             "failed_over": failed}
+
+
+# phase 3's train steps: reduced qwen2 and deepseek-moe (whose MoE aux loss
+# carries a gradient), one AdamW step at lr 1e-3 (where one step's update
+# stays within 1e-4 of another device's, see tests/test_torch_training.py)
+TRAIN_PARITY = ("qwen2-1.5b", "deepseek-moe-16b")
+
+
+def _train_parity(arch: str) -> dict:
+    """One train step of the reduced config (float32, remat, the copy task
+    at the reference's test size) on the card against the CPU from the
+    same state and batch, TF32 off: loss, every gradient and every
+    updated leaf within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import device_batch
+    from repro_torch.training import step as STEP
+    from repro_torch.training import tree as T
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_config(arch).reduced()
+    tcfg = STEP.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=0,
+                                          total_steps=10), remat=True)
+    batch = make_batch(cfg, ShapeSpec("tiny", 64, 8, "train"), 0,
+                       DataConfig("copy"))
+    runs = {}
+    with _tf32_off():
+        state = STEP.init_train_state(cfg, tcfg, 0, device="cpu")
+        for dev in ("cuda", "cpu"):
+            st, b = _to(state, dev), device_batch(batch, dev)
+            (loss, m), grads = STEP.value_and_grad(cfg, st["params"], b,
+                                                   remat=True)
+            new, m1 = STEP.make_train_step(cfg, tcfg)(st, b)
+            runs[dev] = (float(loss), float(m["moe_aux_loss"]),
+                         T.leaves(_to(grads, "cpu")),
+                         T.leaves(_to(new, "cpu")), float(m1["loss"]))
+
+    def err(a, b):
+        return max(float((x.double() - y.double()).abs().max()) for x, y in
+                   zip(a, b))
+
+    (loss, aux, g, new, l1), (hloss, haux, hg, hnew, hl1) = (
+        runs["cuda"], runs["cpu"])
+    out = {"loss_err": abs(loss - hloss), "aux_err": abs(aux - haux),
+           "grad_max_abs_err": err(g, hg), "updated_max_abs_err": err(new, hnew),
+           "step_loss_err": abs(l1 - hl1), "loss": loss, "moe_aux_loss": aux}
+    if arch == "deepseek-moe-16b" and not aux > 0:
+        raise AssertionError(f"training {arch}: no MoE aux loss")
+    if not max(v for k, v in out.items() if k.endswith("err")) <= 1e-4:
+        raise AssertionError(f"training {arch}: card off the CPU {out}")
+    return {"cuda_vs_cpu": "within 1e-4", **out}
+
+
+def _k7_guard() -> dict:
+    """K7 has no backward: on the card ``ssd_scan`` refuses a call that
+    asks for a gradient, and serves one that does not (one launch,
+    against the plain version)."""
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunked_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, T, H, P, N = 1, 32, 2, 8, 8
+    x = torch.randn((B, T, H, P), device="cuda", generator=gen)
+    dt = torch.rand((B, T, H), device="cuda", generator=gen) * 0.1
+    A = -torch.rand((H,), device="cuda", generator=gen)
+    Bm, Cm = (torch.randn((B, T, N), device="cuda", generator=gen)
+              for _ in range(2))
+    before = SSK.launches["ssd_chunk"]
+    try:
+        ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, chunk=16)
+    except RuntimeError as e:
+        if "15b" not in str(e):
+            raise
+        message = str(e)
+    else:
+        raise AssertionError("ssd_scan ran K7 with a gradient asked for")
+    with torch.no_grad():
+        y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+        want, _ = ssd_chunked_ref(x, dt, A, Bm, Cm,
+                                  torch.zeros((B, H, P, N), device="cuda"),
+                                  chunk=16)
+    served = SSK.launches["ssd_chunk"] - before
+    SSK.launches["ssd_chunk"] = before   # comparison launches do not count
+    e = float((y - want).abs().max())
+    if served != 1 or not bool(((y - want).abs()
+                                <= K7_TOL * (1 + want.abs())).all()):
+        raise AssertionError(f"K7 without a gradient: {served} launches, "
+                             f"error {e}")
+    return {"refused": message[:80], "no_grad_launches": served,
+            "no_grad_max_abs_err": e}
 
 
 def _facade_greedy(cfg, params, batch: dict, cache_len: int, steps: int,
@@ -2899,6 +3013,146 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 
 
 
+# phase training: qwen2-1.5b at its published widths and depth, bf16
+# compute over float32 master weights and AdamW state, remat, the copy
+# task, launch/train.py's loop and schedule (warmup max(5, steps // 20))
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
+TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 10, 2
+H100_BF16_FLOPS = 989e12      # dense bf16 peak, NVIDIA's data sheet (SXM)
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward and backward, no remat):
+    6 x parameters x tokens, plus attention's 12 x layers x q width x
+    sequence per token (PaLM's count, the whole T x T square)."""
+    tokens = batch * seq
+    return (6.0 * n_params * tokens
+            + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
+
+
+def phase_training() -> dict:
+    """``launch/train.py``'s loop on qwen2-1.5b at full width: 20 steps of
+    8 x 2,048 tokens, a checkpoint every 10 on a thread; then the step-10
+    checkpoint restored and steps 10-11 replayed.  Gates: the mean loss of
+    the last 5 steps under that of the first 5 (the reference's
+    ``test_loss_decreases``), finite losses, no kernel of the port
+    launched (the reference trains through jnp, no Pallas kernel), the
+    replay within 1e-3 of the first run's losses."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+    from repro_torch.launch.train import device_batch, train_config, train_loop
+    from repro_torch.models import model as M
+    from repro_torch.training import tree as T
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(TRAIN_STEPS, TRAIN_LR)
+    ckpt = OUT / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    lines: list[str] = []
+    _free_card()
+    # the step's transients (the flash loop's blocks, 4.6 GiB float32 CE
+    # chunks) fragment fixed-size segments past the card's 80 GB
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    torch.cuda.reset_peak_memory_stats()
+    DAK.reset_launches()
+    RMK.reset_launches()                       # counts of the main path
+    SSK.reset_launches()
+    t0 = time.perf_counter()
+    state, recs = train_loop(cfg, shape, tcfg, steps=TRAIN_STEPS,
+                             ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
+                             device="cuda", log=lines.append)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**RMK.launches, "decode_attn": DAK.launches["decode_attn"],
+                "ssd_chunk": SSK.launches["ssd_chunk"]}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = M.param_count(state["params"])
+    losses = [r["loss"] for r in recs]
+    ms = [r["ms"] for r in recs[1:]]           # the first step warms up
+    secs = [r["seconds"] for r in recs[1:]]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    # the device's busy share of one more step (the state it makes is
+    # dropped); device activity only: a step issues ~64,000 kernels, and
+    # the operator events would take the trace's processing past a minute
+    batch = device_batch(make_batch(cfg, shape, TRAIN_STEPS,
+                                    DataConfig("copy")), "cuda")
+    step_fn = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - tp
+    busy = _device_summary(prof, wall, top=8)
+    del state, m, batch, prof
+    _free_card()
+    # the resume: step 10's checkpoint, steps 10 and 11 again
+    t1 = time.perf_counter()
+    _, replay = train_loop(cfg, shape, tcfg,
+                           steps=TRAIN_CKPT_EVERY + TRAIN_REPLAY,
+                           ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
+                           device="cuda", resume_step=TRAIN_CKPT_EVERY,
+                           log=lines.append)
+    replay_s = time.perf_counter() - t1
+    first = losses[TRAIN_CKPT_EVERY:TRAIN_CKPT_EVERY + TRAIN_REPLAY]
+    again = [r["loss"] for r in replay]
+    diffs = [abs(a - b) for a, b in zip(first, again)]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _free_card()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    out = {
+        "phase": "training", "arch": TRAIN_ARCH, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
+        "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype,
+        "opt_state_dtype": cfg.opt_state_dtype, "remat": tcfg.remat,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "task": "copy", "lr": TRAIN_LR, "warmup_steps": tcfg.opt.warmup_steps,
+        "ckpt_every": TRAIN_CKPT_EVERY, "run_s": run_s,
+        "first_step_ms": recs[0]["ms"],
+        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "tokens_per_s": tokens * len(secs) / sum(secs),
+        "model_flops_per_step": flops,
+        "train_mfu": flops / (float(np.percentile(ms, 50)) / 1e3)
+        / H100_BF16_FLOPS,
+        "max_memory_allocated_gb": peak / 2**30,
+        "device_busy_share": busy["device_busy_share"],
+        # the profiled step's device time over an unprofiled step's p50
+        "device_busy_share_of_p50": busy["device_busy_s"]
+        / (float(np.percentile(ms, 50)) / 1e3),
+        "profiled_step": {k: busy[k] for k in ("wall_s", "device_busy_s",
+                                               "device_events", "top")},
+        "losses": losses, "grad_norms": [r["grad_norm"] for r in recs],
+        "launches": launches, "log": lines,
+        "resume": {"from_step": TRAIN_CKPT_EVERY, "losses": again,
+                   "first_run": first, "bitwise": again == first,
+                   "max_abs_diff": max(diffs), "seconds": replay_s},
+        "reduced": {"steps": "20: the script's time limit"},
+    }
+    emit(out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: non-finite loss {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"training: the loss did not fall {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"training: kernels launched {launches}")
+    if len(again) != TRAIN_REPLAY or not max(diffs) <= 1e-3:
+        raise AssertionError(f"training: replay {again} vs {first}")
+    return out
+
+
 def phase_profile() -> dict:
     """``torch.profiler`` over a two-epoch full-width ``frozen`` run (after
     its preload): device time by kernel name and the device's busy share
@@ -3026,6 +3280,7 @@ def main(argv=None) -> int:
     serving = phase_serving() if "serving" in phases else None
     serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
     families = phase_families() if "families" in phases else None
+    training = phase_training() if "training" in phases else None
     if families is not None:      # the five runs' launches as one path
         families = {"launches": {name: sum(f["launches"][name]
                                            for f in families)
@@ -3045,7 +3300,8 @@ def main(argv=None) -> int:
         paths = {name: p["launches"] for name, p in
                  (("full_width", full), ("overload", ovl),
                   ("telemetry", tel), ("dist", dist), ("serving", serving),
-                  ("serving_ssm", serving_ssm), ("families", families))
+                  ("serving_ssm", serving_ssm), ("families", families),
+                  ("training", training))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]

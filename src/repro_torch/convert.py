@@ -196,3 +196,18 @@ def cache_to_numpy(cache: dict) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
     return host(cache)
+
+
+def train_state_from_numpy(tree, device=None) -> dict:
+    """The reference's train state (``params``, ``opt`` with ``m`` / ``v``
+    or Adafactor's ``f`` and the int32 ``step``, ``err``; nested dicts of
+    numpy arrays) as the port's, every leaf in its own dtype: float32
+    master weights stay float32, the bfloat16 error buffers (ml_dtypes
+    arrays) become ``torch.bfloat16``."""
+    return _tree_from_numpy(tree, resolve_device(device), None)
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's train state as numpy arrays (bfloat16 leaves as float32,
+    which holds them exactly)."""
+    return cache_to_numpy(state)

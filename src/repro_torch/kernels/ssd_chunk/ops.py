@@ -2,7 +2,12 @@
 ``repro.kernels.ssd_chunk.ops``): the chunked scan, with its padding,
 runs the plain version on CPU tensors and K7 on CUDA tensors (any number
 of B/C groups: K7 takes G > 1, where the reference falls back to jnp);
-the one-token decode step is plain tensor code, as in the reference."""
+the one-token decode step is plain tensor code, as in the reference.
+
+K7 has no backward.  The reference trains its SSM through the jnp chunked
+scan, which autograd differentiates; here the plain version on the CPU
+does the same, but on the card a gradient through K7 would be silently
+lost, so :func:`ssd_scan` refuses a CUDA call that asks for one."""
 
 from __future__ import annotations
 
@@ -31,6 +36,13 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     if on_cpu(x, dt, A, Bm, Cm, init_state):
         y, fs = ssd_chunked_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
     else:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
+            raise RuntimeError(
+                "ssd_scan: the K7 kernel has no backward, and a gradient "
+                "through it would be lost; training the SSM families on the "
+                "card waits for ROADMAP step 15b (an autograd Function with "
+                "a backward kernel).  Run under torch.no_grad() to serve.")
         if Bm.dim() == 3:
             Bm, Cm = Bm[:, :, None, :], Cm[:, :, None, :]
         y, fs = kernel.ssd_chunk(

@@ -82,12 +82,32 @@ def sinusoid_pos(seq_len: int, dim: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _ShapesOnly:
+    """Stands in for a generator on the ``meta`` device, which has none:
+    :func:`dense_init` then makes storage-less tensors of the right shape
+    and dtype (``abstract_params``, the reference's ``jax.eval_shape``)."""
+
+    device = torch.device("meta")
+
+
+def generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; on the
+    ``meta`` device a stand-in that draws nothing."""
+    if device.type == "meta":
+        return _ShapesOnly()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     """Truncated-normal fan-in init at +-3 sigma (0.02 cap like most LM
     codebases), drawn on ``gen``'s device by inverting the normal CDF of a
     uniform draw.  A leading layer axis leaves the fan-in (``shape[-2]``)
     unchanged, so a stacked layer group is one call."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else min(0.02, fan_in ** -0.5)
     u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)

@@ -21,7 +21,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FF
-from repro_torch.models.common import dense_init, layer_norm, sinusoid_pos
+from repro_torch.models.common import (dense_init, generator, layer_norm,
+                                      sinusoid_pos)
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.transformer import _layer, check_param_dtypes, model_dtype
 
@@ -44,13 +45,13 @@ def _ln_init(cfg: ArchConfig, dtype, dev, L: int | None = None) -> dict:
             "b": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
-    """The port's own seeded init, in ``cfg.dtype`` (see
-    ``transformer.init_params``)."""
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                dtype: str | None = None) -> dict:
+    """The port's own seeded init, in ``dtype`` (default ``cfg.dtype``;
+    see ``transformer.init_params``)."""
     dev = resolve_device(device)
-    dtype = model_dtype(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    dtype = getattr(torch, dtype or cfg.dtype)
+    gen = generator(dev, seed)
     Le, Ld, D = cfg.n_encoder_layers, cfg.n_layers, cfg.d_model
     return {
         "embed": dense_init(gen, (cfg.padded_vocab, D), dtype, scale=0.02),
@@ -143,6 +144,29 @@ def decode_seq(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
              "length": torch.full((B,), T, dtype=torch.int32,
                                   device=x.device)}
     return logits, cache
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, **_):
+    """Teacher-forced cross-entropy over the full (B, T, V) float32 logits
+    (whisper's vocabulary is small enough), the gold logit gathered.
+    batch: ``frames`` (B, F, D), ``tokens`` and ``labels`` (B, T), -1 =
+    masked.  Returns (ce, metrics), the metrics' MoE terms zero."""
+    check_param_dtypes(params, cfg)
+    enc_out = encode(params, cfg, batch["frames"])
+    logits, _ = decode_seq(params, cfg, batch["tokens"], enc_out)
+    logits = logits.float()
+    labels = batch["labels"]
+    mask = labels >= 0
+    safe = labels.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(mask, lse - gold, 0.0)
+    tokens = mask.sum().to(torch.int32)
+    ce = nll.sum() / tokens.clamp(min=1).float()
+    dev = logits.device
+    return ce, {"ce": ce, "tokens": tokens,
+                "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=dev),
+                "moe_dropped": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):

@@ -1,5 +1,5 @@
 """Public model facade (counterpart of ``repro.models.model``): family
-dispatch for init / prefill / decode, the encoder-decoder family
+dispatch for init / loss / prefill / decode, the encoder-decoder family
 (whisper) to ``encdec``, every other to ``transformer``."""
 
 from __future__ import annotations
@@ -13,8 +13,14 @@ def _family(cfg: ArchConfig):
     return ED if cfg.family == "encdec" else TF
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
-    return _family(cfg).init_params(cfg, seed, device=device)
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                dtype: str | None = None) -> dict:
+    return _family(cfg).init_params(cfg, seed, device=device, dtype=dtype)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
+            remat: bool = False):
+    return _family(cfg).loss_fn(params, cfg, batch, remat=remat)
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
@@ -42,3 +48,10 @@ def param_count(params: dict) -> int:
 
 def param_bytes(params: dict) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The master weights' shapes and dtypes (``cfg.param_dtype``) as
+    tensors on the ``meta`` device: nothing is allocated or drawn (the
+    reference's ``jax.eval_shape`` of its init)."""
+    return init_params(cfg, device="meta", dtype=cfg.param_dtype)

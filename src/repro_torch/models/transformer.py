@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -42,7 +43,7 @@ from repro_torch.models import ffn as FF
 from repro_torch.models import hybrid as HY
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, generator, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,15 +146,17 @@ def _init_layers(gen: torch.Generator, cfg: ArchConfig, kind: str,
     return p
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                dtype: str | None = None) -> dict:
     """The port's own seeded init (truncated normals from a
     ``torch.Generator`` on ``device``; it cannot equal ``jax.random``, so
     parity tests carry the reference's weights across instead).  Weights
-    are made in ``cfg.dtype``, the dtype they serve in."""
+    are made in ``dtype``: by default ``cfg.dtype``, the dtype they serve
+    in; training makes ``cfg.param_dtype`` master weights.  On the
+    ``meta`` device nothing is drawn (``model.abstract_params``)."""
     dev = resolve_device(device)
-    dtype = model_dtype(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    dtype = getattr(torch, dtype or cfg.dtype)
+    gen = generator(dev, seed)
     D = cfg.d_model
     fill = torch.zeros if cfg.norm_plus_one else torch.ones
     params: dict = {
@@ -263,13 +266,16 @@ def _layer_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
 
 
 def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
-                return_cache: bool = False):
+                return_cache: bool = False, remat: bool = False):
     """Run all layer groups over x (B, T, D) embeddings (already scaled).
 
     Returns ``(x, aux, caches)``: aux sums the MoE layers' ``moe_aux_loss``
     (float32) and ``moe_dropped`` (int32) in layer order; caches maps each
     group to its stacked entries (K/V (L, B, T, Hkv, Dh), the latent, the
-    Mamba states (L, B, ...)), or is None."""
+    Mamba states (L, B, ...)), or is None.  ``remat`` runs each layer body
+    under ``torch.utils.checkpoint``, as the reference puts its scan body
+    under ``jax.checkpoint``: the backward recomputes a layer's
+    activations from its input instead of keeping them."""
     caches = {}
     aux_total = {
         "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=x.device),
@@ -279,8 +285,13 @@ def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
         entries = []
         for l in range(g.n_layers):
             lp = _layer(params[g.name], l)
-            x, aux, entry = _layer_seq(x, lp, cfg, g.kind, flags[l],
-                                       return_cache)
+            if remat:
+                x, aux, entry = checkpoint(_layer_seq, x, lp, cfg, g.kind,
+                                           flags[l], return_cache,
+                                           use_reentrant=False)
+            else:
+                x, aux, entry = _layer_seq(x, lp, cfg, g.kind, flags[l],
+                                           return_cache)
             for k, v in aux.items():
                 aux_total[k] = aux_total[k] + v
             entries.append(entry)
@@ -335,7 +346,71 @@ def assemble_inputs(params: dict, cfg: ArchConfig, batch: dict):
 def lm_head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ w.to(x.dtype)
+    if cfg.logit_divisor == 1.0:    # exact: no (B, T, V) copy
+        return logits
     return logits / _in_dtype(cfg.logit_divisor, logits.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss (training)
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(params: dict, cfg: ArchConfig, xc: torch.Tensor,
+              lc: torch.Tensor):
+    """One chunk's (nll sum, scored tokens): float32 logits, log-sum-exp
+    less the gold logit.  The reference contracts the logits with a
+    one-hot of the labels; a gather takes the same value (the other terms
+    are exact zeros) without the (B, chunk, V) one-hot."""
+    logits = lm_head(params, cfg, xc).float()
+    mask = lc >= 0
+    safe = lc.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(mask, lse - gold, 0.0)
+    return nll.sum(), mask.sum().to(torch.int32)
+
+
+def chunked_ce_loss(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                    labels: torch.Tensor, *, chunk: int = 1024):
+    """Cross-entropy over T chunks, each under ``torch.utils.checkpoint``,
+    so the (B, T, V) logits are never all alive: a chunk's logits are
+    recomputed in the backward.  labels (B, T), -1 = masked.  Returns
+    (loss_sum float32, token_count int32), the chunks' sums added in
+    order."""
+    B, T, _ = x.shape
+    chunk = min(chunk, T)
+    pad = -T % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    for c0 in range(0, T + pad, chunk):
+        nll, n = checkpoint(_ce_chunk, params, cfg, x[:, c0:c0 + chunk],
+                            labels[:, c0:c0 + chunk], use_reentrant=False)
+        loss_sum = loss_sum + nll
+        count = count + n
+    return loss_sum, count
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
+            remat: bool = False, aux_weight: float = 0.01):
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance term.  batch: ``tokens`` and ``labels`` (B, T), the
+    vlm's ``patches``; the prefix positions (patches, meta tokens) are
+    not scored.  Returns (loss, metrics: ``ce``, ``tokens``,
+    ``moe_aux_loss``, ``moe_dropped``)."""
+    check_param_dtypes(params, cfg)
+    x, n_prefix = assemble_inputs(params, cfg, batch)
+    x, aux, _ = forward_seq(params, cfg, x, remat=remat)
+    x = _norm(x, params["final_norm"], cfg)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    loss_sum, count = chunked_ce_loss(params, cfg, x, batch["labels"])
+    ce = loss_sum / count.float().clamp(min=1.0)
+    loss = ce + _in_dtype(aux_weight, torch.float32) * aux["moe_aux_loss"]
+    return loss, {"ce": ce, "tokens": count, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1431,3 +1431,87 @@ def test_ssm_serving_card_matches_cpu(dev, no_tf32, arch):
     for a, b in zip(pc, pp):
         np.testing.assert_allclose(a, b, atol=1e-4)
     assert k7c == cfg.n_layers * 7 and k7p == 0
+
+
+def _train_setup(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.training import step as STEP
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_config(arch).reduced()
+    tcfg = STEP.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=0,
+                                          total_steps=10), remat=True)
+    batch = make_batch(cfg, ShapeSpec("tiny", 64, 8, "train"), 0,
+                       DataConfig("copy"))
+    return cfg, tcfg, STEP.init_train_state(cfg, tcfg, 0, device="cpu"), batch
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b"])
+def test_train_step_card_matches_cpu(dev, no_tf32, arch):
+    """One reduced train step (f32, remat) on the card against the CPU
+    from the same state and batch: loss, gradients and every updated leaf
+    within 1e-4 (deepseek's MoE aux loss with its gradient)."""
+    from repro_torch.launch.train import device_batch
+    from repro_torch.training import step as STEP
+    from repro_torch.training import tree as TR
+
+    cfg, tcfg, state, batch = _train_setup(arch)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        st, b = _to(state, device), device_batch(batch, device)
+        (loss, m), grads = STEP.value_and_grad(cfg, st["params"], b,
+                                               remat=True)
+        new, _ = STEP.make_train_step(cfg, tcfg)(st, b)
+        runs.append((float(loss), float(m["moe_aux_loss"]),
+                     [g.cpu() for g in TR.leaves(grads)],
+                     [t.cpu() for t in TR.leaves(new)]))
+    (lc, ac, gc, nc), (lp, ap, gp, np_) = runs
+    assert abs(lc - lp) <= 1e-4 and abs(ac - ap) <= 1e-4
+    for a, b in zip(gc + nc, gp + np_):
+        assert a.dtype == b.dtype
+        assert float((a.double() - b.double()).abs().max()) <= 1e-4
+    if cfg.family == "moe":
+        assert ac > 0
+
+
+def test_checkpoint_saved_on_card_restores_on_cpu(dev, tmp_path):
+    """A train state saved from the card (float32, int32 and bf16 leaves)
+    restores on the CPU bit for bit."""
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import tree as TR
+
+    _, _, state, _ = _train_setup("qwen2-1.5b")
+    state["err"] = TR.tree_map(lambda p: (p * 3).to(torch.bfloat16),
+                               state["params"])
+    card = _to(state, dev)
+    CKPT.save(card, str(tmp_path), step=4, blocking=False).join()
+    got, step = CKPT.restore(TR.tree_map(torch.zeros_like, state),
+                             str(tmp_path))
+    assert step == 4
+    for a, b in zip(TR.leaves(got), TR.leaves(state)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_refuses_a_gradient_through_k7(dev):
+    """K7 has no backward: a CUDA call that asks for a gradient raises
+    (naming ROADMAP step 15b); under no_grad it serves as before."""
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 32, 2, 8), device=dev, generator=gen)
+    dt = torch.rand((1, 32, 2), device=dev, generator=gen) * 0.1
+    A = -torch.rand((2,), device=dev, generator=gen)
+    Bm, Cm = (torch.randn((1, 32, 8), device=dev, generator=gen)
+              for _ in range(2))
+    before = SK.launches["ssd_chunk"]
+    with pytest.raises(RuntimeError, match="15b"):
+        ssd_scan(x, dt, A.requires_grad_(True), Bm, Cm, chunk=16)
+    assert SK.launches["ssd_chunk"] == before
+    with torch.no_grad():
+        y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    assert SK.launches["ssd_chunk"] == before + 1
+    assert bool(torch.isfinite(y).all())

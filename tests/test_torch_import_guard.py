@@ -63,6 +63,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.telemetry.profiler\n"
         "import repro_torch.core.dist_store\n"
         "import repro_torch.models.moe, repro_torch.models.encdec\n"
+        "import repro_torch.training, repro_torch.training.grad_compression\n"
+        "import repro_torch.data.pipeline, repro_torch.launch.train\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -84,6 +86,11 @@ def test_port_modules_found():
     assert "repro_torch/coordination_tier/state.py" in MODULES
     assert "repro_torch/core/dist_store.py" in MODULES
     assert "repro_torch/core/hierarchy.py" in MODULES
+    for mod in ("optimizer", "grad_compression", "step", "checkpoint",
+                "elastic", "tree"):
+        assert f"repro_torch/training/{mod}.py" in MODULES
+    assert "repro_torch/data/pipeline.py" in MODULES
+    assert "repro_torch/launch/train.py" in MODULES
     for mod in ("trace", "attribution", "export", "profiler", "flight",
                 "recorder", "metrics", "slo", "incident", "dashboard"):
         assert f"repro_torch/telemetry/{mod}.py" in MODULES
