@@ -94,12 +94,17 @@ exits non-zero):
                of every prefill; and reduced whisper-small through the
                model facade (4 utterances, 8 greedy steps): equal tokens,
                logits within 1e-4, K6 on both attentions of every layer;
-               then one train step of reduced qwen2-1.5b and deepseek-
-               moe-16b (f32, remat, TF32 off) on the card against the CPU
-               from one state and batch: loss, every gradient and every
-               updated leaf within 1e-4; and K7 refusing a call that asks
-               for a gradient (it has no backward) while serving one that
-               does not;
+               then one train step of reduced qwen2-1.5b, deepseek-
+               moe-16b, mamba2-370m and hymba-1.5b (f32, remat, TF32 off)
+               on the card against the CPU from one state and batch: loss,
+               every gradient and every updated leaf within 1e-4, the SSM
+               layers' scans through the plain chunked scan (no K7
+               launch, ``ssd_chunk_plain_grad`` counted); and ``ssd_scan``
+               with a gradient asked for on the card (K7 has no backward):
+               the gradients of A, x, dt, B and C within 1e-4 (1 + |cpu|)
+               of the CPU's, no K7 launch, while the same call under
+               no_grad launches K7 once, within ``K7_TOL`` of its plain
+               version;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
@@ -121,7 +126,7 @@ exits non-zero):
                every 2 epochs, queue 6,144 and service 10,240 a node and
                epoch (the bench's ratios to an active node's share) — on
                ``cascade_failure`` (rack 0-2 dies at epoch 3) and
-               ``retry_storm`` (rack 0-1 out in epochs 2-4), 12 epochs
+               ``retry_storm`` (rack 0-1 out in epochs 2-4), 8 epochs
                each, and the cascade once more with a queue of 20,480 that
                outlives its epoch; conservation after every period, K2 once
                an epoch (under a nonzero queue penalty in the third run),
@@ -153,6 +158,27 @@ exits non-zero):
                write read back from every live replica; epochs/s, stage
                seconds, device step, exchange rounds, dirty reads and peak
                memory;
+   paper       the paper's evaluation (``repro_torch.benchmarks``): fig
+               13a, fig 13b/c, tables 1-2, the §5.1 migration effect and
+               the §6 pod crossing at 8,192 ops a workload, routed (K1)
+               and planned on the card, equal bit for bit to the same run
+               on the CPU and to the reference's rows
+               (``tests/data/paper_rows_reference.json``), with the
+               in-switch over server-driven ratios; fig 13a at 1,000,000
+               ops a workload (5 workloads through K1, 15 lanes of hop
+               plans, one fused DES call on the host; seconds by stage);
+               the CLI's full run (``python -m repro_torch.benchmarks.run``:
+               the suite, the DES engine against its heapq oracle, bit for
+               bit, and the 1,000,000-op three-mode sweep) into
+               ``BENCH_torch_coordination.json``; the balance gate matrix
+               (7 scenarios x 5 policies, 10 epochs of 1,024 ops, 128
+               ranges; each run driven once, without the CLI's
+               ``steady_eps`` re-drive) into ``BENCH_torch_balance.json``,
+               whose gates must
+               come back empty, and its --quick ``shifting_hotspot`` x
+               {``frozen``, ``full_adaptive``} rows equal on the card, on
+               the CPU and in the fixture (but ``wall_s``, and the
+               reference's own ``host_syncs``);
 6. serving     the serving path at full width: ``ServingEngine`` on
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
@@ -191,19 +217,26 @@ exits non-zero):
                finishes, none stays on the failed shard, K6 launches ==
                ``gqa_attentions`` x steps, parameter counts within the
                reference's ranges (the pair: its exact count);
-9. training    ``launch/train.py``'s loop on qwen2-1.5b at its published
-               widths and depth (28 layers, d 1536, vocab 151,936): bf16
+9. training    ``launch/train.py``'s loop on qwen2-1.5b (28 layers, d
+               1536, vocab 151,936) and then mamba2-370m (48 layers, d
+               1024, 32 SSD heads of 64, d_state 128, vocab 50,280, tied
+               embeddings), each at its published widths and depth: bf16
                compute over float32 master weights and AdamW state,
-               remat, the copy task, 20 steps of 8 x 2,048 tokens, lr
+               remat, the copy task, 8 x 2,048 tokens a step (12 steps of
+               qwen2, 20 of mamba2, whose loss falls slower), lr
                3e-4 with the launcher's warmup, a checkpoint every 10
                steps on a thread; then step 10's checkpoint restored and
                steps 10-11 replayed.  tokens/s, step ms p50 / p99 (CUDA
                events), peak memory, ``train_mfu`` (model FLOPs over the
-               H100's dense bf16 peak) and the device's busy share of one
-               more, profiled step; gates: the loss falls (the mean of
+               H100's dense bf16 peak; mamba2 has no attention term) and
+               the device's busy share of one more, profiled step, and
+               for mamba2 the SSD scans' share of that step's device time
+               (forward, remat recompute and backward, run on a side
+               stream for the count); gates: the loss falls (the mean of
                the last 5 steps under that of the first 5), no kernel
-               launches (the reference trains through jnp), the replay
-               within 1e-3 (and whether bit for bit).
+               launches (the reference trains through jnp; mamba2's scans
+               run the plain chunked scan, two a layer and step), the
+               replay within 1e-3 (and whether bit for bit).
 
 Three more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver),
@@ -213,7 +246,9 @@ device time of K1-K4b at the phase 2 shape under a grid of one thread a
 packet and of 1, 2 and 3 blocks an SM, in turns).
 
 It then prints the kernel table (``{"kernels": [...]}``, with each main
-path's launch counts in ``launches_by_path``), the card line,
+path's launch counts in ``launches_by_path``, and beside K7 the plain
+scans that trained in its place, ``plain_grad_scans_by_path``), the card
+line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
 non-zero before printing any result.
 """
@@ -235,7 +270,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
-          "telemetry", "dist", "serving", "serving_ssm", "families",
+          "telemetry", "dist", "paper", "serving", "serving_ssm", "families",
           "training")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
@@ -1642,20 +1677,24 @@ def _serving_parity(arch: str) -> dict:
             "failed_over": failed}
 
 
-# phase 3's train steps: reduced qwen2 and deepseek-moe (whose MoE aux loss
-# carries a gradient), one AdamW step at lr 1e-3 (where one step's update
-# stays within 1e-4 of another device's, see tests/test_torch_training.py)
-TRAIN_PARITY = ("qwen2-1.5b", "deepseek-moe-16b")
+# phase 3's train steps: reduced qwen2, deepseek-moe (whose MoE aux loss
+# carries a gradient), mamba2 and hymba (whose SSD scans train through the
+# plain scan, K7 having no backward), one AdamW step at lr 1e-3 (where one
+# step's update stays within 1e-4 of another device's, see
+# tests/test_torch_training.py)
+TRAIN_PARITY = ("qwen2-1.5b", "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b")
 
 
 def _train_parity(arch: str) -> dict:
     """One train step of the reduced config (float32, remat, the copy task
     at the reference's test size) on the card against the CPU from the
     same state and batch, TF32 off: loss, every gradient and every
-    updated leaf within 1e-4."""
+    updated leaf within 1e-4.  An SSM layer's scan launches no K7 there
+    and counts the plain scan instead (``ssd_chunk_plain_grad``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.launch.train import device_batch
     from repro_torch.training import step as STEP
     from repro_torch.training import tree as T
@@ -1667,6 +1706,7 @@ def _train_parity(arch: str) -> dict:
     batch = make_batch(cfg, ShapeSpec("tiny", 64, 8, "train"), 0,
                        DataConfig("copy"))
     runs = {}
+    before = dict(SSK.launches)
     with _tf32_off():
         state = STEP.init_train_state(cfg, tcfg, 0, device="cpu")
         for dev in ("cuda", "cpu"):
@@ -1677,6 +1717,7 @@ def _train_parity(arch: str) -> dict:
             runs[dev] = (float(loss), float(m["moe_aux_loss"]),
                          T.leaves(_to(grads, "cpu")),
                          T.leaves(_to(new, "cpu")), float(m1["loss"]))
+    k7 = {k: SSK.launches[k] - before[k] for k in before}
 
     def err(a, b):
         return max(float((x.double() - y.double()).abs().max()) for x, y in
@@ -1686,18 +1727,28 @@ def _train_parity(arch: str) -> dict:
         runs["cuda"], runs["cpu"])
     out = {"loss_err": abs(loss - hloss), "aux_err": abs(aux - haux),
            "grad_max_abs_err": err(g, hg), "updated_max_abs_err": err(new, hnew),
-           "step_loss_err": abs(l1 - hl1), "loss": loss, "moe_aux_loss": aux}
+           "step_loss_err": abs(l1 - hl1), "loss": loss, "moe_aux_loss": aux,
+           "k7_launches": k7["ssd_chunk"],
+           "plain_grad_scans": k7["ssd_chunk_plain_grad"]}
     if arch == "deepseek-moe-16b" and not aux > 0:
         raise AssertionError(f"training {arch}: no MoE aux loss")
+    # the forward, the remat recompute and the step's forward and recompute
+    # each scan every SSM layer through the plain version
+    ssm = cfg.family in ("ssm", "hybrid")
+    if k7["ssd_chunk"] or (k7["ssd_chunk_plain_grad"] > 0) != ssm:
+        raise AssertionError(f"training {arch}: scans {k7}")
     if not max(v for k, v in out.items() if k.endswith("err")) <= 1e-4:
         raise AssertionError(f"training {arch}: card off the CPU {out}")
     return {"cuda_vs_cpu": "within 1e-4", **out}
 
 
 def _k7_guard() -> dict:
-    """K7 has no backward: on the card ``ssd_scan`` refuses a call that
-    asks for a gradient, and serves one that does not (one launch,
-    against the plain version)."""
+    """K7 has no backward: on the card ``ssd_scan`` with a gradient asked
+    for runs the plain chunked scan under autograd (no K7 launch, one
+    count of ``ssd_chunk_plain_grad``), and the gradients of A, x, dt, B
+    and C equal the CPU plain version's within 1e-4 (1 + |cpu|); under
+    no_grad the same call launches K7 once, held to its plain version
+    within ``K7_TOL``."""
     from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.kernels.ssd_chunk.ops import ssd_scan
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunked_ref
@@ -1709,15 +1760,24 @@ def _k7_guard() -> dict:
     A = -torch.rand((H,), device="cuda", generator=gen)
     Bm, Cm = (torch.randn((B, T, N), device="cuda", generator=gen)
               for _ in range(2))
+    w = torch.randn((B, T, H, P), device="cuda", generator=gen)
+    grads, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        a, xd, dtd, b, c = (t.detach().to(dev).requires_grad_(True)
+                            for t in (A, x, dt, Bm, Cm))
+        before = dict(SSK.launches)
+        y, fs = ssd_scan(xd, dtd, a, b, c, chunk=16)
+        ((y * w.to(dev)).sum() + fs.sum()).backward()
+        counts[dev] = {k: SSK.launches[k] - before[k] for k in before}
+        grads[dev] = [t.grad.cpu() for t in (a, xd, dtd, b, c)]
+    errs = {name: float(((g - h).abs() / (1 + h.abs())).max())
+            for name, g, h in zip(("A", "x", "dt", "Bm", "Cm"),
+                                  grads["cuda"], grads["cpu"])}
+    if counts["cuda"] != {"ssd_chunk": 0, "ssd_chunk_plain_grad": 1}:
+        raise AssertionError(f"ssd_scan with a gradient: {counts['cuda']}")
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"ssd_scan gradients card vs CPU: {errs}")
     before = SSK.launches["ssd_chunk"]
-    try:
-        ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, chunk=16)
-    except RuntimeError as e:
-        if "15b" not in str(e):
-            raise
-        message = str(e)
-    else:
-        raise AssertionError("ssd_scan ran K7 with a gradient asked for")
     with torch.no_grad():
         y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
         want, _ = ssd_chunked_ref(x, dt, A, Bm, Cm,
@@ -1730,7 +1790,8 @@ def _k7_guard() -> dict:
                                 <= K7_TOL * (1 + want.abs())).all()):
         raise AssertionError(f"K7 without a gradient: {served} launches, "
                              f"error {e}")
-    return {"refused": message[:80], "no_grad_launches": served,
+    return {"grad_scaled_err": errs, "grad_k7_launches": 0,
+            "grad_plain_scans": 1, "no_grad_launches": served,
             "no_grad_max_abs_err": e}
 
 
@@ -2006,8 +2067,17 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
     return res, drv, rows, scen
 
 
+# the expected values of the runs phase dist repeats, kept from phase 4
+# (the same scenario and seed: the same data) so the host generates each
+# run's workload once more, not twice
+_EXPECTED: dict = {}
+
+
 def _read_back_gate(label, drv, scen, rep) -> dict:
-    keys, expected = _expected_values(scen)
+    keys, expected = (_EXPECTED.pop(label) if label in _EXPECTED
+                      else _expected_values(scen))
+    if drv.backend != "dist" and label in DIST_LABELS:
+        _EXPECTED[label] = (keys, expected)
     rb = _read_back(drv, keys, expected)
     if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < rep * keys.size:
         raise AssertionError(f"{label}: read-back failed {rb}")
@@ -2126,6 +2196,258 @@ def phase_dist() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase paper
+# ---------------------------------------------------------------------------
+
+# the paper's evaluation on the card (repro_torch.benchmarks): the suite at
+# the committed 8,192 ops a workload, held bit for bit to the same run on
+# the CPU and to the reference's rows (tests/data/paper_rows_reference.json,
+# made by tests/paper_reference.py: no JAX here); fig 13a and the DES
+# engine's three-mode sweep at 1,000,000 ops; the balance gate matrix at
+# its default size, and its --quick pair against the CPU and the fixture
+PAPER_OPS, PAPER_BIG = 8192, 1_000_000
+PAPER_FIXTURE = (Path(__file__).resolve().parent / "tests" / "data"
+                 / "paper_rows_reference.json")
+PAPER_JSON = Path(__file__).resolve().parent / "BENCH_torch_coordination.json"
+BALANCE_JSON = Path(__file__).resolve().parent / "BENCH_torch_balance.json"
+# the balance rows' run-to-run clock, and the reference's own count of its
+# device-to-host round trips (28 in its quick run, 16 in the port's), which
+# the fixture's rows are not compared on
+BALANCE_WALL = ("wall_s",)
+BALANCE_NOT_REFERENCE = ("host_syncs",)
+
+
+def _json_form(x):
+    """``x`` as JSON reads it back (tuples as lists, dataclasses as dicts)."""
+    import dataclasses
+
+    return json.loads(json.dumps(
+        x, default=lambda o: dataclasses.asdict(o)))
+
+
+def _paper_ratios(raw: dict) -> dict:
+    """In-switch over server-driven: throughput over fig 13a and 13b/c,
+    mean latency of reads, writes and scans over tables 1-2."""
+    thr = {}
+    for label, mode, t in raw["fig13a"]:
+        thr.setdefault(("13a", label), {})[mode] = t
+    for label, wr, mode, t in raw["fig13bc"]:
+        thr.setdefault(("13bc", label, wr), {})[mode] = t
+    tput = [m["in_switch"] / m["server_driven"] for m in thr.values()]
+    lat = [modes["in_switch"][f"{op}_mean"] / modes["server_driven"][f"{op}_mean"]
+           for modes in raw["tables12"].values()
+           for op in ("read", "write", "scan")]
+    return {"throughput_in_switch_over_server": [min(tput), max(tput)],
+            "latency_in_switch_over_server": [min(lat), max(lat)]}
+
+
+def _paper_raw(PT, n_ops: int, device) -> dict:
+    return _json_form({
+        "fig13a": PT.fig13a_throughput_vs_skew(n_ops, device=device),
+        "fig13bc": PT.fig13bc_throughput_vs_write_ratio(n_ops, device=device),
+        "tables12": PT.tables12_latency(n_ops, device=device),
+        "load_balance": PT.load_balance_effect(n_ops, device=device),
+        "hierarchy": PT.hierarchy_stats(n_ops, device=device),
+    })
+
+
+def _paper_suite(fixture: dict) -> dict:
+    """The suite at 8,192 ops: card == CPU == fixture, rows and raw
+    outputs, bit for bit."""
+    from repro_torch.benchmarks import paper_tables as PT
+    from repro_torch.benchmarks import run as RUN
+
+    want = fixture["paper"][str(PAPER_OPS)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rows = _json_form(RUN.simulated_rows(PAPER_OPS, device=dev))
+        raw = _paper_raw(PT, PAPER_OPS, dev)
+        out[dev] = {"seconds": time.perf_counter() - t0,
+                    "rows_differing_from_fixture": sum(
+                        a != b for a, b in zip(rows, want["rows"]))
+                    + abs(len(rows) - len(want["rows"])),
+                    "raw_equal_fixture": raw == want["raw"]}
+        if dev == "cuda":
+            card_rows, card_raw = rows, raw
+        elif rows != card_rows or raw != card_raw:
+            raise AssertionError("paper suite: the card's rows differ from "
+                                 "the CPU's")
+    if out["cuda"]["rows_differing_from_fixture"] or not out["cuda"][
+            "raw_equal_fixture"]:
+        raise AssertionError(f"paper suite: card vs the reference's rows {out}")
+    return {"n_ops": PAPER_OPS, "rows": len(card_rows),
+            "card_eq_cpu_eq_fixture": "bitwise",
+            "fixture_made_at": want["made_at"],
+            "seconds": {d: out[d]["seconds"] for d in out},
+            **_paper_ratios(card_raw)}
+
+
+def _host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _fig13a_full_scale() -> dict:
+    """Fig 13a at 1,000,000 ops a workload: 5 workloads routed through K1
+    on the card, 15 lanes of ``plan_hops`` there, stacked on the host and
+    simulated in one fused DES call (lane by lane, said in ``reduced``, if
+    the host could not hold the stacked plan four times over: the stack,
+    its compaction and the engine's copies)."""
+    from repro_torch import core as C
+    from repro_torch.benchmarks import paper_tables as PT
+    from repro_torch.data.ycsb import run_phase
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    workloads = PT.fig13a_workloads(PAPER_BIG)
+    t0 = time.perf_counter()
+    for _, wcfg in workloads:
+        run_phase(wcfg)
+    gen_s = time.perf_counter() - t0
+    k1 = RMK.launches["range_match"]
+    t0 = time.perf_counter()
+    scenarios, plans = PT.build_scenarios(workloads, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k1 = RMK.launches["range_match"] - k1
+    H = max(p.nodes.shape[1] for p in plans)
+    plan_bytes = len(plans) * PAPER_BIG * (H * 8 + 4)   # int32 + f32, reply
+    avail = _host_available_bytes()
+    fused = 4 * plan_bytes < avail
+    t0 = time.perf_counter()
+    if fused:
+        stacked = C.stack_plans(plans)
+        del plans
+        stack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, mk = C.simulate_closed_loop(stacked, n_clients=PT.N_CLIENTS,
+                                       num_nodes=PT.N_NODES)
+        mks = [float(x) for x in mk.numpy()]
+        del stacked
+    else:
+        stack_s, mks = 0.0, []
+        for p in plans:
+            _, mk = C.simulate_closed_loop(p, n_clients=PT.N_CLIENTS,
+                                           num_nodes=PT.N_NODES)
+            mks.append(float(mk))
+    des_s = time.perf_counter() - t0
+    thr = {}
+    for (label, mode, _, wcfg), m in zip(scenarios, mks):
+        thr.setdefault(label, {})[mode] = wcfg.n_ops / max(m, 1e-9)
+    ratios = {label: v["in_switch"] / v["server_driven"]
+              for label, v in thr.items()}
+    if len(mks) != 15 or not all(math.isfinite(m) and m > 0 for m in mks):
+        raise AssertionError(f"fig13a at 1M ops: makespans {mks}")
+    if k1 != len(workloads):
+        raise AssertionError(f"fig13a at 1M ops: K1 launched {k1}x")
+    out = {} if fused else {"reduced": {
+        "des": "lane by lane: the host holds less than four stacked plans"}}
+    return {**out, "n_ops": PAPER_BIG, "workloads": len(workloads),
+            "lanes": len(mks), "hops": H, "plan_host_bytes": plan_bytes,
+            "host_available_bytes": avail,
+            "des": "one fused call" if fused else "lane by lane",
+            "seconds": {"generate_host": gen_s,
+                        "route_and_plan_card": build_s - gen_s,
+                        "stack_host": stack_s, "des_host": des_s},
+            "k1_launches": k1, "makespans": mks,
+            "throughput": thr, "in_switch_over_server": ratios}
+
+
+def _balance_matrix(fixture: dict) -> dict:
+    """The gate matrix at the bench's default size on the card (7
+    scenarios x 5 policies, 10 epochs of 1,024 ops, 128 ranges):
+    ``check_acceptance`` must come back empty; then the --quick pair of
+    the fixture on the card and the CPU."""
+    from repro_torch.benchmarks import balance_bench as BB
+    from repro_torch.benchmarks.run import card_meta
+
+    t0 = time.perf_counter()
+    rows = BB.run_matrix(BB.DEFAULT_SCENARIOS, BB.DEFAULT_POLICIES, False,
+                         verbose=False, device="cuda")
+    matrix_s = time.perf_counter() - t0
+    # the CLI's layout; no steady_eps column (a second drive of each run,
+    # left out for the script's time limit)
+    BALANCE_JSON.write_text(json.dumps(
+        {"quick": False, "service": "fixed",
+         "meta": card_meta(torch.device("cuda")), "rows": rows}, indent=1))
+    problems = BB.check_acceptance(rows)
+    if problems or len(rows) != 35:
+        raise AssertionError(f"balance gates: {problems}")
+    want = fixture["balance_quick"]
+    quick = {}
+    for dev in ("cuda", "cpu"):
+        got = BB.run_matrix([want["scenario"]], want["policies"], True,
+                            verbose=False, device=dev)
+        quick[dev] = [{k: v for k, v in r.items() if k not in BALANCE_WALL}
+                      for r in _json_form(got)]
+    if quick["cuda"] != quick["cpu"]:
+        raise AssertionError("balance --quick: the card's rows differ from "
+                             "the CPU's")
+    skip = set(BALANCE_NOT_REFERENCE)
+    for got, ref in zip(quick["cuda"], want["rows"]):
+        bad = [k for k in ref if k not in skip and got.get(k) != ref[k]]
+        if bad or got.keys() != ref.keys():
+            raise AssertionError(f"balance --quick {ref['policy']}: columns "
+                                 f"{bad} differ from the reference's")
+    by = {(r["scenario"], r["policy"]): r for r in rows}
+    return {"runs": len(rows), "seconds": matrix_s, "gates": "empty",
+            "quick_card_eq_cpu": "equal but wall_s",
+            "quick_eq_fixture": "equal but wall_s, host_syncs",
+            "wall_s": [min(r["wall_s"] for r in rows),
+                       max(r["wall_s"] for r in rows)],
+            "shifting_hotspot": {p: {k: by[("shifting_hotspot", p)][k]
+                                     for k in ("mean_imbalance", "mean_p99",
+                                               "wall_s")}
+                                 for p in ("frozen", "full_adaptive")},
+            "multi_hotspot": {p: {k: by[("multi_hotspot", p)][k]
+                                  for k in ("mean_imbalance",
+                                            "total_migration_entries")}
+                              for p in ("migrate", "split_hot")}}
+
+
+def phase_paper() -> dict:
+    """The paper's evaluation on the card: the suite at 8,192 ops against
+    the CPU and the reference's rows; fig 13a at 1,000,000 ops; the CLI's
+    full run (the suite again, the DES engine bench with its oracle
+    comparisons and its 1,000,000-op three-mode sweep), written to
+    ``BENCH_torch_coordination.json``; the balance gate matrix, written to
+    ``BENCH_torch_balance.json``.  K1 (and the matrix's K2 / K4a) launches
+    are this path's counts."""
+    from repro_torch.benchmarks import run as RUN
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    _free_card()
+    fixture = json.loads(PAPER_FIXTURE.read_text())
+    RMK.reset_launches()                       # counts of the main path
+    out = {"phase": "paper", "suite": _paper_suite(fixture),
+           "fig13a_1m": _fig13a_full_scale()}
+    t0 = time.perf_counter()
+    if RUN.main(["--json", str(PAPER_JSON)]) != 0:
+        raise AssertionError("repro_torch.benchmarks.run failed")
+    cli_s = time.perf_counter() - t0
+    bench = json.loads(PAPER_JSON.read_text())
+    rows = {r["name"]: r for r in bench["rows"]}
+    sim = [[r["name"], r["us_per_call"], r["derived"]] for r in bench["rows"]
+           if not r["name"].startswith("des/")]
+    if sim != fixture["paper"][str(PAPER_OPS)]["rows"]:
+        raise AssertionError("the CLI's rows differ from the reference's")
+    des = {k: v["derived"] for k, v in rows.items() if k.startswith("des/")}
+    if len(des) != 4 or not all("bitexact=True" in des[k] for k in (
+            f"des/closed_loop/B{PAPER_OPS}", f"des/open_loop/B{PAPER_OPS}")):
+        raise AssertionError(f"engine bench: {des}")
+    out["cli"] = {"seconds": cli_s, "rows": len(bench["rows"]),
+                  "engine_wall_clock": bench["engine_wall_clock"],
+                  "des_rows": des, "meta": bench["meta"]}
+    out["balance"] = _balance_matrix(fixture)
+    out["launches"] = dict(RMK.launches)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase overload
 # ---------------------------------------------------------------------------
 
@@ -2134,7 +2456,8 @@ def phase_dist() -> dict:
 # a pull every 2 epochs, overload_adaptive with scale_patience 1; its
 # OverloadConfig at the bench's ratios of an active node's share (queue
 # 192 / 256 and service 320 / 256 there; here the share is 65,536 / 8 =
-# 8,192 ops); 12 epochs, the bench's 24 cut for time.  At those ratios
+# 8,192 ops); 8 epochs, the bench's 24 cut for the script's time limit
+# (12 until the paper phase and mamba2's training joined).  At those ratios
 # the queue bound is below the service rate, so every queue drains within
 # its epoch: the p2c queue penalty and the service inflation stay 0 (the
 # reference's BENCH_overload.json: max_queue_peak 0 in all four arms).
@@ -2142,7 +2465,7 @@ def phase_dist() -> dict:
 # nonzero queue_pen under K2 at full width
 OVL_FULL = dict(queue_cap=6144, service_rate=10240, inflation=3.0,
                 max_level=3, backoff_base=1, jitter_span=2, queue_weight=2)
-OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 12
+OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 8
 CASCADE = dict(theta=0.9, fail_epoch=3, rack=(0, 1, 2))
 # (label, scenario, its knobs, the failure epoch, OverloadConfig changes,
 # whether some epoch must route under a nonzero queue penalty)
@@ -2488,13 +2811,6 @@ def phase_telemetry() -> dict:
         launches=on["launches"])
     del off, on, d_off, d_on, tel, doc, pairs
     torch.cuda.empty_cache()
-    # the cost of the planes, in turns on one card: off, on (above), on, off
-    for planes in (True, False):
-        run = _telemetry_run(planes)
-        out["planes_on" if planes else "planes_off"].setdefault(
-            "turn_2", {k: run[k] for k in keep if k != "launches"})
-        del run
-        torch.cuda.empty_cache()
     emit(out)
     return out
 
@@ -2733,10 +3049,10 @@ FAMILY_PARAMS = {"deepseek-moe-16b": (15e9, 18e9), "minicpm3-4b": (3.5e9, 5e9),
                  "internvl2-26b": (19e9, 27e9), "whisper-small": (0.2e9, 0.35e9)}
 FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
                 "internvl2-26b": 4096, "llama4-maverick-400b-a17b": 8192}
-# half the serving phases' 64 requests: the four engine runs took 145-270
-# s of host time with 64 each (NVIDIA H100 80GB HBM3, 700 W), and the
-# script must stay well inside its time limit
-FAMILY_REQUESTS = 32
+# a quarter of the serving phases' 64 requests: the four engine runs took
+# 145-270 s of host time with 64 each and 95 s with 32 (NVIDIA H100 80GB
+# HBM3, 700 W), and the script must stay well inside its time limit
+FAMILY_REQUESTS = 16
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -3013,11 +3329,17 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 
 
 
-# phase training: qwen2-1.5b at its published widths and depth, bf16
-# compute over float32 master weights and AdamW state, remat, the copy
-# task, launch/train.py's loop and schedule (warmup max(5, steps // 20))
-TRAIN_ARCH = "qwen2-1.5b"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
+# phase training: qwen2-1.5b and mamba2-370m at their published widths and
+# depth, bf16 compute over float32 master weights and AdamW state, remat,
+# the copy task, launch/train.py's loop and schedule (warmup
+# max(5, steps // 20)); mamba2's SSD scans train through the plain
+# chunked scan (K7 has no backward)
+TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-370m")
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+# steps, cut to the script's time limit; mamba2's copy-task loss falls
+# slowly (the mean of its first 5 steps 11.0268, of steps 15-19 11.0214),
+# so it keeps the 20 steps its loss gate needs
+TRAIN_STEPS = {"qwen2-1.5b": 12, "mamba2-370m": 20}
 TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 10, 2
 H100_BF16_FLOPS = 989e12      # dense bf16 peak, NVIDIA's data sheet (SXM)
 
@@ -3025,20 +3347,73 @@ H100_BF16_FLOPS = 989e12      # dense bf16 peak, NVIDIA's data sheet (SXM)
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     """Model FLOPs of one train step (forward and backward, no remat):
     6 x parameters x tokens, plus attention's 12 x layers x q width x
-    sequence per token (PaLM's count, the whole T x T square)."""
+    sequence per token (PaLM's count, the whole T x T square); an
+    attention-free config (mamba2, ``n_heads`` 0) has no attention term."""
     tokens = batch * seq
     return (6.0 * n_params * tokens
             + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
 
 
-def phase_training() -> dict:
-    """``launch/train.py``'s loop on qwen2-1.5b at full width: 20 steps of
-    8 x 2,048 tokens, a checkpoint every 10 on a thread; then the step-10
+@contextlib.contextmanager
+def _scan_on_side_stream():
+    """Run every SSD scan of the model (``models.ssm.ssd_scan``) on a side
+    stream while the block is open.  Autograd runs a backward op on the
+    stream of its forward op, so the scans' forward, remat recompute and
+    backward kernels all land on that stream, where a device-only profile
+    can add them up.  Yields the name of a marker kernel (``bessel_j0``)
+    launched there before every scan (a profiler can drop its first
+    events): the marker's stream is the side stream in the profile."""
+    from repro_torch.models import ssm as SSM
+
+    side = torch.cuda.Stream()
+    scan = SSM.ssd_scan
+    one = torch.ones(1, device="cuda")
+
+    def on_side(*args, **kw):
+        main = torch.cuda.current_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            torch.special.bessel_j0(one)       # the marker, each call
+            out = scan(*args, **kw)
+        main.wait_stream(side)
+        return out
+
+    SSM.ssd_scan = on_side
+    try:
+        yield "bessel_j0"
+    finally:
+        SSM.ssd_scan = scan
+
+
+def _stream_share(prof, marker: str) -> dict:
+    """Device time of the kernels on the stream of the ``marker`` kernel
+    (less the marker's own), and of all device events, from a profile."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    side = {e.device_resource_id for e in events if marker in e.name}
+    on_side = [e for e in events if e.device_resource_id in side
+               and marker not in e.name]
+    us = lambda es: sum(e.time_range.end - e.time_range.start for e in es)
+    total = us(events)
+    return {"scan_device_s": us(on_side) / 1e6,
+            "step_device_s": total / 1e6,
+            "scan_kernels": len(on_side), "step_kernels": len(events),
+            "scan_share_of_device_time": us(on_side) / total if total else 0.0,
+            "scan_share_of_kernels": len(on_side) / len(events) if events else 0.0}
+
+
+def _train_full_width(arch: str) -> dict:
+    """``launch/train.py``'s loop on ``arch`` at full width:
+    ``TRAIN_STEPS[arch]`` steps of 8 x 2,048 tokens, a checkpoint every 10
+    on a thread; then the step-10
     checkpoint restored and steps 10-11 replayed.  Gates: the mean loss of
     the last 5 steps under that of the first 5 (the reference's
     ``test_loss_decreases``), finite losses, no kernel of the port
-    launched (the reference trains through jnp, no Pallas kernel), the
-    replay within 1e-3 of the first run's losses."""
+    launched (the reference trains through jnp, no Pallas kernel; an SSM
+    config's scans count ``ssd_chunk_plain_grad`` instead, 2 a layer and
+    step: the forward and the remat recompute), the replay within 1e-3 of
+    the first run's losses."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -3051,12 +3426,13 @@ def phase_training() -> dict:
     from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.launch.train import device_batch, train_config, train_loop
     from repro_torch.models import model as M
-    from repro_torch.training import tree as T
     from repro_torch.training.step import make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    ssm = cfg.family in ("ssm", "hybrid")
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
-    tcfg = train_config(TRAIN_STEPS, TRAIN_LR)
+    steps = TRAIN_STEPS[arch]
+    tcfg = train_config(steps, TRAIN_LR)
     ckpt = OUT / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     lines: list[str] = []
@@ -3069,13 +3445,14 @@ def phase_training() -> dict:
     RMK.reset_launches()                       # counts of the main path
     SSK.reset_launches()
     t0 = time.perf_counter()
-    state, recs = train_loop(cfg, shape, tcfg, steps=TRAIN_STEPS,
+    state, recs = train_loop(cfg, shape, tcfg, steps=steps,
                              ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
                              device="cuda", log=lines.append)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {**RMK.launches, "decode_attn": DAK.launches["decode_attn"],
                 "ssd_chunk": SSK.launches["ssd_chunk"]}
+    plain_grad = SSK.launches["ssd_chunk_plain_grad"]
     peak = torch.cuda.max_memory_allocated()
     n_params = M.param_count(state["params"])
     losses = [r["loss"] for r in recs]
@@ -3085,17 +3462,20 @@ def phase_training() -> dict:
     flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     # the device's busy share of one more step (the state it makes is
     # dropped); device activity only: a step issues ~64,000 kernels, and
-    # the operator events would take the trace's processing past a minute
-    batch = device_batch(make_batch(cfg, shape, TRAIN_STEPS,
+    # the operator events would take the trace's processing past a minute.
+    # An SSM config's scans run on a side stream there, to be added up
+    batch = device_batch(make_batch(cfg, shape, steps,
                                     DataConfig("copy")), "cuda")
     step_fn = make_train_step(cfg, tcfg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    scan_ctx = _scan_on_side_stream() if ssm else contextlib.nullcontext()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, scan_ctx as marker:
         tp = time.perf_counter()
         _, m = step_fn(state, batch)
         float(m["loss"])
         wall = time.perf_counter() - tp
     busy = _device_summary(prof, wall, top=8)
+    scan = _stream_share(prof, marker) if ssm else None
     del state, m, batch, prof
     _free_card()
     # the resume: step 10's checkpoint, steps 10 and 11 again
@@ -3113,11 +3493,11 @@ def phase_training() -> dict:
     _free_card()
     torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     out = {
-        "phase": "training", "arch": TRAIN_ARCH, "n_layers": cfg.n_layers,
+        "phase": "training", "arch": arch, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
         "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype,
         "opt_state_dtype": cfg.opt_state_dtype, "remat": tcfg.remat,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
         "task": "copy", "lr": TRAIN_LR, "warmup_steps": tcfg.opt.warmup_steps,
         "ckpt_every": TRAIN_CKPT_EVERY, "run_s": run_s,
         "first_step_ms": recs[0]["ms"],
@@ -3135,22 +3515,37 @@ def phase_training() -> dict:
         "profiled_step": {k: busy[k] for k in ("wall_s", "device_busy_s",
                                                "device_events", "top")},
         "losses": losses, "grad_norms": [r["grad_norm"] for r in recs],
-        "launches": launches, "log": lines,
+        "launches": launches, "plain_grad_scans": plain_grad, "log": lines,
         "resume": {"from_step": TRAIN_CKPT_EVERY, "losses": again,
                    "first_run": first, "bitwise": again == first,
                    "max_abs_diff": max(diffs), "seconds": replay_s},
-        "reduced": {"steps": "20: the script's time limit"},
+        "reduced": {"steps": f"{steps}: the script's time limit"},
     }
+    if scan is not None:
+        out["scan"] = scan
     emit(out)
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"training: non-finite loss {losses}")
+        raise AssertionError(f"training {arch}: non-finite loss {losses}")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
-        raise AssertionError(f"training: the loss did not fall {losses}")
+        raise AssertionError(f"training {arch}: the loss did not fall {losses}")
     if any(launches.values()):
-        raise AssertionError(f"training: kernels launched {launches}")
+        raise AssertionError(f"training {arch}: kernels launched {launches}")
+    if plain_grad != (2 * cfg.n_layers * steps if ssm else 0):
+        raise AssertionError(f"training {arch}: {plain_grad} plain scans")
+    if ssm and not scan["scan_kernels"] > 0:
+        raise AssertionError(f"training {arch}: no scan kernel profiled")
     if len(again) != TRAIN_REPLAY or not max(diffs) <= 1e-3:
-        raise AssertionError(f"training: replay {again} vs {first}")
+        raise AssertionError(f"training {arch}: replay {again} vs {first}")
     return out
+
+
+def phase_training() -> dict:
+    """Each of ``TRAIN_ARCHS`` through :func:`_train_full_width`; returns
+    the runs' kernel launches and plain gradient scans summed."""
+    runs = [_train_full_width(arch) for arch in TRAIN_ARCHS]
+    return {"launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in runs[0]["launches"]},
+            "plain_grad_scans": sum(r["plain_grad_scans"] for r in runs)}
 
 
 def phase_profile() -> dict:
@@ -3267,20 +3662,28 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t0 = time.perf_counter()
-    dev_info = phase_device()           # always: the build is every phase's
-    kernels = (phase_kernels(grid_study="grid_study" in phases)
-               if "kernels" in phases else None)
-    if "parity" in phases:
-        phase_parity()
-    full = (phase_full_width(keep_frozen="dist" in phases)
-            if "full_width" in phases else None)
-    ovl = phase_overload() if "overload" in phases else None
-    tel = phase_telemetry() if "telemetry" in phases else None
-    dist = phase_dist() if "dist" in phases else None
-    serving = phase_serving() if "serving" in phases else None
-    serving_ssm = phase_serving_ssm() if "serving_ssm" in phases else None
-    families = phase_families() if "families" in phases else None
-    training = phase_training() if "training" in phases else None
+    seconds: dict[str, float] = {}
+
+    def run(name, fn, *args, **kw):
+        if name not in phases and name != "device":
+            return None
+        ts = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - ts
+        return out
+
+    dev_info = run("device", phase_device)   # always: the build is every phase's
+    kernels = run("kernels", phase_kernels, grid_study="grid_study" in phases)
+    run("parity", phase_parity)
+    full = run("full_width", phase_full_width, keep_frozen="dist" in phases)
+    ovl = run("overload", phase_overload)
+    tel = run("telemetry", phase_telemetry)
+    dist = run("dist", phase_dist)
+    paper = run("paper", phase_paper)
+    serving = run("serving", phase_serving)
+    serving_ssm = run("serving_ssm", phase_serving_ssm)
+    families = run("families", phase_families)
+    training = run("training", phase_training)
     if families is not None:      # the five runs' launches as one path
         families = {"launches": {name: sum(f["launches"][name]
                                            for f in families)
@@ -3299,7 +3702,8 @@ def main(argv=None) -> int:
         # launches_by_path; launches is their sum
         paths = {name: p["launches"] for name, p in
                  (("full_width", full), ("overload", ovl),
-                  ("telemetry", tel), ("dist", dist), ("serving", serving),
+                  ("telemetry", tel), ("dist", dist), ("paper", paper),
+                  ("serving", serving),
                   ("serving_ssm", serving_ssm), ("families", families),
                   ("training", training))
                  if p is not None}
@@ -3310,12 +3714,19 @@ def main(argv=None) -> int:
                                        for name, p in paths.items()}
             row["launches"] = (sum(row["launches_by_path"].values())
                                if paths else None)
+            if row["name"] == "ssd_chunk" and training is not None:
+                # K7 trains no step (it has no backward): the plain scans
+                # that ran in its place on the training path
+                row["plain_grad_scans_by_path"] = {
+                    "training": training["plain_grad_scans"]}
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "parity", "ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")} for r in main_rows]})
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+            "library_device_ms", "plain_grad_scans_by_path") if k in r}
+            for r in main_rows]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "phase_seconds": seconds})
     print(dev_info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,8 @@ from repro_torch.core.stats import (
     sketch_query,
     sketch_update,
 )
+from repro_torch.core.hierarchy import PodTable, derive_pod_table, route_pod
+from repro_torch.core.dist_store import DistConfig, make_dist_apply
 
 __all__ = [
     "keys", "OP_GET", "OP_PUT", "OP_DEL", "OP_SCAN", "hash_key",
@@ -65,4 +67,5 @@ __all__ = [
     "IN_SWITCH", "CLIENT_DRIVEN", "SERVER_DRIVEN", "MODES",
     "Controller", "ControllerConfig", "MigrationOp", "execute_migrations",
     "StatsReport", "pull_report", "make_sketch", "sketch_update", "sketch_query",
+    "PodTable", "derive_pod_table", "route_pod", "DistConfig", "make_dist_apply",
 ]

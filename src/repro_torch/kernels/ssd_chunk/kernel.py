@@ -8,7 +8,9 @@ PyTorch's caching allocator (so a CUDA graph can capture the call) and
 launches the four passes on CUDA tensors; it raises on anything it does
 not take and never falls back to the plain version.
 ``launches["ssd_chunk"]`` counts its calls, one a call whatever the
-number of passes.
+number of passes; ``launches["ssd_chunk_plain_grad"]`` counts the CUDA
+calls of :func:`~repro_torch.kernels.ssd_chunk.ops.ssd_scan` that asked
+for a gradient and so ran the plain scan instead (K7 has no backward).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ HEAD_DIMS = (8, 16, 32, 64)       # P: the instances K7 is held to
 STATE_DIMS = (4, 8, 16, 128)      # N
 MAX_CHUNK = 128                   # Q (kQMax)
 
-launches = {"ssd_chunk": 0}
+launches = {"ssd_chunk": 0, "ssd_chunk_plain_grad": 0}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -37,6 +39,7 @@ _I32 = ctypes.c_int32
 
 def reset_launches() -> None:
     launches["ssd_chunk"] = 0
+    launches["ssd_chunk_plain_grad"] = 0
 
 
 def build(verbose: bool = False) -> Path:

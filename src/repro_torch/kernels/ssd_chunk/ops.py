@@ -4,10 +4,15 @@ runs the plain version on CPU tensors and K7 on CUDA tensors (any number
 of B/C groups: K7 takes G > 1, where the reference falls back to jnp);
 the one-token decode step is plain tensor code, as in the reference.
 
-K7 has no backward.  The reference trains its SSM through the jnp chunked
-scan, which autograd differentiates; here the plain version on the CPU
-does the same, but on the card a gradient through K7 would be silently
-lost, so :func:`ssd_scan` refuses a CUDA call that asks for one."""
+K7 serves under ``torch.no_grad()``; the plain scan trains.  K7 has no
+backward, and the reference trains its SSM through the jnp chunked scan
+(``use_pallas=False``), which autograd differentiates.  So a CUDA call
+that asks for a gradient runs the plain chunked scan
+(:func:`ssd_chunked_ref`) under autograd on the card, as the CPU path
+always does, and counts itself in ``launches["ssd_chunk_plain_grad"]``
+beside K7's ``launches["ssd_chunk"]``.  A non-reentrant checkpoint's
+recompute asks for a gradient too, so it takes the same path as the
+forward it replays."""
 
 from __future__ import annotations
 
@@ -35,14 +40,11 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     x, dt, Bm, Cm = pad_to_chunks(x, dt, Bm, Cm, chunk)
     if on_cpu(x, dt, A, Bm, Cm, init_state):
         y, fs = ssd_chunked_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
+        kernel.launches["ssd_chunk_plain_grad"] += 1
+        y, fs = ssd_chunked_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
     else:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
-            raise RuntimeError(
-                "ssd_scan: the K7 kernel has no backward, and a gradient "
-                "through it would be lost; training the SSM families on the "
-                "card waits for ROADMAP step 15b (an autograd Function with "
-                "a backward kernel).  Run under torch.no_grad() to serve.")
         if Bm.dim() == 3:
             Bm, Cm = Bm[:, :, None, :], Cm[:, :, None, :]
         y, fs = kernel.ssd_chunk(

@@ -1448,11 +1448,13 @@ def _train_setup(arch):
     return cfg, tcfg, STEP.init_train_state(cfg, tcfg, 0, device="cpu"), batch
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b",
+                                  "mamba2-370m", "hymba-1.5b"])
 def test_train_step_card_matches_cpu(dev, no_tf32, arch):
     """One reduced train step (f32, remat) on the card against the CPU
     from the same state and batch: loss, gradients and every updated leaf
-    within 1e-4 (deepseek's MoE aux loss with its gradient)."""
+    within 1e-4 (deepseek's MoE aux loss with its gradient; mamba2's and
+    hymba's SSD scans through the plain scan, K7 launched by none)."""
     from repro_torch.launch.train import device_batch
     from repro_torch.training import step as STEP
     from repro_torch.training import tree as TR
@@ -1495,11 +1497,16 @@ def test_checkpoint_saved_on_card_restores_on_cpu(dev, tmp_path):
         assert torch.equal(a, b)
 
 
-def test_ssd_scan_refuses_a_gradient_through_k7(dev):
-    """K7 has no backward: a CUDA call that asks for a gradient raises
-    (naming ROADMAP step 15b); under no_grad it serves as before."""
+def test_ssd_scan_trains_through_the_plain_scan_and_serves_through_k7(dev):
+    """K7 has no backward: a CUDA call that asks for a gradient runs the
+    plain chunked scan under autograd (no K7 launch, one count of
+    ``ssd_chunk_plain_grad``), and the gradients of x, dt, A, B and C
+    equal the CPU plain version's within 1e-4 (1 + |cpu|) (dt's reach
+    ~113 here); under no_grad the call
+    launches K7 once, within 2e-4 (1 + |want|) of the plain version."""
     from repro_torch.kernels.ssd_chunk import kernel as SK
     from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunked_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((1, 32, 2, 8), device=dev, generator=gen)
@@ -1507,11 +1514,26 @@ def test_ssd_scan_refuses_a_gradient_through_k7(dev):
     A = -torch.rand((2,), device=dev, generator=gen)
     Bm, Cm = (torch.randn((1, 32, 8), device=dev, generator=gen)
               for _ in range(2))
+    w = torch.randn((1, 32, 2, 8), device=dev, generator=gen)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(d).requires_grad_(True)
+                  for t in (x, dt, A, Bm, Cm)]
+        before = dict(SK.launches)
+        y, fs = ssd_scan(*leaves, chunk=16)
+        ((y * w.to(d)).sum() + fs.sum()).backward()
+        if d.type == "cuda":
+            assert SK.launches["ssd_chunk"] == before["ssd_chunk"]
+            assert (SK.launches["ssd_chunk_plain_grad"]
+                    == before["ssd_chunk_plain_grad"] + 1)
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, h in zip(*grads):
+        assert float(((g - h).abs() / (1 + h.abs())).max()) <= 1e-4
     before = SK.launches["ssd_chunk"]
-    with pytest.raises(RuntimeError, match="15b"):
-        ssd_scan(x, dt, A.requires_grad_(True), Bm, Cm, chunk=16)
-    assert SK.launches["ssd_chunk"] == before
     with torch.no_grad():
-        y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+        got = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+        want = ssd_chunked_ref(x, dt, A, Bm, Cm,
+                               torch.zeros((1, 2, 8, 8), device=dev),
+                               chunk=16)
     assert SK.launches["ssd_chunk"] == before + 1
-    assert bool(torch.isfinite(y).all())
+    _ssd_close(got, want)

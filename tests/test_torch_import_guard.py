@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` imports neither ``jax`` nor any
-module of the JAX reference package ``repro``."""
+module of the JAX reference package ``repro`` or of the reference's
+benches (the repo-root ``benchmarks``)."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
 MODULES = sorted(p.relative_to(SRC).as_posix() for p in PORT.rglob("*.py"))
 
-_BLOCKED = ("jax", "jaxlib", "repro")
+_BLOCKED = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_names(path: pathlib.Path) -> list[str]:
@@ -49,6 +50,7 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.cluster\n"
         "import repro_torch.convert, repro_torch.prng\n"
         "import repro_torch.kernels.range_match\n"
@@ -65,6 +67,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.moe, repro_torch.models.encdec\n"
         "import repro_torch.training, repro_torch.training.grad_compression\n"
         "import repro_torch.data.pipeline, repro_torch.launch.train\n"
+        "import repro_torch.benchmarks.run, repro_torch.benchmarks.balance_bench\n"
+        "import repro_torch.benchmarks.coordination_bench\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -91,6 +95,8 @@ def test_port_modules_found():
         assert f"repro_torch/training/{mod}.py" in MODULES
     assert "repro_torch/data/pipeline.py" in MODULES
     assert "repro_torch/launch/train.py" in MODULES
+    for mod in ("paper_tables", "coordination_bench", "run", "balance_bench"):
+        assert f"repro_torch/benchmarks/{mod}.py" in MODULES
     for mod in ("trace", "attribution", "export", "profiler", "flight",
                 "recorder", "metrics", "slo", "incident", "dashboard"):
         assert f"repro_torch/telemetry/{mod}.py" in MODULES

@@ -382,7 +382,7 @@ def test_fit_mesh_absorbs_device_loss():
 # loss_fn and its gradients, every family
 # ---------------------------------------------------------------------------
 
-LOSS_ARCHS = ("qwen2-1.5b", "mamba2-370m", "deepseek-moe-16b",
+LOSS_ARCHS = ("qwen2-1.5b", "mamba2-370m", "hymba-1.5b", "deepseek-moe-16b",
               "internvl2-26b", "whisper-small")
 
 
