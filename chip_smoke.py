@@ -98,13 +98,14 @@ exits non-zero):
                moe-16b, mamba2-370m and hymba-1.5b (f32, remat, TF32 off)
                on the card against the CPU from one state and batch: loss,
                every gradient and every updated leaf within 1e-4, the SSM
-               layers' scans through the plain chunked scan (no K7
-               launch, ``ssd_chunk_plain_grad`` counted); and ``ssd_scan``
-               with a gradient asked for on the card (K7 has no backward):
-               the gradients of A, x, dt, B and C within 1e-4 (1 + |cpu|)
-               of the CPU's, no K7 launch, while the same call under
-               no_grad launches K7 once, within ``K7_TOL`` of its plain
-               version;
+               layers' scans through K7 forward (and in the remat
+               recompute) and the plain chunked scan's VJP backward
+               (``ssd_chunk_plain_grad`` counted); and ``ssd_scan`` with a
+               gradient asked for on the card: one K7 launch, y within
+               ``K7_TOL`` of the CPU plain version's, the gradients of A,
+               x, dt, B and C within 1e-4 (1 + |cpu|) of its, one backward
+               counted, while the same call under no_grad launches K7
+               once and counts no backward;
 4. full_width  the main path at full width — YCSB records of
                fieldcount 10 x fieldlength 100 (value_dim 256 float32),
                1,000,000 records, 65,536 ops an epoch, 8 nodes, 1024 ranges
@@ -126,7 +127,7 @@ exits non-zero):
                every 2 epochs, queue 6,144 and service 10,240 a node and
                epoch (the bench's ratios to an active node's share) — on
                ``cascade_failure`` (rack 0-2 dies at epoch 3) and
-               ``retry_storm`` (rack 0-1 out in epochs 2-4), 8 epochs
+               ``retry_storm`` (rack 0-1 out in epochs 2-4), 12 epochs
                each, and the cascade once more with a queue of 20,480 that
                outlives its epoch; conservation after every period, K2 once
                an epoch (under a nonzero queue penalty in the third run),
@@ -158,19 +159,19 @@ exits non-zero):
                write read back from every live replica; epochs/s, stage
                seconds, device step, exchange rounds, dirty reads and peak
                memory;
-   paper       the paper's evaluation (``repro_torch.benchmarks``): fig
-               13a, fig 13b/c, tables 1-2, the §5.1 migration effect and
-               the §6 pod crossing at 8,192 ops a workload, routed (K1)
-               and planned on the card, equal bit for bit to the same run
-               on the CPU and to the reference's rows
-               (``tests/data/paper_rows_reference.json``), with the
-               in-switch over server-driven ratios; fig 13a at 1,000,000
-               ops a workload (5 workloads through K1, 15 lanes of hop
-               plans, one fused DES call on the host; seconds by stage);
-               the CLI's full run (``python -m repro_torch.benchmarks.run``:
-               the suite, the DES engine against its heapq oracle, bit for
-               bit, and the 1,000,000-op three-mode sweep) into
-               ``BENCH_torch_coordination.json``; the balance gate matrix
+   paper       the paper's evaluation (``repro_torch.benchmarks``): the
+               CLI's full run (``python -m repro_torch.benchmarks.run``)
+               into ``BENCH_torch_coordination.json``: fig 13a, fig 13b/c,
+               tables 1-2, the §5.1 migration effect and the §6 pod
+               crossing at 8,192 ops a workload, routed (K1) and planned
+               on the card, their rows equal bit for bit to the CPU
+               path's (whose rows and raw outputs equal the reference's,
+               ``tests/data/paper_rows_reference.json``), with the
+               in-switch over server-driven ratios; the DES engine
+               against its heapq oracle, bit for bit, and the 1,000,000-op
+               three-mode sweep; fig 13a at 1,000,000 ops a workload (5
+               workloads through K1, 15 lanes of hop plans, one fused DES
+               call on the host; seconds by stage); the balance gate matrix
                (7 scenarios x 5 policies, 10 epochs of 1,024 ops, 128
                ranges; each run driven once, without the CLI's
                ``steady_eps`` re-drive) into ``BENCH_torch_balance.json``,
@@ -222,20 +223,23 @@ exits non-zero):
                1024, 32 SSD heads of 64, d_state 128, vocab 50,280, tied
                embeddings), each at its published widths and depth: bf16
                compute over float32 master weights and AdamW state,
-               remat, the copy task, 8 x 2,048 tokens a step (12 steps of
-               qwen2, 20 of mamba2, whose loss falls slower), lr
+               remat, the copy task, 20 steps of 8 x 2,048 tokens, lr
                3e-4 with the launcher's warmup, a checkpoint every 10
                steps on a thread; then step 10's checkpoint restored and
                steps 10-11 replayed.  tokens/s, step ms p50 / p99 (CUDA
                events), peak memory, ``train_mfu`` (model FLOPs over the
                H100's dense bf16 peak; mamba2 has no attention term) and
                the device's busy share of one more, profiled step, and
-               for mamba2 the SSD scans' share of that step's device time
-               (forward, remat recompute and backward, run on a side
-               stream for the count); gates: the loss falls (the mean of
-               the last 5 steps under that of the first 5), no kernel
-               launches (the reference trains through jnp; mamba2's scans
-               run the plain chunked scan, two a layer and step), the
+               for mamba2 the SSD scans' share of the step (one layer's
+               scan at the training shape, K7 forward, K7 recompute and
+               the plain VJP backward, timed with CUDA events and
+               profiled on its own, times 48 layers, over the profiled
+               step's device time and kernels and over step ms p50);
+               gates: the loss falls (the
+               mean of the last 5 steps under that of the first 5), no
+               kernel launches but K7's (the reference trains through
+               jnp; mamba2's scans launch K7 twice a layer and step and
+               count one backward through the plain scan's VJP), the
                replay within 1e-3 (and whether bit for bit).
 
 Three more phases run only when named in ``--phases``: ``profile``
@@ -246,9 +250,9 @@ device time of K1-K4b at the phase 2 shape under a grid of one thread a
 packet and of 1, 2 and 3 blocks an SM, in turns).
 
 It then prints the kernel table (``{"kernels": [...]}``, with each main
-path's launch counts in ``launches_by_path``, and beside K7 the plain
-scans that trained in its place, ``plain_grad_scans_by_path``), the card
-line,
+path's launch counts in ``launches_by_path``, and beside K7 the backward
+passes through the plain scan's VJP, ``plain_vjp_backward_by_path``),
+the card line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
 non-zero before printing any result.
 """
@@ -1552,7 +1556,7 @@ def phase_parity() -> dict:
     out["serving"] = {arch: _serving_parity(arch) for arch in SERVING_PARITY}
     out["serving"][FACADE_PARITY] = _facade_parity(FACADE_PARITY)
     out["training"] = {arch: _train_parity(arch) for arch in TRAIN_PARITY}
-    out["training"]["k7_guard"] = _k7_guard()
+    out["training"]["k7_autograd"] = _k7_autograd()
     emit(out)
     return out
 
@@ -1678,8 +1682,8 @@ def _serving_parity(arch: str) -> dict:
 
 
 # phase 3's train steps: reduced qwen2, deepseek-moe (whose MoE aux loss
-# carries a gradient), mamba2 and hymba (whose SSD scans train through the
-# plain scan, K7 having no backward), one AdamW step at lr 1e-3 (where one
+# carries a gradient), mamba2 and hymba (whose SSD scans run K7 forward
+# and the plain scan's VJP backward), one AdamW step at lr 1e-3 (where one
 # step's update stays within 1e-4 of another device's, see
 # tests/test_torch_training.py)
 TRAIN_PARITY = ("qwen2-1.5b", "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b")
@@ -1689,8 +1693,9 @@ def _train_parity(arch: str) -> dict:
     """One train step of the reduced config (float32, remat, the copy task
     at the reference's test size) on the card against the CPU from the
     same state and batch, TF32 off: loss, every gradient and every
-    updated leaf within 1e-4.  An SSM layer's scan launches no K7 there
-    and counts the plain scan instead (``ssd_chunk_plain_grad``)."""
+    updated leaf within 1e-4.  An SSM layer's scan launches K7 twice a
+    pass (the forward and the remat recompute) and counts one backward
+    through the plain scan's VJP (``ssd_chunk_plain_grad``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, make_batch
@@ -1729,26 +1734,28 @@ def _train_parity(arch: str) -> dict:
            "grad_max_abs_err": err(g, hg), "updated_max_abs_err": err(new, hnew),
            "step_loss_err": abs(l1 - hl1), "loss": loss, "moe_aux_loss": aux,
            "k7_launches": k7["ssd_chunk"],
-           "plain_grad_scans": k7["ssd_chunk_plain_grad"]}
+           "plain_vjp_backward": k7["ssd_chunk_plain_grad"]}
     if arch == "deepseek-moe-16b" and not aux > 0:
         raise AssertionError(f"training {arch}: no MoE aux loss")
-    # the forward, the remat recompute and the step's forward and recompute
-    # each scan every SSM layer through the plain version
+    # each SSM layer's scan: K7 in the forward and in the remat recompute,
+    # the plain scan's VJP in the backward
     ssm = cfg.family in ("ssm", "hybrid")
-    if k7["ssd_chunk"] or (k7["ssd_chunk_plain_grad"] > 0) != ssm:
+    back = k7["ssd_chunk_plain_grad"]
+    if (back > 0) != ssm or k7["ssd_chunk"] != 2 * back:
         raise AssertionError(f"training {arch}: scans {k7}")
     if not max(v for k, v in out.items() if k.endswith("err")) <= 1e-4:
         raise AssertionError(f"training {arch}: card off the CPU {out}")
     return {"cuda_vs_cpu": "within 1e-4", **out}
 
 
-def _k7_guard() -> dict:
-    """K7 has no backward: on the card ``ssd_scan`` with a gradient asked
-    for runs the plain chunked scan under autograd (no K7 launch, one
-    count of ``ssd_chunk_plain_grad``), and the gradients of A, x, dt, B
-    and C equal the CPU plain version's within 1e-4 (1 + |cpu|); under
-    no_grad the same call launches K7 once, held to its plain version
-    within ``K7_TOL``."""
+def _k7_autograd() -> dict:
+    """``ssd_scan`` with a gradient asked for on the card: K7's forward
+    (one launch, y within ``K7_TOL`` (1 + |cpu|) of the CPU plain
+    version's) and the plain scan's VJP backward (one count of
+    ``ssd_chunk_plain_grad``; the gradients of A, x, dt, B and C within
+    1e-4 (1 + |cpu|) of the CPU's); under no_grad the same call launches
+    K7 once, held to its plain version within ``K7_TOL``, and counts no
+    backward."""
     from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.kernels.ssd_chunk.ops import ssd_scan
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunked_ref
@@ -1761,37 +1768,42 @@ def _k7_guard() -> dict:
     Bm, Cm = (torch.randn((B, T, N), device="cuda", generator=gen)
               for _ in range(2))
     w = torch.randn((B, T, H, P), device="cuda", generator=gen)
-    grads, counts = {}, {}
+    grads, counts, ys = {}, {}, {}
+    before = dict(SSK.launches)
     for dev in ("cuda", "cpu"):
         a, xd, dtd, b, c = (t.detach().to(dev).requires_grad_(True)
                             for t in (A, x, dt, Bm, Cm))
-        before = dict(SSK.launches)
+        n0 = dict(SSK.launches)
         y, fs = ssd_scan(xd, dtd, a, b, c, chunk=16)
         ((y * w.to(dev)).sum() + fs.sum()).backward()
-        counts[dev] = {k: SSK.launches[k] - before[k] for k in before}
+        counts[dev] = {k: SSK.launches[k] - n0[k] for k in n0}
         grads[dev] = [t.grad.cpu() for t in (a, xd, dtd, b, c)]
+        ys[dev] = y.detach().cpu()
     errs = {name: float(((g - h).abs() / (1 + h.abs())).max())
             for name, g, h in zip(("A", "x", "dt", "Bm", "Cm"),
                                   grads["cuda"], grads["cpu"])}
-    if counts["cuda"] != {"ssd_chunk": 0, "ssd_chunk_plain_grad": 1}:
+    y_err = float(((ys["cuda"] - ys["cpu"]).abs()
+                   / (1 + ys["cpu"].abs())).max())
+    if counts["cuda"] != {"ssd_chunk": 1, "ssd_chunk_plain_grad": 1}:
         raise AssertionError(f"ssd_scan with a gradient: {counts['cuda']}")
-    if not max(errs.values()) <= 1e-4:
-        raise AssertionError(f"ssd_scan gradients card vs CPU: {errs}")
-    before = SSK.launches["ssd_chunk"]
+    if not (max(errs.values()) <= 1e-4 and y_err <= K7_TOL):
+        raise AssertionError(f"ssd_scan with a gradient, card vs CPU: y "
+                             f"{y_err}, gradients {errs}")
+    n0 = dict(SSK.launches)
     with torch.no_grad():
         y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
         want, _ = ssd_chunked_ref(x, dt, A, Bm, Cm,
                                   torch.zeros((B, H, P, N), device="cuda"),
                                   chunk=16)
-    served = SSK.launches["ssd_chunk"] - before
-    SSK.launches["ssd_chunk"] = before   # comparison launches do not count
+    served = {k: SSK.launches[k] - n0[k] for k in n0}
+    SSK.launches.update(before)   # comparison launches do not count
     e = float((y - want).abs().max())
-    if served != 1 or not bool(((y - want).abs()
-                                <= K7_TOL * (1 + want.abs())).all()):
+    if served != {"ssd_chunk": 1, "ssd_chunk_plain_grad": 0} or not bool(
+            ((y - want).abs() <= K7_TOL * (1 + want.abs())).all()):
         raise AssertionError(f"K7 without a gradient: {served} launches, "
                              f"error {e}")
-    return {"grad_scaled_err": errs, "grad_k7_launches": 0,
-            "grad_plain_scans": 1, "no_grad_launches": served,
+    return {"grad_y_scaled_err": y_err, "grad_scaled_err": errs,
+            "grad_launches": counts["cuda"], "no_grad_launches": served,
             "no_grad_max_abs_err": e}
 
 
@@ -2225,18 +2237,15 @@ def _json_form(x):
         x, default=lambda o: dataclasses.asdict(o)))
 
 
-def _paper_ratios(raw: dict) -> dict:
-    """In-switch over server-driven: throughput over fig 13a and 13b/c,
-    mean latency of reads, writes and scans over tables 1-2."""
-    thr = {}
-    for label, mode, t in raw["fig13a"]:
-        thr.setdefault(("13a", label), {})[mode] = t
-    for label, wr, mode, t in raw["fig13bc"]:
-        thr.setdefault(("13bc", label, wr), {})[mode] = t
-    tput = [m["in_switch"] / m["server_driven"] for m in thr.values()]
-    lat = [modes["in_switch"][f"{op}_mean"] / modes["server_driven"][f"{op}_mean"]
-           for modes in raw["tables12"].values()
-           for op in ("read", "write", "scan")]
+def _paper_ratios(rows: list) -> dict:
+    """In-switch over server-driven, from the CLI's rows: throughput over
+    fig 13a and 13b/c (their ``us_per_call`` is ticks an op), mean latency
+    of reads, writes and scans over tables 1-2."""
+    us = {name: v for name, v, _ in rows}
+    tput = [us[n[:-len("in_switch")] + "server_driven"] / us[n]
+            for n in us if n.startswith("fig13") and n.endswith("/in_switch")]
+    lat = [us[n] / us[n.replace("/in_switch/", "/server_driven/")]
+           for n in us if n.startswith("table12/") and "/in_switch/" in n]
     return {"throughput_in_switch_over_server": [min(tput), max(tput)],
             "latency_in_switch_over_server": [min(lat), max(lat)]}
 
@@ -2251,36 +2260,22 @@ def _paper_raw(PT, n_ops: int, device) -> dict:
     })
 
 
-def _paper_suite(fixture: dict) -> dict:
-    """The suite at 8,192 ops: card == CPU == fixture, rows and raw
-    outputs, bit for bit."""
+def _paper_cpu(fixture: dict) -> dict:
+    """The suite at 8,192 ops on the CPU path: its rows and raw outputs
+    equal the fixture's, bit for bit (the card's rows are the CLI's, held
+    to these in :func:`phase_paper`)."""
     from repro_torch.benchmarks import paper_tables as PT
     from repro_torch.benchmarks import run as RUN
 
     want = fixture["paper"][str(PAPER_OPS)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        rows = _json_form(RUN.simulated_rows(PAPER_OPS, device=dev))
-        raw = _paper_raw(PT, PAPER_OPS, dev)
-        out[dev] = {"seconds": time.perf_counter() - t0,
-                    "rows_differing_from_fixture": sum(
-                        a != b for a, b in zip(rows, want["rows"]))
-                    + abs(len(rows) - len(want["rows"])),
-                    "raw_equal_fixture": raw == want["raw"]}
-        if dev == "cuda":
-            card_rows, card_raw = rows, raw
-        elif rows != card_rows or raw != card_raw:
-            raise AssertionError("paper suite: the card's rows differ from "
-                                 "the CPU's")
-    if out["cuda"]["rows_differing_from_fixture"] or not out["cuda"][
-            "raw_equal_fixture"]:
-        raise AssertionError(f"paper suite: card vs the reference's rows {out}")
-    return {"n_ops": PAPER_OPS, "rows": len(card_rows),
-            "card_eq_cpu_eq_fixture": "bitwise",
-            "fixture_made_at": want["made_at"],
-            "seconds": {d: out[d]["seconds"] for d in out},
-            **_paper_ratios(card_raw)}
+    t0 = time.perf_counter()
+    rows = _json_form(RUN.simulated_rows(PAPER_OPS, device="cpu"))
+    raw = _paper_raw(PT, PAPER_OPS, "cpu")
+    seconds = time.perf_counter() - t0
+    if rows != want["rows"] or raw != want["raw"]:
+        raise AssertionError("paper suite: the CPU path's rows differ from "
+                             "the reference's")
+    return {"rows": rows, "seconds": seconds}
 
 
 def _host_available_bytes() -> int:
@@ -2409,21 +2404,20 @@ def _balance_matrix(fixture: dict) -> dict:
 
 
 def phase_paper() -> dict:
-    """The paper's evaluation on the card: the suite at 8,192 ops against
-    the CPU and the reference's rows; fig 13a at 1,000,000 ops; the CLI's
-    full run (the suite again, the DES engine bench with its oracle
-    comparisons and its 1,000,000-op three-mode sweep), written to
-    ``BENCH_torch_coordination.json``; the balance gate matrix, written to
-    ``BENCH_torch_balance.json``.  K1 (and the matrix's K2 / K4a) launches
-    are this path's counts."""
+    """The paper's evaluation on the card: the CLI's full run (the suite
+    at 8,192 ops, the DES engine bench with its oracle comparisons and its
+    1,000,000-op three-mode sweep), written to
+    ``BENCH_torch_coordination.json``, its simulated rows equal to the CPU
+    path's and the reference's bit for bit; fig 13a at 1,000,000 ops; the
+    balance gate matrix, written to ``BENCH_torch_balance.json``.  K1 (and
+    the matrix's K2 / K4a) launches are this path's counts."""
     from repro_torch.benchmarks import run as RUN
     from repro_torch.kernels.range_match import kernel as RMK
 
     _free_card()
     fixture = json.loads(PAPER_FIXTURE.read_text())
+    cpu = _paper_cpu(fixture)
     RMK.reset_launches()                       # counts of the main path
-    out = {"phase": "paper", "suite": _paper_suite(fixture),
-           "fig13a_1m": _fig13a_full_scale()}
     t0 = time.perf_counter()
     if RUN.main(["--json", str(PAPER_JSON)]) != 0:
         raise AssertionError("repro_torch.benchmarks.run failed")
@@ -2432,15 +2426,24 @@ def phase_paper() -> dict:
     rows = {r["name"]: r for r in bench["rows"]}
     sim = [[r["name"], r["us_per_call"], r["derived"]] for r in bench["rows"]
            if not r["name"].startswith("des/")]
-    if sim != fixture["paper"][str(PAPER_OPS)]["rows"]:
-        raise AssertionError("the CLI's rows differ from the reference's")
+    if sim != cpu["rows"]:
+        raise AssertionError("paper suite: the card's rows differ from the "
+                             "CPU path's and the reference's")
     des = {k: v["derived"] for k, v in rows.items() if k.startswith("des/")}
     if len(des) != 4 or not all("bitexact=True" in des[k] for k in (
             f"des/closed_loop/B{PAPER_OPS}", f"des/open_loop/B{PAPER_OPS}")):
         raise AssertionError(f"engine bench: {des}")
-    out["cli"] = {"seconds": cli_s, "rows": len(bench["rows"]),
-                  "engine_wall_clock": bench["engine_wall_clock"],
-                  "des_rows": des, "meta": bench["meta"]}
+    out = {"phase": "paper",
+           "suite": {"n_ops": PAPER_OPS, "rows": len(sim),
+                     "card_eq_cpu_eq_fixture": "bitwise",
+                     "fixture_made_at": fixture["paper"][str(PAPER_OPS)][
+                         "made_at"],
+                     "cpu_seconds": cpu["seconds"], **_paper_ratios(sim)},
+           "cli": {"seconds": cli_s, "rows": len(bench["rows"]),
+                   "suite_wall_clock_s": bench["meta"]["suite_wall_clock_s"],
+                   "engine_wall_clock": bench["engine_wall_clock"],
+                   "des_rows": des, "meta": bench["meta"]},
+           "fig13a_1m": _fig13a_full_scale()}
     out["balance"] = _balance_matrix(fixture)
     out["launches"] = dict(RMK.launches)
     emit(out)
@@ -2456,8 +2459,7 @@ def phase_paper() -> dict:
 # a pull every 2 epochs, overload_adaptive with scale_patience 1; its
 # OverloadConfig at the bench's ratios of an active node's share (queue
 # 192 / 256 and service 320 / 256 there; here the share is 65,536 / 8 =
-# 8,192 ops); 8 epochs, the bench's 24 cut for the script's time limit
-# (12 until the paper phase and mamba2's training joined).  At those ratios
+# 8,192 ops); 12 epochs, the bench's 24 cut for time.  At those ratios
 # the queue bound is below the service rate, so every queue drains within
 # its epoch: the p2c queue penalty and the service inflation stay 0 (the
 # reference's BENCH_overload.json: max_queue_peak 0 in all four arms).
@@ -2465,7 +2467,7 @@ def phase_paper() -> dict:
 # nonzero queue_pen under K2 at full width
 OVL_FULL = dict(queue_cap=6144, service_rate=10240, inflation=3.0,
                 max_level=3, backoff_base=1, jitter_span=2, queue_weight=2)
-OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 8
+OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 12
 CASCADE = dict(theta=0.9, fail_epoch=3, rack=(0, 1, 2))
 # (label, scenario, its knobs, the failure epoch, OverloadConfig changes,
 # whether some epoch must route under a nonzero queue penalty)
@@ -2811,6 +2813,13 @@ def phase_telemetry() -> dict:
         launches=on["launches"])
     del off, on, d_off, d_on, tel, doc, pairs
     torch.cuda.empty_cache()
+    # the cost of the planes, in turns on one card: off, on (above), on, off
+    for planes in (True, False):
+        run = _telemetry_run(planes)
+        out["planes_on" if planes else "planes_off"].setdefault(
+            "turn_2", {k: run[k] for k in keep if k != "launches"})
+        del run
+        torch.cuda.empty_cache()
     emit(out)
     return out
 
@@ -3049,10 +3058,10 @@ FAMILY_PARAMS = {"deepseek-moe-16b": (15e9, 18e9), "minicpm3-4b": (3.5e9, 5e9),
                  "internvl2-26b": (19e9, 27e9), "whisper-small": (0.2e9, 0.35e9)}
 FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
                 "internvl2-26b": 4096, "llama4-maverick-400b-a17b": 8192}
-# a quarter of the serving phases' 64 requests: the four engine runs took
-# 145-270 s of host time with 64 each and 95 s with 32 (NVIDIA H100 80GB
-# HBM3, 700 W), and the script must stay well inside its time limit
-FAMILY_REQUESTS = 16
+# half the serving phases' 64 requests: the four engine runs took 145-270
+# s of host time with 64 each (NVIDIA H100 80GB HBM3, 700 W), and the
+# script must stay well inside its time limit
+FAMILY_REQUESTS = 32
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -3332,14 +3341,10 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 # phase training: qwen2-1.5b and mamba2-370m at their published widths and
 # depth, bf16 compute over float32 master weights and AdamW state, remat,
 # the copy task, launch/train.py's loop and schedule (warmup
-# max(5, steps // 20)); mamba2's SSD scans train through the plain
-# chunked scan (K7 has no backward)
+# max(5, steps // 20)); mamba2's SSD scans run K7 forward and the plain
+# chunked scan's VJP backward
 TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-370m")
-TRAIN_BATCH, TRAIN_SEQ = 8, 2048
-# steps, cut to the script's time limit; mamba2's copy-task loss falls
-# slowly (the mean of its first 5 steps 11.0268, of steps 15-19 11.0214),
-# so it keeps the 20 steps its loss gate needs
-TRAIN_STEPS = {"qwen2-1.5b": 12, "mamba2-370m": 20}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
 TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 10, 2
 H100_BF16_FLOPS = 989e12      # dense bf16 peak, NVIDIA's data sheet (SXM)
 
@@ -3354,66 +3359,97 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
             + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
 
 
-@contextlib.contextmanager
-def _scan_on_side_stream():
-    """Run every SSD scan of the model (``models.ssm.ssd_scan``) on a side
-    stream while the block is open.  Autograd runs a backward op on the
-    stream of its forward op, so the scans' forward, remat recompute and
-    backward kernels all land on that stream, where a device-only profile
-    can add them up.  Yields the name of a marker kernel (``bessel_j0``)
-    launched there before every scan (a profiler can drop its first
-    events): the marker's stream is the side stream in the profile."""
-    from repro_torch.models import ssm as SSM
-
-    side = torch.cuda.Stream()
-    scan = SSM.ssd_scan
-    one = torch.ones(1, device="cuda")
-
-    def on_side(*args, **kw):
-        main = torch.cuda.current_stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            torch.special.bessel_j0(one)       # the marker, each call
-            out = scan(*args, **kw)
-        main.wait_stream(side)
-        return out
-
-    SSM.ssd_scan = on_side
-    try:
-        yield "bessel_j0"
-    finally:
-        SSM.ssd_scan = scan
+K7_KERNELS = 4            # K7's four passes, one kernel each
 
 
-def _stream_share(prof, marker: str) -> dict:
-    """Device time of the kernels on the stream of the ``marker`` kernel
-    (less the marker's own), and of all device events, from a profile."""
-    from torch.autograd import DeviceType
+def _scan_ms(cfg, reps: int = 3, queue: int = 10) -> dict:
+    """One SSM layer's scan as a remat train step runs it, at the training
+    shape (B 8, T 2,048, the config's heads, head dim, groups, state and
+    chunk): K7's forward, then K7 again in the recompute and the backward
+    through the plain scan's VJP.  K7's forward: CUDA-event ms of
+    ``queue`` back-to-back calls over their count (its kernels queue
+    behind one another, so the events read device time; a profiler window
+    holding K7's launches alone read no kernel in a full run).  The
+    recompute and backward: CUDA-event ms, the median of ``reps`` after
+    one warm-up (the host's issue gaps included: the VJP issues thousands
+    of small kernels), and device time and kernels from ``reps`` more,
+    profiled after a profiler warm-up step.  The launches it makes are
+    taken back out of the counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    side = {e.device_resource_id for e in events if marker in e.name}
-    on_side = [e for e in events if e.device_resource_id in side
-               and marker not in e.name]
-    us = lambda es: sum(e.time_range.end - e.time_range.start for e in es)
-    total = us(events)
-    return {"scan_device_s": us(on_side) / 1e6,
-            "step_device_s": total / 1e6,
-            "scan_kernels": len(on_side), "step_kernels": len(events),
-            "scan_share_of_device_time": us(on_side) / total if total else 0.0,
-            "scan_share_of_kernels": len(on_side) / len(events) if events else 0.0}
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_state, cfg.ssm_groups
+    chunk = min(cfg.ssm_chunk, max(8, T))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    leaves = [torch.randn((B, T, H, P), device="cuda", generator=gen),
+              torch.rand((B, T, H), device="cuda", generator=gen) * 0.1 + 1e-3,
+              -torch.rand((H,), device="cuda", generator=gen) - 0.5,
+              torch.randn((B, T, G, N), device="cuda", generator=gen),
+              torch.randn((B, T, G, N), device="cuda", generator=gen)]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    s0 = torch.zeros((B, H, P, N), device="cuda")
+    gy = torch.randn((B, T, H, P), device="cuda", generator=gen)
+
+    def timed(fn, n: int = 1) -> float:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(n):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / n
+
+    def forward():
+        with torch.no_grad():
+            ssd_scan(*leaves, s0, chunk=chunk)
+
+    def recompute_and_backward():
+        y, fs = ssd_scan(*leaves, s0, chunk=chunk)
+        torch.autograd.backward((y, fs), (gy, torch.ones_like(fs)))
+        for t in leaves:
+            t.grad = None
+
+    before = dict(SSK.launches)
+    timed(forward)
+    fwd = timed(forward, queue)
+    ms = [timed(recompute_and_backward) for _ in range(reps + 1)]
+    got = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps),
+                 on_trace_ready=lambda p: got.append(
+                     _device_summary(p, 1.0))) as prof:
+        for _ in range(reps + 1):
+            recompute_and_backward()
+            torch.cuda.synchronize()
+            prof.step()
+    SSK.launches.update(before)
+    dev, = got
+    rest = {"event_ms": float(np.median(ms[1:])),
+            "device_ms": dev["device_busy_s"] * 1e3 / reps,
+            "kernels": dev["device_events"] / reps}
+    return {"reps": reps, "k7_forward_ms": fwd,
+            "k7_recompute_and_plain_vjp": rest,
+            "layer": {"event_ms": fwd + rest["event_ms"],
+                      "device_ms": fwd + rest["device_ms"],
+                      "kernels": K7_KERNELS + rest["kernels"]}}
 
 
 def _train_full_width(arch: str) -> dict:
-    """``launch/train.py``'s loop on ``arch`` at full width:
-    ``TRAIN_STEPS[arch]`` steps of 8 x 2,048 tokens, a checkpoint every 10
-    on a thread; then the step-10
+    """``launch/train.py``'s loop on ``arch`` at full width: 20 steps of
+    8 x 2,048 tokens, a checkpoint every 10 on a thread; then the step-10
     checkpoint restored and steps 10-11 replayed.  Gates: the mean loss of
     the last 5 steps under that of the first 5 (the reference's
     ``test_loss_decreases``), finite losses, no kernel of the port
-    launched (the reference trains through jnp, no Pallas kernel; an SSM
-    config's scans count ``ssd_chunk_plain_grad`` instead, 2 a layer and
-    step: the forward and the remat recompute), the replay within 1e-3 of
-    the first run's losses."""
+    launched but K7 (the reference trains through jnp, no Pallas kernel;
+    an SSM config's scans launch K7 twice a layer and step, the forward
+    and the remat recompute, and count one backward through the plain
+    scan's VJP, ``ssd_chunk_plain_grad``), the replay within 1e-3 of the
+    first run's losses.  For an SSM config, the scans' share of the step:
+    :func:`_scan_ms` x layers over the profiled step's device time and
+    kernels, and over step ms p50."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -3431,7 +3467,7 @@ def _train_full_width(arch: str) -> dict:
     cfg = get_config(arch)
     ssm = cfg.family in ("ssm", "hybrid")
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
-    steps = TRAIN_STEPS[arch]
+    steps = TRAIN_STEPS
     tcfg = train_config(steps, TRAIN_LR)
     ckpt = OUT / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -3462,22 +3498,37 @@ def _train_full_width(arch: str) -> dict:
     flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     # the device's busy share of one more step (the state it makes is
     # dropped); device activity only: a step issues ~64,000 kernels, and
-    # the operator events would take the trace's processing past a minute.
-    # An SSM config's scans run on a side stream there, to be added up
+    # the operator events would take the trace's processing past a minute
     batch = device_batch(make_batch(cfg, shape, steps,
                                     DataConfig("copy")), "cuda")
     step_fn = make_train_step(cfg, tcfg)
     torch.cuda.synchronize()
-    scan_ctx = _scan_on_side_stream() if ssm else contextlib.nullcontext()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof, scan_ctx as marker:
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tp = time.perf_counter()
         _, m = step_fn(state, batch)
         float(m["loss"])
         wall = time.perf_counter() - tp
     busy = _device_summary(prof, wall, top=8)
-    scan = _stream_share(prof, marker) if ssm else None
+    profile_s = time.perf_counter() - t_prof
     del state, m, batch, prof
     _free_card()
+    p50 = float(np.percentile(ms, 50))
+    scan = None
+    if ssm:
+        # the scans' share of the step: one layer's, times the layers,
+        # over the profiled step's device time and kernels; and its
+        # CUDA-event ms over step ms p50 (both host-bound, so the host's
+        # issue of the scans overlaps the device's other work: an upper
+        # bound)
+        scan = _scan_ms(cfg)
+        layer, L = scan["layer"], cfg.n_layers
+        scan["share_of_step_device_time"] = (
+            L * layer["device_ms"] / 1e3 / busy["device_busy_s"])
+        scan["share_of_step_kernels"] = L * layer["kernels"] / busy[
+            "device_events"]
+        scan["event_ms_over_step_p50"] = L * layer["event_ms"] / p50
+        _free_card()
     # the resume: step 10's checkpoint, steps 10 and 11 again
     t1 = time.perf_counter()
     _, replay = train_loop(cfg, shape, tcfg,
@@ -3501,25 +3552,24 @@ def _train_full_width(arch: str) -> dict:
         "task": "copy", "lr": TRAIN_LR, "warmup_steps": tcfg.opt.warmup_steps,
         "ckpt_every": TRAIN_CKPT_EVERY, "run_s": run_s,
         "first_step_ms": recs[0]["ms"],
-        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p50": p50,
         "step_ms_p99": float(np.percentile(ms, 99)),
         "tokens_per_s": tokens * len(secs) / sum(secs),
         "model_flops_per_step": flops,
-        "train_mfu": flops / (float(np.percentile(ms, 50)) / 1e3)
-        / H100_BF16_FLOPS,
+        "train_mfu": flops / (p50 / 1e3) / H100_BF16_FLOPS,
         "max_memory_allocated_gb": peak / 2**30,
         "device_busy_share": busy["device_busy_share"],
         # the profiled step's device time over an unprofiled step's p50
-        "device_busy_share_of_p50": busy["device_busy_s"]
-        / (float(np.percentile(ms, 50)) / 1e3),
-        "profiled_step": {k: busy[k] for k in ("wall_s", "device_busy_s",
-                                               "device_events", "top")},
+        "device_busy_share_of_p50": busy["device_busy_s"] / (p50 / 1e3),
+        "profiled_step": {**{k: busy[k] for k in (
+            "wall_s", "device_busy_s", "device_events", "top")},
+            "with_processing_s": profile_s},
         "losses": losses, "grad_norms": [r["grad_norm"] for r in recs],
-        "launches": launches, "plain_grad_scans": plain_grad, "log": lines,
+        "launches": launches, "plain_vjp_backward": plain_grad, "log": lines,
         "resume": {"from_step": TRAIN_CKPT_EVERY, "losses": again,
                    "first_run": first, "bitwise": again == first,
                    "max_abs_diff": max(diffs), "seconds": replay_s},
-        "reduced": {"steps": f"{steps}: the script's time limit"},
+        "reduced": {"steps": "20: the script's time limit"},
     }
     if scan is not None:
         out["scan"] = scan
@@ -3528,12 +3578,11 @@ def _train_full_width(arch: str) -> dict:
         raise AssertionError(f"training {arch}: non-finite loss {losses}")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
         raise AssertionError(f"training {arch}: the loss did not fall {losses}")
-    if any(launches.values()):
-        raise AssertionError(f"training {arch}: kernels launched {launches}")
-    if plain_grad != (2 * cfg.n_layers * steps if ssm else 0):
-        raise AssertionError(f"training {arch}: {plain_grad} plain scans")
-    if ssm and not scan["scan_kernels"] > 0:
-        raise AssertionError(f"training {arch}: no scan kernel profiled")
+    scans = cfg.n_layers * steps if ssm else 0
+    if (any(v for k, v in launches.items() if k != "ssd_chunk")
+            or launches["ssd_chunk"] != 2 * scans or plain_grad != scans):
+        raise AssertionError(f"training {arch}: kernels launched {launches}, "
+                             f"{plain_grad} plain-scan backward passes")
     if len(again) != TRAIN_REPLAY or not max(diffs) <= 1e-3:
         raise AssertionError(f"training {arch}: replay {again} vs {first}")
     return out
@@ -3541,11 +3590,11 @@ def _train_full_width(arch: str) -> dict:
 
 def phase_training() -> dict:
     """Each of ``TRAIN_ARCHS`` through :func:`_train_full_width`; returns
-    the runs' kernel launches and plain gradient scans summed."""
+    the runs' kernel launches and plain-scan backward passes summed."""
     runs = [_train_full_width(arch) for arch in TRAIN_ARCHS]
     return {"launches": {k: sum(r["launches"][k] for r in runs)
                          for k in runs[0]["launches"]},
-            "plain_grad_scans": sum(r["plain_grad_scans"] for r in runs)}
+            "plain_vjp_backward": sum(r["plain_vjp_backward"] for r in runs)}
 
 
 def phase_profile() -> dict:
@@ -3715,15 +3764,15 @@ def main(argv=None) -> int:
             row["launches"] = (sum(row["launches_by_path"].values())
                                if paths else None)
             if row["name"] == "ssd_chunk" and training is not None:
-                # K7 trains no step (it has no backward): the plain scans
-                # that ran in its place on the training path
-                row["plain_grad_scans_by_path"] = {
-                    "training": training["plain_grad_scans"]}
+                # K7 has no backward kernel: the backward passes through
+                # the plain scan's VJP on the training path
+                row["plain_vjp_backward_by_path"] = {
+                    "training": training["plain_vjp_backward"]}
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "parity", "ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms", "plain_grad_scans_by_path") if k in r}
+            "library_device_ms", "plain_vjp_backward_by_path") if k in r}
             for r in main_rows]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "phase_seconds": seconds})

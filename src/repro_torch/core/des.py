@@ -11,12 +11,11 @@ makespan match :func:`repro_torch.core.coordination.
 simulate_closed_loop_reference` bit for bit.  The DES stays on the host:
 it is one sequential event order, not a kernel.
 
-``backend``: ``"native"`` (the C core; raises if it cannot be built),
-``"reference"`` (the heapq oracle, query by query in Python) or ``None`` /
-``"auto"``: native, falling back to the oracle with a ``RuntimeWarning``
-that says why when the C compiler cannot build the core.  This is the
-counterpart of the reference's fallback to its XLA engine; the oracle
-gives the native core's bits, only slower.
+``backend``: ``"native"`` (the C core; raises if it cannot be built) or
+``None`` / ``"auto"``: native, falling back to the heapq oracle (query by
+query in Python) with a ``RuntimeWarning`` that says why when the C
+compiler cannot build the core.  This is the counterpart of the reference's fallback to its XLA
+engine; the oracle gives the native core's bits, only slower.
 """
 
 from __future__ import annotations
@@ -38,20 +37,21 @@ from repro_torch.core.coordination import (
 __all__ = ["simulate", "simulate_closed_loop", "stack_plans", "compact_plans",
            "resolve_backend", "available_backends"]
 
-BACKENDS = ("native", "reference")
+BACKENDS = ("native",)
 
 
 def available_backends() -> tuple[str, ...]:
-    """The backends that can time here: ``"native"`` (the C core) when it
-    builds, and always ``"reference"``, the heapq oracle (the reference's
-    fallback is its XLA engine, ``"jax"``)."""
+    """The engines that can time here: ``"native"`` (the C core) when it
+    builds, and always ``"reference"``, the heapq oracle that ``None`` /
+    ``"auto"`` falls back to (the reference's fallback is its XLA engine,
+    ``"jax"``).  Only ``"native"`` may be named as a ``backend``."""
     return ("native", "reference") if _des_native.available() else ("reference",)
 
 
 def resolve_backend(backend: str | None) -> str:
     """``None`` / ``"auto"`` -> ``"native"`` when the C core builds here,
-    else the heapq oracle (``"reference"``) with a ``RuntimeWarning``
-    naming the reason; an explicit backend stays as it is."""
+    else the heapq oracle (``"reference"``, an internal value) with a
+    ``RuntimeWarning`` naming the reason; ``"native"`` stays native."""
     if backend in (None, "auto"):
         if _des_native.available():
             return "native"

@@ -8,9 +8,10 @@ PyTorch's caching allocator (so a CUDA graph can capture the call) and
 launches the four passes on CUDA tensors; it raises on anything it does
 not take and never falls back to the plain version.
 ``launches["ssd_chunk"]`` counts its calls, one a call whatever the
-number of passes; ``launches["ssd_chunk_plain_grad"]`` counts the CUDA
-calls of :func:`~repro_torch.kernels.ssd_chunk.ops.ssd_scan` that asked
-for a gradient and so ran the plain scan instead (K7 has no backward).
+number of passes; ``launches["ssd_chunk_plain_grad"]`` counts the
+backward passes of :func:`~repro_torch.kernels.ssd_chunk.ops.ssd_scan` on
+the card, each the plain scan's vector-Jacobian product (K7 has no
+backward kernel).
 """
 
 from __future__ import annotations

@@ -4,15 +4,15 @@ runs the plain version on CPU tensors and K7 on CUDA tensors (any number
 of B/C groups: K7 takes G > 1, where the reference falls back to jnp);
 the one-token decode step is plain tensor code, as in the reference.
 
-K7 serves under ``torch.no_grad()``; the plain scan trains.  K7 has no
-backward, and the reference trains its SSM through the jnp chunked scan
-(``use_pallas=False``), which autograd differentiates.  So a CUDA call
-that asks for a gradient runs the plain chunked scan
-(:func:`ssd_chunked_ref`) under autograd on the card, as the CPU path
-always does, and counts itself in ``launches["ssd_chunk_plain_grad"]``
-beside K7's ``launches["ssd_chunk"]``.  A non-reentrant checkpoint's
-recompute asks for a gradient too, so it takes the same path as the
-forward it replays."""
+On the card K7 computes the scan's forward whether or not a gradient is
+asked for.  K7 has no backward kernel: the wrapper is an autograd
+Function whose backward recomputes the plain chunked scan
+(:func:`ssd_chunked_ref`) from the saved inputs under autograd and takes
+its vector-Jacobian product, the gradient of the function the reference
+trains through (its jnp chunked scan, ``use_pallas=False``).  Each such
+backward counts itself in ``launches["ssd_chunk_plain_grad"]`` beside
+K7's ``launches["ssd_chunk"]``.  A non-reentrant checkpoint's recompute
+launches K7 again before that backward."""
 
 from __future__ import annotations
 
@@ -40,17 +40,36 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     x, dt, Bm, Cm = pad_to_chunks(x, dt, Bm, Cm, chunk)
     if on_cpu(x, dt, A, Bm, Cm, init_state):
         y, fs = ssd_chunked_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
-    elif torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
-        kernel.launches["ssd_chunk_plain_grad"] += 1
-        y, fs = ssd_chunked_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
     else:
-        if Bm.dim() == 3:
-            Bm, Cm = Bm[:, :, None, :], Cm[:, :, None, :]
-        y, fs = kernel.ssd_chunk(
-            x.contiguous(), dt.contiguous(), A.contiguous(), Bm.contiguous(),
-            Cm.contiguous(), init_state.contiguous(), chunk=chunk)
+        y, fs = _K7Scan.apply(x, dt, A, Bm, Cm, init_state, chunk)
     return y[:, :T], fs
+
+
+class _K7Scan(torch.autograd.Function):
+    """K7's forward; the backward is the plain chunked scan's VJP."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        b4, c4 = (Bm[:, :, None, :], Cm[:, :, None, :]) if Bm.dim() == 3 \
+            else (Bm, Cm)
+        return kernel.ssd_chunk(
+            x.contiguous(), dt.contiguous(), A.contiguous(), b4.contiguous(),
+            c4.contiguous(), init_state.contiguous(), chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gfs):
+        kernel.launches["ssd_chunk_plain_grad"] += 1
+        need = ctx.needs_input_grad[:6]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y, fs = ssd_chunked_ref(*ins, chunk=ctx.chunk)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(
+                (y, fs), wrt, (gy, gfs), allow_unused=True))
+        return (*(next(got) if n else None for n in need), None)
 
 
 def pad_to_chunks(x, dt, Bm, Cm, chunk: int):

@@ -2,8 +2,10 @@
 ``repro.kernels.ssd_chunk.ref``): the exact SSD recurrence, the tests'
 oracle, and the chunked math that the CUDA kernel computes, for any
 number of B/C groups, and a mirror of the CUDA kernel's four passes.
-The wrapper runs the chunked version on CPU tensors; on the card only
-``chip_smoke.py`` and the CUDA tests call it, to hold the kernel to it.
+The wrapper runs the chunked version on CPU tensors; on the card its
+backward recomputes it for the vector-Jacobian product (K7 has no
+backward kernel), and ``chip_smoke.py`` and the CUDA tests hold the
+kernel to it.
 The four-pass mirror is for the tests alone."""
 
 from __future__ import annotations

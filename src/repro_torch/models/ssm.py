@@ -2,9 +2,9 @@
 (counterpart of ``repro.models.ssm``).
 
 The sequence path (prefill) runs the chunked SSD scan through
-:func:`repro_torch.kernels.ssd_chunk.ssd_scan`: K7 on the card, its plain
-version on the CPU and, when a gradient is asked for, on the card too (K7
-has no backward).  (The reference's model calls the jnp chunked version,
+:func:`repro_torch.kernels.ssd_chunk.ssd_scan`: K7 on the card (its
+backward the plain version's vector-Jacobian product), the plain version
+on the CPU.  (The reference's model calls the jnp chunked version,
 ``use_pallas=False``; K7 computes the same function.)  The decode path
 carries (conv_state, ssm_state) and costs O(H P N) a token, in plain
 tensor code.  Parameter leaves carry no layer axis here; the transformer

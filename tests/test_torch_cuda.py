@@ -1454,7 +1454,9 @@ def test_train_step_card_matches_cpu(dev, no_tf32, arch):
     """One reduced train step (f32, remat) on the card against the CPU
     from the same state and batch: loss, gradients and every updated leaf
     within 1e-4 (deepseek's MoE aux loss with its gradient; mamba2's and
-    hymba's SSD scans through the plain scan, K7 launched by none)."""
+    hymba's SSD scans through K7 forward, twice a pass with remat, and
+    the plain scan's VJP backward, once)."""
+    from repro_torch.kernels.ssd_chunk import kernel as SK
     from repro_torch.launch.train import device_batch
     from repro_torch.training import step as STEP
     from repro_torch.training import tree as TR
@@ -1463,12 +1465,19 @@ def test_train_step_card_matches_cpu(dev, no_tf32, arch):
     runs = []
     for device in (dev, torch.device("cpu")):
         st, b = _to(state, device), device_batch(batch, device)
+        before = dict(SK.launches)
         (loss, m), grads = STEP.value_and_grad(cfg, st["params"], b,
                                                remat=True)
         new, _ = STEP.make_train_step(cfg, tcfg)(st, b)
         runs.append((float(loss), float(m["moe_aux_loss"]),
                      [g.cpu() for g in TR.leaves(grads)],
                      [t.cpu() for t in TR.leaves(new)]))
+        if device.type == "cuda":
+            k7 = SK.launches["ssd_chunk"] - before["ssd_chunk"]
+            back = (SK.launches["ssd_chunk_plain_grad"]
+                    - before["ssd_chunk_plain_grad"])
+            assert k7 == 2 * back
+            assert (back > 0) == (cfg.family in ("ssm", "hybrid"))
     (lc, ac, gc, nc), (lp, ap, gp, np_) = runs
     assert abs(lc - lp) <= 1e-4 and abs(ac - ap) <= 1e-4
     for a, b in zip(gc + nc, gp + np_):
@@ -1498,12 +1507,13 @@ def test_checkpoint_saved_on_card_restores_on_cpu(dev, tmp_path):
 
 
 def test_ssd_scan_trains_through_the_plain_scan_and_serves_through_k7(dev):
-    """K7 has no backward: a CUDA call that asks for a gradient runs the
-    plain chunked scan under autograd (no K7 launch, one count of
-    ``ssd_chunk_plain_grad``), and the gradients of x, dt, A, B and C
-    equal the CPU plain version's within 1e-4 (1 + |cpu|) (dt's reach
-    ~113 here); under no_grad the call
-    launches K7 once, within 2e-4 (1 + |want|) of the plain version."""
+    """A CUDA call that asks for a gradient launches K7 for its forward
+    (y within 2e-4 (1 + |cpu|) of the CPU plain version's) and trains
+    through the plain chunked scan's VJP in its backward (one count of
+    ``ssd_chunk_plain_grad``): the gradients of x, dt, A, B and C equal
+    the CPU plain version's within 1e-4 (1 + |cpu|) (dt's reach ~113
+    here); under no_grad the call launches K7 once, within 2e-4
+    (1 + |want|) of the plain version, and counts no backward."""
     from repro_torch.kernels.ssd_chunk import kernel as SK
     from repro_torch.kernels.ssd_chunk.ops import ssd_scan
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunked_ref
@@ -1515,25 +1525,29 @@ def test_ssd_scan_trains_through_the_plain_scan_and_serves_through_k7(dev):
     Bm, Cm = (torch.randn((1, 32, 8), device=dev, generator=gen)
               for _ in range(2))
     w = torch.randn((1, 32, 2, 8), device=dev, generator=gen)
-    grads = []
+    grads, outs = [], []
     for d in (dev, torch.device("cpu")):
         leaves = [t.detach().to(d).requires_grad_(True)
                   for t in (x, dt, A, Bm, Cm)]
         before = dict(SK.launches)
         y, fs = ssd_scan(*leaves, chunk=16)
+        if d.type == "cuda":
+            assert SK.launches["ssd_chunk"] == before["ssd_chunk"] + 1
         ((y * w.to(d)).sum() + fs.sum()).backward()
         if d.type == "cuda":
-            assert SK.launches["ssd_chunk"] == before["ssd_chunk"]
             assert (SK.launches["ssd_chunk_plain_grad"]
                     == before["ssd_chunk_plain_grad"] + 1)
         grads.append([t.grad.cpu() for t in leaves])
+        outs.append((y.detach().cpu(), fs.detach().cpu()))
+    _ssd_close(*outs)
     for g, h in zip(*grads):
         assert float(((g - h).abs() / (1 + h.abs())).max()) <= 1e-4
-    before = SK.launches["ssd_chunk"]
+    before = dict(SK.launches)
     with torch.no_grad():
         got = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
         want = ssd_chunked_ref(x, dt, A, Bm, Cm,
                                torch.zeros((1, 2, 8, 8), device=dev),
                                chunk=16)
-    assert SK.launches["ssd_chunk"] == before + 1
+    assert SK.launches["ssd_chunk"] == before["ssd_chunk"] + 1
+    assert SK.launches["ssd_chunk_plain_grad"] == before["ssd_chunk_plain_grad"]
     _ssd_close(got, want)

@@ -271,22 +271,28 @@ def test_available_backends_lists_the_native_core_and_the_oracle(monkeypatch,
                                                                 tmp_path):
     """The counterpart of the reference's ``available_backends``: the
     native core when it builds, and the heapq oracle always (the
-    reference's fallback is its XLA engine); each name listed is a
-    backend the engine takes, with the same bits."""
+    reference's fallback is its XLA engine).  The oracle is what
+    ``None`` / ``"auto"`` falls back to, not a backend a caller may name:
+    only ``"native"`` is accepted.  The two give the same bits."""
     from repro_torch.core import _des_native
 
     assert JC.des.available_backends() == ("native", "jax")
     assert TDes.available_backends() == ("native", "reference")
     rng = np.random.default_rng(2)
     plan = TCo.HopPlan(*(torch.tensor(x) for x in _random_plan(rng, 64, 3, 4)))
-    outs = [TDes.simulate_closed_loop(plan, n_clients=4, num_nodes=4,
-                                      backend=b)
-            for b in TDes.available_backends()]
-    assert all(torch.equal(a, b) for a, b in zip(*outs))
-    with pytest.raises(ValueError, match="unknown DES backend"):
-        TDes.simulate_closed_loop(plan, n_clients=4, num_nodes=4, backend="jax")
+    native = TDes.simulate_closed_loop(plan, n_clients=4, num_nodes=4,
+                                       backend="native")
+    oracle = TCo.simulate_closed_loop_reference(plan, n_clients=4, num_nodes=4)
+    assert torch.equal(torch.as_tensor(native[0]), torch.as_tensor(oracle[0]))
+    assert float(native[1]) == float(oracle[1])
+    for name in ("reference", "jax"):
+        with pytest.raises(ValueError, match="unknown DES backend"):
+            TDes.simulate_closed_loop(plan, n_clients=4, num_nodes=4,
+                                      backend=name)
     monkeypatch.setattr(_des_native, "_lib", None)
     monkeypatch.setattr(_des_native, "_error", None)
     monkeypatch.setattr(_des_native, "_CACHE", tmp_path / "cache")
     monkeypatch.setenv("CC", str(tmp_path / "no-such-cc"))
     assert TDes.available_backends() == ("reference",)
+    with pytest.warns(RuntimeWarning, match="cannot be built"):
+        assert TDes.resolve_backend(None) == "reference"

@@ -284,3 +284,50 @@ def test_passes_ref_entering_states(G, model):
     want = (cm[:, Q + i] * bm[:, Q + j]).sum(-1)
     _close(scratch["CB"][:, 1, :, j, i], want, 1e-5)
     assert not scratch["CB"][:, :, :, i, j].any()   # above the diagonal
+
+
+@pytest.mark.parametrize("G,remat", [(None, False), (2, True)],
+                         ids=["G1", "G2-remat"])
+def test_k7_autograd_backward_is_the_plain_vjp(monkeypatch, G, remat):
+    """The card's autograd Function (K7's forward, the plain chunked
+    scan's VJP as its backward), run here with the plain version standing
+    in for K7: the gradients of x, dt, A, B, C and the initial state equal
+    autograd through the plain scan bit for bit and the reference's jnp
+    chunked scan (its training path, ``use_pallas=False``) within 2e-4
+    (1 + |want|); one forward a call (two under a non-reentrant
+    checkpoint, whose recompute runs it again), one backward counted."""
+    a = _inputs(21, 2, 32, 4, 8, 4, G=G)
+    w = np.random.default_rng(22).normal(size=(2, 32, 4, 8)).astype(
+        np.float32)
+    calls = []
+
+    def k7(x, dt, A, Bm, Cm, s0, *, chunk):
+        calls.append(Bm.dim())
+        return R.ssd_chunked_ref(x, dt, A, Bm, Cm, s0, chunk=chunk)
+
+    monkeypatch.setattr(K, "ssd_chunk", k7)
+
+    def run(scan):
+        leaves = [t.requires_grad_(True) for t in _args(_t(a))]
+        if remat:
+            y, fs = torch.utils.checkpoint.checkpoint(
+                scan, *leaves, use_reentrant=False)
+        else:
+            y, fs = scan(*leaves)
+        ((y * torch.tensor(w)).sum() + fs.sum()).backward()
+        return [t.grad for t in leaves]
+
+    before = K.launches["ssd_chunk_plain_grad"]
+    got = run(lambda *t: O._K7Scan.apply(*t, 8))
+    assert K.launches["ssd_chunk_plain_grad"] == before + 1
+    assert calls == [4] * (2 if remat else 1)
+    plain = run(lambda *t: R.ssd_chunked_ref(*t, chunk=8))
+    assert all(torch.equal(g, h) for g, h in zip(got, plain))
+
+    def jloss(*args):
+        y, fs = JO.ssd_scan(*args, chunk=8, use_pallas=False)
+        return (y * w).sum() + fs.sum()
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*_args(_j(a)))
+    for g, h in zip(got, want):
+        _close_scaled(g, h)

@@ -384,10 +384,15 @@ def test_fit_mesh_absorbs_device_loss():
 
 LOSS_ARCHS = ("qwen2-1.5b", "mamba2-370m", "hymba-1.5b", "deepseek-moe-16b",
               "internvl2-26b", "whisper-small")
+# hymba in float32 alone: that case holds every gradient at 1e-4, and
+# mamba2's bfloat16 case covers the SSD scan's bf16 path; each case costs
+# the reference a compile of several seconds
+LOSS_CASES = [(arch, dtype) for arch in LOSS_ARCHS
+              for dtype in ("float32", "bfloat16")
+              if (arch, dtype) != ("hymba-1.5b", "bfloat16")]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", LOSS_ARCHS)
+@pytest.mark.parametrize("arch,dtype", LOSS_CASES)
 def test_loss_and_grads_match_reference(arch, dtype):
     """The loss, its metrics and the gradient of every float32 master leaf
     through the train step's cast to ``cfg.dtype``, with remat: f32 within
