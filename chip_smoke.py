@@ -50,8 +50,9 @@ exits non-zero):
                prefill with the model's dt / A ranges, (b) hymba-1.5b's
                heads at B 4 over 2,100 tokens (padded), (c) a chunk of 10
                with G 2, (d) mamba2-370m's heads at the serving phase's
-               mean prompt of 1,170 tokens; its bound counts operations
-               and bytes;
+               mean prompt of 1,170 tokens, (e) mamba2-370m's heads at
+               the training shape, B 8 x 2,048; its bound counts
+               operations and bytes;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
                chains, replication register file and coordination-tier
@@ -127,7 +128,7 @@ exits non-zero):
                every 2 epochs, queue 6,144 and service 10,240 a node and
                epoch (the bench's ratios to an active node's share) — on
                ``cascade_failure`` (rack 0-2 dies at epoch 3) and
-               ``retry_storm`` (rack 0-1 out in epochs 2-4), 12 epochs
+               ``retry_storm`` (rack 0-1 out in epochs 2-4), 8 epochs
                each, and the cascade once more with a queue of 20,480 that
                outlives its epoch; conservation after every period, K2 once
                an epoch (under a nonzero queue penalty in the third run),
@@ -200,7 +201,7 @@ exits non-zero):
                the first prefill; decode by the recurrence;
 8. families    the families added last, at their published widths with
                bf16 weights from the port's seeded init, one line each:
-               the serving traffic above, cut to 32 requests, through the
+               the serving traffic above, cut to 16 requests, through the
                engine on
                deepseek-moe-16b (a 4,096-position cache; the MoE drops of
                one 2,048-token prompt), minicpm3-4b (MLA, no K6; one
@@ -240,7 +241,26 @@ exits non-zero):
                kernel launches but K7's (the reference trains through
                jnp; mamba2's scans launch K7 twice a layer and step and
                count one backward through the plain scan's VJP), the
-               replay within 1e-3 (and whether bit for bit).
+               replay within 1e-3 (and whether bit for bit);
+10. dryrun     the dry-run (``repro_torch.launch.dryrun``) on this machine,
+               which has no JAX: (a) the ten configs' ``train_4k`` and
+               ``decode_32k`` cells on the 16x16 mesh at published widths,
+               counted on ``meta`` in spawned workers (status or skip
+               reason, argument GiB a device, counted and model FLOPs, the
+               bound and the roofline fraction); (b) qwen2-1.5b and
+               mamba2-370m at full width on the ``card`` mesh (1x1 on this
+               H100): train at phase training's 8 x 2,048, a 2,048-token
+               prefill and a decode step of phase serving's 32 slots of
+               8,192 positions, each predicted on ``meta`` and then run
+               (CUDA-event ms, the median of 3 after one warm-up), with
+               the predicted argument bytes against those the arguments
+               occupy, ``temp_bytes`` from the allocator, the bound and the
+               measured fraction; gates: the bytes at least those
+               predicted and less than 512 B a leaf above them, the
+               warm-up's ``FlopCounterMode`` count plus the plain FLOPs of
+               the kernels it launched (which it cannot see) equal to the
+               prediction exactly, K6 (qwen2's decode) and K7 (mamba2's
+               prefill and train) once a layer and step, finite outputs.
 
 Three more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver),
@@ -275,7 +295,7 @@ import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
           "telemetry", "dist", "paper", "serving", "serving_ssm", "families",
-          "training")
+          "training", "dryrun")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
 
@@ -1051,12 +1071,15 @@ def _decode_attn_rows(seed: int) -> list[dict]:
 # one prefill, (b) hymba-1.5b's heads at B 4 over 2,100 tokens (padded to
 # 2,176), (c) a chunk of 10 (not a power of two) with G 2, (d) mamba2-370m's
 # heads at phase serving_ssm's mean prompt (74,852 / 64 = 1,170 tokens,
-# padded to 1,280), the shape of one layer of one admission
+# padded to 1,280), the shape of one layer of one admission, (e) mamba2-
+# 370m's heads at phase training's and phase dryrun's 8 x 2,048 (the train
+# and prefill cells' scans: B 8 covers the prefill's B 1 row for row)
 K7_CASES = (
     ("prefill_32k/mamba2-370m", 1, 32768, 32, 64, 128, 1, 128, True),
     ("hymba-1.5b/B4/T2100", 4, 2100, 50, 64, 16, 1, 128, True),
     ("Q10/G2", 2, 250, 8, 16, 16, 2, 10, False),
     ("serve_1170/mamba2-370m", 1, 1170, 32, 64, 128, 1, 128, True),
+    ("train_2048/mamba2-370m", 8, 2048, 32, 64, 128, 1, 128, True),
 )
 # K7 against its plain version, on y and on the final state: tests/
 # test_kernels.py's 2e-4, scaled by the output (both sides sum in f32 in
@@ -1097,6 +1120,20 @@ def _k7_work(B, T, H, P, N, G, Q) -> tuple[int, int]:
     return B * macs, B * nbytes
 
 
+def _k7_bound(B, T, H, P, N, G, Q) -> dict:
+    """K7's bound on T real rows: the larger of its multiply-adds over the
+    float32 peak and its bytes over HBM's (``_k7_work``)."""
+    from repro_torch.telemetry.profiler import HBM_BYTES_PER_S, PEAK_F32_FLOPS
+
+    macs, nbytes = _k7_work(B, T, H, P, N, G, Q)
+    flop_ms = 2 * macs / PEAK_F32_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "bound_flop": 2 * macs, "bound_bytes": nbytes,
+            "bound_flop_ms": flop_ms, "bound_bytes_ms": byte_ms}
+
+
 def _k7_inputs(seed, B, T, H, P, N, G, model_ranges, dev):
     """Inputs on the card: with the model's ranges, dt = softplus(z) (z
     unit normal, as dt_raw + dt_bias) and A = -linspace(1, 16, H) (its
@@ -1133,7 +1170,6 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
     from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.kernels.ssd_chunk import ops as SSO
     from repro_torch.kernels.ssd_chunk import ref as SSR
-    from repro_torch.telemetry.profiler import HBM_BYTES_PER_S, PEAK_F32_FLOPS
 
     dev = torch.device("cuda")
     x, dt, A, Bm, Cm, s0 = _k7_inputs(seed, B, T, H, P, N, G, model_ranges,
@@ -1153,20 +1189,13 @@ def _ssd_chunk_row(seed, main, case, B, T, H, P, N, G, Q,
     device_ms = time_device(fn, calls=3, reps=3)
     plain_ms = time_cuda(plain, reps=3, warmup=1)
     SSK.launches["ssd_chunk"] = before   # comparison launches do not count
-    macs, nbytes = _k7_work(B, T, H, P, N, G, Q)
-    flop_ms = 2 * macs / PEAK_F32_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     row = {"name": "ssd_chunk", "route": "cuda",
            "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
            "replaces": "src/repro/kernels/ssd_chunk/kernel.py:91",
            "replaces_fn": "ssd_chunk_pallas", "case": case,
            **cmp, "parity": cmp["tolerance"], "ms": ms,
            "device_ms": device_ms, "plain_ms": plain_ms,
-           "bound_ms": max(flop_ms, byte_ms),
-           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-           "bound_flop": 2 * macs, "bound_bytes": nbytes,
-           "bound_flop_ms": flop_ms, "bound_bytes_ms": byte_ms,
-           "library_ms": None, "library_device_ms": None,
+           **_k7_bound(B, T, H, P, N, G, Q), "library_ms": None, "library_device_ms": None,
            "library": "none: no one call",
            "shape": {"B": B, "T": T, "T_padded": xp.shape[1], "H": H,
                      "P": P, "N": N, "G": G, "Q": Q},
@@ -2459,7 +2488,7 @@ def phase_paper() -> dict:
 # a pull every 2 epochs, overload_adaptive with scale_patience 1; its
 # OverloadConfig at the bench's ratios of an active node's share (queue
 # 192 / 256 and service 320 / 256 there; here the share is 65,536 / 8 =
-# 8,192 ops); 12 epochs, the bench's 24 cut for time.  At those ratios
+# 8,192 ops); 8 epochs, the bench's 24 cut for time.  At those ratios
 # the queue bound is below the service rate, so every queue drains within
 # its epoch: the p2c queue penalty and the service inflation stay 0 (the
 # reference's BENCH_overload.json: max_queue_peak 0 in all four arms).
@@ -2467,7 +2496,7 @@ def phase_paper() -> dict:
 # nonzero queue_pen under K2 at full width
 OVL_FULL = dict(queue_cap=6144, service_rate=10240, inflation=3.0,
                 max_level=3, backoff_base=1, jitter_span=2, queue_weight=2)
-OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 12
+OVL_NODES, OVL_STANDBY, OVL_EPOCHS = 10, (8, 9), 8
 CASCADE = dict(theta=0.9, fail_epoch=3, rack=(0, 1, 2))
 # (label, scenario, its knobs, the failure epoch, OverloadConfig changes,
 # whether some epoch must route under a nonzero queue penalty)
@@ -3058,10 +3087,10 @@ FAMILY_PARAMS = {"deepseek-moe-16b": (15e9, 18e9), "minicpm3-4b": (3.5e9, 5e9),
                  "internvl2-26b": (19e9, 27e9), "whisper-small": (0.2e9, 0.35e9)}
 FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
                 "internvl2-26b": 4096, "llama4-maverick-400b-a17b": 8192}
-# half the serving phases' 64 requests: the four engine runs took 145-270
-# s of host time with 64 each (NVIDIA H100 80GB HBM3, 700 W), and the
-# script must stay well inside its time limit
-FAMILY_REQUESTS = 32
+# a quarter of the serving phases' 64 requests: the four engine runs took
+# 145-270 s of host time with 64 each and 137 s with 32 (NVIDIA H100 80GB
+# HBM3, 700 W), and the script must stay well inside its time limit
+FAMILY_REQUESTS = 16
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -3346,7 +3375,6 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-370m")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
 TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 10, 2
-H100_BF16_FLOPS = 989e12      # dense bf16 peak, NVIDIA's data sheet (SXM)
 
 
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
@@ -3462,6 +3490,7 @@ def _train_full_width(arch: str) -> dict:
     from repro_torch.kernels.ssd_chunk import kernel as SSK
     from repro_torch.launch.train import device_batch, train_config, train_loop
     from repro_torch.models import model as M
+    from repro_torch.telemetry.profiler import PEAK_BF16_FLOPS
     from repro_torch.training.step import make_train_step
 
     cfg = get_config(arch)
@@ -3556,7 +3585,7 @@ def _train_full_width(arch: str) -> dict:
         "step_ms_p99": float(np.percentile(ms, 99)),
         "tokens_per_s": tokens * len(secs) / sum(secs),
         "model_flops_per_step": flops,
-        "train_mfu": flops / (p50 / 1e3) / H100_BF16_FLOPS,
+        "train_mfu": flops / (p50 / 1e3) / PEAK_BF16_FLOPS,
         "max_memory_allocated_gb": peak / 2**30,
         "device_busy_share": busy["device_busy_share"],
         # the profiled step's device time over an unprofiled step's p50
@@ -3595,6 +3624,174 @@ def phase_training() -> dict:
     return {"launches": {k: sum(r["launches"][k] for r in runs)
                          for k in runs[0]["launches"]},
             "plain_vjp_backward": sum(r["plain_vjp_backward"] for r in runs)}
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun
+# ---------------------------------------------------------------------------
+
+# the dry-run (repro_torch.launch.dryrun) on the GPU machine: (a) the ten
+# configs' train_4k and decode_32k cells on the 16x16 mesh, counted on
+# meta; (b) qwen2-1.5b and mamba2-370m at full width on the card mesh:
+# train at phase training's 8 x 2,048, a 2,048-token prefill, a decode
+# step of phase serving's 32 slots of 8,192 positions
+DRYRUN_META = ("train_4k", "decode_32k")
+DRYRUN_CARD_ARCHS = ("qwen2-1.5b", "mamba2-370m")
+DRYRUN_JOBS = 8            # worker processes counting the meta cells
+# the caching allocator rounds each block up to 512 bytes: a card cell's
+# arguments occupy the predicted bytes plus less than that a leaf
+DRYRUN_ALLOC_ROUND = 512
+
+
+def _kernel_plain_flops(cfg, shape) -> tuple[str | None, int]:
+    """The kernel one layer of the cell's step launches and its plain
+    version's FLOPs at that layer's shape, counted on ``meta``: the
+    prediction counts the plain versions (as ``analyze_hlo`` counts the
+    reference's jnp), while ``FlopCounterMode`` on the card does not see a
+    kernel launched through ctypes.  K6: a decode step's attention over
+    the cache; K7: the SSD scan of a prefill or train step."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    from repro_torch.launch.op_stats import count_flops
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    B, T = shape.global_batch, shape.seq_len
+    if cfg.family == "ssm" and shape.kind != "decode":
+        H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_state, cfg.ssm_groups
+        return "ssd_chunk", count_flops(
+            ssd_scan, meta(B, T, H, P), meta(B, T, H), meta(H),
+            meta(B, T, G, N), meta(B, T, G, N), meta(B, H, P, N),
+            chunk=min(cfg.ssm_chunk, max(8, T)))
+    if cfg.family == "dense" and shape.kind == "decode":
+        dt = getattr(torch, cfg.dtype)
+        kv = meta(B, T, cfg.n_kv_heads, cfg.head_dim, dtype=dt)
+        return "decode_attn", count_flops(
+            decode_attn, meta(B, cfg.n_heads, cfg.head_dim, dtype=dt), kv, kv,
+            meta(B, dtype=torch.int32))
+    return None, 0
+
+
+def phase_dryrun() -> dict:
+    """(a) and (b) above.  Every cell is predicted on ``meta`` in
+    ``DRYRUN_JOBS`` spawned processes (``dryrun.run_cells``); then each
+    card cell runs (``dryrun.measure_on_card``: CUDA-event ms, the median
+    of ``CARD_REPS`` after one warm-up counted by ``FlopCounterMode``),
+    the allocator in expandable segments as in phase training.  Gates: no
+    cell errs; a card cell's output is finite, its arguments occupy the
+    predicted bytes plus less than ``DRYRUN_ALLOC_ROUND`` a leaf (at least
+    the predicted bytes), its warm-up's count plus
+    the plain FLOPs of the kernels it launched a layer equals the
+    prediction exactly, and K6 (qwen2's decode) and K7 (mamba2's prefill
+    and train: forward and remat recompute) launch once a layer and step,
+    K7's backward through the plain scan's VJP once a layer and step."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.input_specs import parse_shape
+
+    # the train cells first: they take the longest to count
+    meta_jobs = [(a, s, "single", {}) for s in DRYRUN_META for a in ARCH_IDS]
+    card_jobs = [(a, s, "card", {"measure": False})
+                 for a in DRYRUN_CARD_ARCHS for s in DR.CARD_SHAPES]
+    t0 = time.perf_counter()
+    recs = list(DR.run_cells(meta_jobs + card_jobs, DRYRUN_JOBS))
+    count_s = time.perf_counter() - t0
+    bad = {f"{a}/{s}/{m}": r.get("error") for (a, s, m, _), r
+           in zip(meta_jobs + card_jobs, recs) if r["status"] == "error"}
+    if bad:
+        raise AssertionError(f"dryrun: cells failed {bad}")
+
+    def row_of(key, rec):
+        r = RL.analyze_cell(key, rec)
+        row = {"key": key, "status": rec["status"],
+               "argument_gib_per_device": rec["memory"]["argument_bytes"] / 2**30,
+               "counted_flops": rec["cost"]["flops"], "count_s": rec["count_s"],
+               **{k: r[k] for k in ("model_flops", "bound", "t_compute_s",
+                                    "t_memory_s", "t_collective_s",
+                                    "roofline_fraction")}}
+        if "measured" in rec:
+            row.update(step_ms=rec["measured"]["step_ms"],
+                       measured_fraction=r["measured_fraction"])
+        return row
+
+    meta_rows = []
+    for (a, s, m, _), rec in zip(meta_jobs, recs):
+        key = DR.cell_key("baseline", a, s, m)
+        meta_rows.append(row_of(key, rec) if rec["status"] == "ok" else
+                         {"key": key, "status": rec["status"],
+                          "reason": rec["reason"]})
+    emit({"phase": "dryrun", "part": "meta", "mesh": "16x16",
+          "cells": meta_rows, "seconds_all_predictions": count_s,
+          "workers": DRYRUN_JOBS})
+
+    _free_card()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    DAK.reset_launches()
+    RMK.reset_launches()                       # counts of the main path
+    SSK.reset_launches()
+    t1 = time.perf_counter()
+    for (a, s, m, _), rec in zip(card_jobs, recs[len(meta_jobs):]):
+        cfg, shape = get_config(a), parse_shape(s)
+        before = (DAK.launches["decode_attn"], dict(SSK.launches))
+        rec["measured"] = meas = DR.measure_on_card(a, s, rec)
+        _free_card()
+        k6 = DAK.launches["decode_attn"] - before[0]
+        k7 = SSK.launches["ssd_chunk"] - before[1]["ssd_chunk"]
+        vjp = (SSK.launches["ssd_chunk_plain_grad"]
+               - before[1]["ssd_chunk_plain_grad"])
+        steps = 1 + meas["reps"]
+        kname, kflops = _kernel_plain_flops(cfg, shape)
+        L = cfg.n_layers
+        seen = meas["flops_on_card"] + (L * kflops if kname else 0)
+        held, pred = meas["argument_bytes_on_card"], rec["memory"]["argument_bytes"]
+        row = {**row_of(DR.cell_key("card", a, s, m), rec),
+               "predicted_argument_bytes": pred, "argument_bytes_on_card": held,
+               "argument_leaves": meas["argument_leaves"],
+               "bytes_ratio": pred / held,
+               "temp_bytes": rec["memory"]["temp_bytes"],
+               "max_memory_allocated": meas["max_memory_allocated"],
+               "step_ms_all": meas["step_ms_all"],
+               "flops_on_card": meas["flops_on_card"],
+               "kernel_plain_flops_a_layer": {kname: kflops} if kname else {},
+               "launches": {"decode_attn": k6, "ssd_chunk": k7,
+                            "ssd_chunk_plain_grad": vjp}}
+        if kname == "ssd_chunk":      # K7's bound at this cell's scans
+            row["k7_bound"] = _k7_bound(
+                shape.global_batch, shape.seq_len, cfg.ssm_heads,
+                cfg.ssm_head_dim, cfg.d_state, cfg.ssm_groups,
+                min(cfg.ssm_chunk, shape.seq_len))
+        emit({"phase": "dryrun", "part": "card", **row})
+        want_k6 = L * steps if kname == "decode_attn" else 0
+        want_k7 = (L * steps * (2 if shape.kind == "train" else 1)
+                   if kname == "ssd_chunk" else 0)
+        want_vjp = L * steps if kname == "ssd_chunk" and shape.kind == "train" else 0
+        if not meas["finite"]:
+            raise AssertionError(f"dryrun {a}/{s}: non-finite output")
+        if not 0 <= held - pred < DRYRUN_ALLOC_ROUND * meas["argument_leaves"]:
+            raise AssertionError(f"dryrun {a}/{s}: predicted {pred} argument "
+                                 f"bytes in {meas['argument_leaves']} leaves, "
+                                 f"{held} on the card")
+        if seen != rec["cost"]["flops"]:
+            raise AssertionError(f"dryrun {a}/{s}: {seen} FLOPs on the card "
+                                 f"(kernels' plain FLOPs added), "
+                                 f"{rec['cost']['flops']} predicted")
+        if (k6, k7, vjp) != (want_k6, want_k7, want_vjp):
+            raise AssertionError(f"dryrun {a}/{s}: launches K6 {k6}, K7 {k7}, "
+                                 f"plain VJP {vjp}; want {want_k6}, "
+                                 f"{want_k7}, {want_vjp}")
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    launches = {**RMK.launches, "decode_attn": DAK.launches["decode_attn"],
+                "ssd_chunk": SSK.launches["ssd_chunk"]}
+    emit({"phase": "dryrun", "part": "done", "card_seconds":
+          time.perf_counter() - t1, "launches": launches,
+          "plain_vjp_backward": SSK.launches["ssd_chunk_plain_grad"]})
+    return {"launches": launches,
+            "plain_vjp_backward": SSK.launches["ssd_chunk_plain_grad"]}
 
 
 def phase_profile() -> dict:
@@ -3733,6 +3930,7 @@ def main(argv=None) -> int:
     serving_ssm = run("serving_ssm", phase_serving_ssm)
     families = run("families", phase_families)
     training = run("training", phase_training)
+    dryrun = run("dryrun", phase_dryrun)
     if families is not None:      # the five runs' launches as one path
         families = {"launches": {name: sum(f["launches"][name]
                                            for f in families)
@@ -3754,7 +3952,7 @@ def main(argv=None) -> int:
                   ("telemetry", tel), ("dist", dist), ("paper", paper),
                   ("serving", serving),
                   ("serving_ssm", serving_ssm), ("families", families),
-                  ("training", training))
+                  ("training", training), ("dryrun", dryrun))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]
@@ -3763,11 +3961,13 @@ def main(argv=None) -> int:
                                        for name, p in paths.items()}
             row["launches"] = (sum(row["launches_by_path"].values())
                                if paths else None)
-            if row["name"] == "ssd_chunk" and training is not None:
+            if row["name"] == "ssd_chunk":
                 # K7 has no backward kernel: the backward passes through
-                # the plain scan's VJP on the training path
+                # the plain scan's VJP on the training paths
                 row["plain_vjp_backward_by_path"] = {
-                    "training": training["plain_vjp_backward"]}
+                    name: p["plain_vjp_backward"] for name, p in
+                    (("training", training), ("dryrun", dryrun))
+                    if p is not None}
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "parity", "ms", "device_ms",

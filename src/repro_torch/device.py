@@ -24,11 +24,12 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (a kernel wrapper then runs
-    its plain version), False when all lie on CUDA devices; tensors on
-    mixed devices raise."""
+    """True when every tensor lies on the CPU, or every one on the
+    ``meta`` device (a kernel wrapper then runs its plain version: on
+    ``meta`` it computes shapes only, as the dry-run does), False when
+    all lie on CUDA devices; tensors on mixed devices raise."""
     devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
+    if devs in ({"cpu"}, {"meta"}):
         return True
     if devs != {"cuda"}:
         raise ValueError(f"tensors on mixed devices: {sorted(devs)}")

@@ -9,7 +9,9 @@ asked for.  K7 has no backward kernel: the wrapper is an autograd
 Function whose backward recomputes the plain chunked scan
 (:func:`ssd_chunked_ref`) from the saved inputs under autograd and takes
 its vector-Jacobian product, the gradient of the function the reference
-trains through (its jnp chunked scan, ``use_pallas=False``).  Each such
+trains through (its jnp chunked scan, ``use_pallas=False``), from the
+outputs the loss reaches only (a train step's loss does not reach the
+final state).  Each such
 backward counts itself in ``launches["ssd_chunk_plain_grad"]`` beside
 K7's ``launches["ssd_chunk"]``.  A non-reentrant checkpoint's recompute
 launches K7 again before that backward."""
@@ -50,6 +52,9 @@ class _K7Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        # an output the loss does not reach (the final state, in training)
+        # comes to backward as None, and its VJP is not taken
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
         ctx.chunk = chunk
         b4, c4 = (Bm[:, :, None, :], Cm[:, :, None, :]) if Bm.dim() == 3 \
@@ -65,10 +70,12 @@ class _K7Scan(torch.autograd.Function):
         ins = [t.detach().requires_grad_(n)
                for t, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
-            y, fs = ssd_chunked_ref(*ins, chunk=ctx.chunk)
+            outs = ssd_chunked_ref(*ins, chunk=ctx.chunk)
+            used = [(o, g) for o, g in zip(outs, (gy, gfs)) if g is not None]
             wrt = [t for t, n in zip(ins, need) if n]
             got = iter(torch.autograd.grad(
-                (y, fs), wrt, (gy, gfs), allow_unused=True))
+                [o for o, _ in used], wrt, [g for _, g in used],
+                allow_unused=True))
         return (*(next(got) if n else None for n in need), None)
 
 

@@ -12,7 +12,7 @@ steps:
 ``--device`` defaults to the CUDA card.  The master weights come from the
 port's seeded init in ``cfg.param_dtype``.  A model-parallel mesh
 (``--model-parallel`` above 1) and multi-host runs (``--distributed``)
-wait for ROADMAP step 16 (``distributed/``, ``launch/mesh.py``).
+wait for ROADMAP step 16c: the sharded step on several cards.
 """
 
 from __future__ import annotations
@@ -127,9 +127,10 @@ def main(argv=None) -> None:
 
     if args.distributed or args.model_parallel > 1:
         raise NotImplementedError(
-            "--distributed and --model-parallel > 1 need the sharded "
-            "training layout of ROADMAP step 16 (distributed/, "
-            "launch/mesh.py), which the port does not have yet")
+            "--distributed and --model-parallel > 1 run the sharded train "
+            "step on several cards (ROADMAP step 16c), which the port does "
+            "not have yet; the placement rules and the dry-run "
+            "(python -m repro_torch.launch.dryrun) need no second card")
     # expandable segments: a full-width step's transients fragment the
     # allocator's fixed-size segments (set before the card's first use)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")

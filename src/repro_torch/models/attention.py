@@ -16,8 +16,9 @@ attention, minicpm3).
 
 Parameter leaves carry no layer axis here; the transformer stacks them
 (L, ...) and loops.  Projections compute in the parameters' dtype (which
-must be ``cfg.dtype``); softmax and norms in f32.  The reference's
-``constrain`` sharding hints are no-ops on one device and are dropped.
+must be ``cfg.dtype``); softmax and norms in f32.  The sequence paths pin
+q / k / v and the attention output through ``distributed.constraints``
+(identity unless a policy is installed, and on a plain tensor).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.constraints import constrain
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 from repro_torch.models.flash import NEG_INF, flash_attention
@@ -77,9 +79,13 @@ def gqa_seq(x, p, cfg: ArchConfig, *, is_global: bool = False, positions=None,
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(x, p, cfg, positions)
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_kv")
+    v = constrain(v, "attn_kv")
     out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
                           is_global=is_global, q_block=q_block,
                           kv_block=kv_block)
+    out = constrain(out, "attn_out")
     y = out.reshape(B, T, -1) @ p["wo"]
     if return_kv:
         return y, (k, v)
@@ -184,8 +190,12 @@ def mla_seq(x, p, cfg: ArchConfig, *, positions=None, q_block: int = 256,
     kn, v = kv[..., :nd], kv[..., nd:]
     q = torch.cat([qn, qr], dim=-1)
     k = torch.cat([kn, krope[:, :, None, :].expand(B, T, H, rd)], dim=-1)
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_q")  # MLA: K is per-head too
+    v = constrain(v, "attn_q")
     out = flash_attention(q, k, v, causal=True, q_block=q_block,
                           kv_block=kv_block, scale=(nd + rd) ** -0.5)
+    out = constrain(out, "attn_out")
     y = out.reshape(B, T, -1) @ p["wo"]
     if return_kv:
         return y, (ckv, krope)

@@ -102,10 +102,26 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor):
     x = frames.to(model_dtype(cfg))
     x = x + _positions(x.shape[1], cfg, x)[None]
     for l in range(cfg.n_encoder_layers):
-        lp = _layer(params["enc"], l)
-        x = x + _attn(_ln(x, lp["ln1"], cfg), lp["attn"], cfg, causal=False)
-        x = x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
+        x = _enc_layer(x, _layer(params["enc"], l), cfg)
     return _ln(x, params["enc_ln"], cfg)
+
+
+def _enc_layer(x, lp, cfg: ArchConfig):
+    x = x + _attn(_ln(x, lp["ln1"], cfg), lp["attn"], cfg, causal=False)
+    return x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
+
+
+def _dec_layer(x, lp, cfg: ArchConfig, enc_out):
+    """One teacher-forced decoder layer; returns (x, (k, v, ck, cv)), its
+    self and cross K/V."""
+    h = _ln(x, lp["ln1"], cfg)
+    k, v = _self_kv(h, lp["self"], cfg)
+    x = x + _attn(h, lp["self"], cfg, causal=True, kv=(k, v))
+    h = _ln(x, lp["lnx"], cfg)
+    ck, cv = _self_kv(enc_out, lp["cross"], cfg)
+    x = x + _attn(h, lp["cross"], cfg, causal=False, kv=(ck, cv))
+    x = x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
+    return x, (k, v, ck, cv)
 
 
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -124,15 +140,8 @@ def decode_seq(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = x + _positions(T, cfg, x)[None]
     ks, vs, cks, cvs = [], [], [], []
     for l in range(cfg.n_layers):
-        lp = _layer(params["dec"], l)
-        h = _ln(x, lp["ln1"], cfg)
-        k, v = _self_kv(h, lp["self"], cfg)
-        x = x + _attn(h, lp["self"], cfg, causal=True, kv=(k, v))
-        h = _ln(x, lp["lnx"], cfg)
-        ck, cv = _self_kv(enc_out, lp["cross"], cfg)
-        x = x + _attn(h, lp["cross"], cfg, causal=False, kv=(ck, cv))
-        x = x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
-        for acc, t in ((ks, k), (vs, v), (cks, ck), (cvs, cv)):
+        x, kvs = _dec_layer(x, _layer(params["dec"], l), cfg, enc_out)
+        for acc, t in zip((ks, vs, cks, cvs), kvs):
             acc.append(t)
     logits = _logits(params, cfg, x)
     if not return_cache:
@@ -194,22 +203,30 @@ def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
     enc_len = torch.full((B,), cache["ck"].shape[2], dtype=torch.int32,
                          device=x.device)
     for l in range(cfg.n_layers):
-        lp = _layer(params["dec"], l)
-        ps, px = lp["self"], lp["cross"]
-        h = _ln(x, lp["ln1"], cfg)
-        q = _heads(h @ ps["wq"] + ps["bq"], cfg)
-        k_t, v_t = _self_kv(h, ps, cfg)
-        A._write_at(cache["k"][l], k_t[:, 0], length)
-        A._write_at(cache["v"][l], v_t[:, 0], length)
-        y = A._decode_attend(q[:, 0], cache["k"][l], cache["v"][l], length + 1)
-        x = x + y.reshape(B, 1, -1) @ ps["wo"] + ps["bo"]
-        h = _ln(x, lp["lnx"], cfg)
-        qx = _heads(h @ px["wq"] + px["bq"], cfg)
-        yx = A._decode_attend(qx[:, 0], cache["ck"][l], cache["cv"][l], enc_len)
-        x = x + yx.reshape(B, 1, -1) @ px["wo"] + px["bo"]
-        x = x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
+        x = _dec_layer_decode(x, _layer(params["dec"], l), cfg, cache, l,
+                              length, enc_len)
     logits = _logits(params, cfg, x)[:, 0]
     return logits, {**cache, "length": length + 1}
+
+
+def _dec_layer_decode(x, lp, cfg: ArchConfig, cache: dict, l: int, length,
+                      enc_len):
+    """One decoder layer for one token against layer ``l`` of the cache
+    (its self K/V row written in place).  Returns x."""
+    B = x.shape[0]
+    ps, px = lp["self"], lp["cross"]
+    h = _ln(x, lp["ln1"], cfg)
+    q = _heads(h @ ps["wq"] + ps["bq"], cfg)
+    k_t, v_t = _self_kv(h, ps, cfg)
+    A._write_at(cache["k"][l], k_t[:, 0], length)
+    A._write_at(cache["v"][l], v_t[:, 0], length)
+    y = A._decode_attend(q[:, 0], cache["k"][l], cache["v"][l], length + 1)
+    x = x + y.reshape(B, 1, -1) @ ps["wo"] + ps["bo"]
+    h = _ln(x, lp["lnx"], cfg)
+    qx = _heads(h @ px["wq"] + px["bq"], cfg)
+    yx = A._decode_attend(qx[:, 0], cache["ck"][l], cache["cv"][l], enc_len)
+    x = x + yx.reshape(B, 1, -1) @ px["wo"] + px["bo"]
+    return x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
 
 
 def empty_cache(cfg: ArchConfig, batch: int, cache_len: int, *,

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models.common import activation, dense_init
 from repro_torch.models.ffn import init_swiglu, swiglu
 
@@ -83,7 +84,10 @@ def moe_layer(x: torch.Tensor, p: dict, cfg: ArchConfig, *,
 
     # load-balance auxiliary loss (Switch): E * sum_e f_e * P_e
     me = probs.mean(dim=0)                                    # (E,)
-    ce = torch.bincount(topk_idx.reshape(-1), minlength=E).float() / (N * K)
+    flat = topk_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).index_add_(
+        0, flat, torch.ones_like(flat))        # bincount (no meta shape)
+    ce = counts.float() / (N * K)
     aux_loss = E * (me * ce).sum()
 
     if dispatch == "einsum":
@@ -133,8 +137,8 @@ def _dispatch_gather(xf, p, cfg: ArchConfig, topk_idx, gate_vals, C: int):
         0, slot_sorted, flat_g[order])[:EC]
 
     x_pad = torch.cat([xf, xf.new_zeros((1, D))])
-    xe = x_pad[tos].reshape(E, C, D)
-    ye = _expert_ffn(p, cfg, xe).reshape(EC, D)
+    xe = constrain(x_pad[tos].reshape(E, C, D), "moe_expert")
+    ye = constrain(_expert_ffn(p, cfg, xe), "moe_expert").reshape(EC, D)
     contrib = (ye * gos[:, None]).to(xf.dtype)
 
     slot_of = torch.empty_like(slot_sorted)

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FF
 from repro_torch.models import hybrid as HY
@@ -285,6 +286,7 @@ def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
         entries = []
         for l in range(g.n_layers):
             lp = _layer(params[g.name], l)
+            x = constrain(x, "hidden")
             if remat:
                 x, aux, entry = checkpoint(_layer_seq, x, lp, cfg, g.kind,
                                            flags[l], return_cache,
@@ -292,6 +294,7 @@ def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
             else:
                 x, aux, entry = _layer_seq(x, lp, cfg, g.kind, flags[l],
                                            return_cache)
+            x = constrain(x, "hidden")
             for k, v in aux.items():
                 aux_total[k] = aux_total[k] + v
             entries.append(entry)
@@ -362,7 +365,7 @@ def _ce_chunk(params: dict, cfg: ArchConfig, xc: torch.Tensor,
     less the gold logit.  The reference contracts the logits with a
     one-hot of the labels; a gather takes the same value (the other terms
     are exact zeros) without the (B, chunk, V) one-hot."""
-    logits = lm_head(params, cfg, xc).float()
+    logits = constrain(lm_head(params, cfg, xc).float(), "logits")
     mask = lc >= 0
     safe = lc.clamp(min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -462,43 +465,49 @@ def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
         flags = global_flags(cfg, g.layer_ids)
         gc = cache[g.name]
         for l in range(g.n_layers):
-            lp = _layer(params[g.name], l)
-            if g.kind in ("dense", "moe"):
-                x = _attn_decode(x, lp, cfg, gc["k"][l], gc["v"][l], length,
-                                 flags[l])
-                x, _ = _ffn_seq(x, lp, cfg, g.kind)
-                continue
-            if g.kind == "pair":
-                x = _attn_decode(x, lp["a"], cfg, gc["ka"][l], gc["va"][l],
-                                 length, flags[l])
-                x, _ = _ffn_seq(x, lp["a"], cfg)
-                x = _attn_decode(x, lp["b"], cfg, gc["kb"][l], gc["vb"][l],
-                                 length, flags[l])
-                x, _ = _ffn_seq(x, lp["b"], cfg, "moe")
-                continue
-            h = _norm(x, lp["ln1"], cfg)
-            if g.kind == "mla":
-                y, _, _ = A.mla_decode(h, lp["attn"], cfg, gc["ckv"][l],
-                                       gc["krope"][l], length)
-                if cfg.post_norms:
-                    y = _norm(y, lp["ln1_post"], cfg)
-                x, _ = _ffn_seq(_residual(x, y, cfg), lp, cfg)
-                continue
-            if g.kind == "ssm":
-                y, conv, sst = S.ssm_decode(h, lp["ssm"], cfg, gc["conv"][l],
-                                            gc["ssm"][l])
-                x = x + y
-            else:
-                y, _, _, conv, sst = HY.hybrid_decode(
-                    h, lp["mix"], cfg, gc["k"][l], gc["v"][l], length,
-                    gc["conv"][l], gc["ssm"][l], is_global=flags[l])
-                x, _ = _ffn_seq(x + y, lp, cfg)
-            gc["conv"][l].copy_(conv)
-            gc["ssm"][l].copy_(sst)
+            x = _layer_decode(x, _layer(params[g.name], l), cfg, g.kind, gc,
+                              l, length, flags[l])
         new_cache[g.name] = gc
     x = _norm(x, params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)[:, 0]
     return logits, new_cache
+
+
+def _layer_decode(x, lp, cfg: ArchConfig, kind: str, gc: dict, l: int,
+                  length, is_global: bool):
+    """One layer of ``kind`` for one token against layer ``l`` of its
+    group's stacked cache ``gc``, whose rows and states it writes in
+    place.  Returns x."""
+    if kind in ("dense", "moe"):
+        x = _attn_decode(x, lp, cfg, gc["k"][l], gc["v"][l], length,
+                         is_global)
+        return _ffn_seq(x, lp, cfg, kind)[0]
+    if kind == "pair":
+        x = _attn_decode(x, lp["a"], cfg, gc["ka"][l], gc["va"][l], length,
+                         is_global)
+        x, _ = _ffn_seq(x, lp["a"], cfg)
+        x = _attn_decode(x, lp["b"], cfg, gc["kb"][l], gc["vb"][l], length,
+                         is_global)
+        return _ffn_seq(x, lp["b"], cfg, "moe")[0]
+    h = _norm(x, lp["ln1"], cfg)
+    if kind == "mla":
+        y, _, _ = A.mla_decode(h, lp["attn"], cfg, gc["ckv"][l],
+                               gc["krope"][l], length)
+        if cfg.post_norms:
+            y = _norm(y, lp["ln1_post"], cfg)
+        return _ffn_seq(_residual(x, y, cfg), lp, cfg)[0]
+    if kind == "ssm":
+        y, conv, sst = S.ssm_decode(h, lp["ssm"], cfg, gc["conv"][l],
+                                    gc["ssm"][l])
+        x = x + y
+    else:
+        y, _, _, conv, sst = HY.hybrid_decode(
+            h, lp["mix"], cfg, gc["k"][l], gc["v"][l], length,
+            gc["conv"][l], gc["ssm"][l], is_global=is_global)
+        x, _ = _ffn_seq(x + y, lp, cfg)
+    gc["conv"][l].copy_(conv)
+    gc["ssm"][l].copy_(sst)
+    return x
 
 
 def _attn_decode(xc, lp, cfg: ArchConfig, k_cache, v_cache, length,

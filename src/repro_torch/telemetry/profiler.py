@@ -35,6 +35,7 @@ import torch
 # NVIDIA H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12          # HBM3
 PEAK_F32_FLOPS = 67e12             # float32 on the CUDA cores
+PEAK_BF16_FLOPS = 989e12           # dense bfloat16 on the tensor cores
 
 
 class StageTimers:

@@ -106,9 +106,12 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 
 def _step_scalars(opt_state: dict, cfg: OptConfig):
-    """The new step count (host int and device tensor) and the lr."""
-    step = int(opt_state["step"]) + 1
-    return step, opt_state["step"] + 1, schedule(cfg, step)
+    """The new step count (host int and device tensor) and the lr.  A
+    state on the ``meta`` device holds no count to read (the dry-run's
+    abstract step): the host takes it for the first step."""
+    t = opt_state["step"]
+    step = 1 if t.is_meta else int(t) + 1
+    return step, t + 1, schedule(cfg, step)
 
 
 def _lr_metrics(lr: float, gnorm: torch.Tensor) -> dict:

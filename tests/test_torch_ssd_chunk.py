@@ -331,3 +331,32 @@ def test_k7_autograd_backward_is_the_plain_vjp(monkeypatch, G, remat):
     want = jax.grad(jloss, argnums=tuple(range(6)))(*_args(_j(a)))
     for g, h in zip(got, want):
         _close_scaled(g, h)
+
+
+def test_k7_autograd_skips_the_vjp_of_an_unused_output(monkeypatch):
+    """A train step's loss reaches y and not the final state: the card's
+    autograd Function then takes the VJP of y alone, the work and the
+    gradients of autograd through the plain scan (bit for bit, FLOP for
+    FLOP), with the plain version standing in for K7."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    a = _inputs(23, 2, 32, 4, 8, 4, G=2)
+    w = torch.tensor(np.random.default_rng(24).normal(size=(2, 32, 4, 8)),
+                     dtype=torch.float32)
+    monkeypatch.setattr(K, "ssd_chunk", lambda *t, chunk: R.ssd_chunked_ref(
+        *t, chunk=chunk))
+
+    def run(scan):
+        leaves = [t.requires_grad_(True) for t in _args(_t(a))]
+        y, _ = scan(*leaves)
+        with FlopCounterMode(display=False) as fc:
+            (y * w).sum().backward()
+        return [t.grad for t in leaves], fc.get_total_flops()
+
+    got, got_flops = run(lambda *t: O._K7Scan.apply(*t, 8))
+    plain, plain_flops = run(lambda *t: R.ssd_chunked_ref(*t, chunk=8))
+    assert all(torch.equal(g, h) for g, h in zip(got, plain))
+    # the backward recomputes the forward once more than autograd does
+    with FlopCounterMode(display=False) as fc:
+        R.ssd_chunked_ref(*_args(_t(a)), chunk=8)
+    assert got_flops == plain_flops + fc.get_total_flops()
