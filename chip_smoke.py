@@ -77,8 +77,8 @@ exits non-zero):
                and the dist backend on an 8-shard mesh (the load
                registers too): p2c with the overload plane and both
                observability planes, craq on ``ycsb_a``, the lag-1 tier
-               through ``split_brain``, and a lognormal service model,
-               whose latencies card and CPU hold to ROADMAP F14's bound;
+               through ``split_brain``, and a lognormal service model
+               (the port's reproductions of XLA's float32 log1p and exp);
                then the replication bench
                (``repro_torch.replication.bench``) and the coordination-tier
                bench (``repro_torch.coordination_tier.bench``) on the card
@@ -181,6 +181,27 @@ exits non-zero):
                {``frozen``, ``full_adaptive``} rows equal on the card, on
                the CPU and in the fixture (but ``wall_s``, and the
                reference's own ``host_syncs``);
+   benches     the repo's other benches at their default sizes on the
+               card: the overload survival matrix (both arms x
+               cascade_failure, retry_storm) and its trace column, the
+               metrics plane's parity and forced breach, the scale-out
+               bench's four drivers on the 8-shard mesh, the balance
+               bench's --profile, --trace, --dist and --replication
+               extras; every row equal to the reference's in
+               ``tests/data/bench_rows_reference.json`` (made by
+               ``tests/bench_reference.py``) but the clock's columns and
+               the host syncs, every correctness gate holding (survival,
+               conservation, parity, alerts against the numpy oracle,
+               incident completeness, pool growth, ``traces``), the two
+               wall-clock gates (the dist bench's 2x, --profile's 1.2x)
+               printed as verdicts that do not decide ``ok``; then the six
+               demos (``repro_torch.examples``; ``train_lm`` at --preset
+               tiny, 20 steps), their lines equal to the reference's (the
+               serving demo's but its tokens, and the training demo's
+               parameter count and rates: both start from the port's
+               seeded init); artifacts in a temporary directory; the
+               store kernels' launches as path ``benches``, and with K6
+               as path ``examples``;
 6. serving     the serving path at full width: ``ServingEngine`` on
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
@@ -201,7 +222,7 @@ exits non-zero):
                the first prefill; decode by the recurrence;
 8. families    the families added last, at their published widths with
                bf16 weights from the port's seeded init, one line each:
-               the serving traffic above, cut to 16 requests, through the
+               the serving traffic above, cut to 12 requests, through the
                engine on
                deepseek-moe-16b (a 4,096-position cache; the MoE drops of
                one 2,048-token prompt), minicpm3-4b (MLA, no K6; one
@@ -224,10 +245,10 @@ exits non-zero):
                1024, 32 SSD heads of 64, d_state 128, vocab 50,280, tied
                embeddings), each at its published widths and depth: bf16
                compute over float32 master weights and AdamW state,
-               remat, the copy task, 20 steps of 8 x 2,048 tokens, lr
-               3e-4 with the launcher's warmup, a checkpoint every 10
-               steps on a thread; then step 10's checkpoint restored and
-               steps 10-11 replayed.  tokens/s, step ms p50 / p99 (CUDA
+               remat, the copy task, 16 steps of 8 x 2,048 tokens, lr
+               3e-4 with the launcher's warmup, a checkpoint every 8
+               steps on a thread; then step 8's checkpoint restored and
+               steps 8-9 replayed.  tokens/s, step ms p50 / p99 (CUDA
                events), peak memory, ``train_mfu`` (model FLOPs over the
                H100's dense bf16 peak; mamba2 has no attention term) and
                the device's busy share of one more, profiled step, and
@@ -294,8 +315,8 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
-          "telemetry", "dist", "paper", "serving", "serving_ssm", "families",
-          "training", "dryrun")
+          "telemetry", "dist", "paper", "benches", "serving", "serving_ssm",
+          "families", "training", "dryrun")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
                 "grid_study")
 
@@ -1350,43 +1371,6 @@ def _same_run(a, b, snapshots: bool = True) -> None:
     _same_planes(da, db, snapshots)
 
 
-# ROADMAP fault F14: the lognormal multiplier is within 4 ulp of the
-# reference's; card and CPU take its log1p and exp in float64 and round
-# once, so they may differ only where those roundings straddle
-F14_ULP = 4
-LATENCY_FIELDS = ("p50", "p99", "p999", "makespan", "throughput", "read_p99",
-                  "clean_read_p99")
-
-
-def _near_run(a, b) -> int:
-    """Two runs that may differ only in lognormal service draws (F14): every
-    other column equal, every latency column within F14's relative bound
-    (each latency is a sum of float32 service times, each within F14_ULP
-    of the other's, rounded to float32 once more); the store, registers
-    and chains are equal.  Returns the count of unequal latency values."""
-    import dataclasses
-
-    (da, ra), (db, rb) = a, b
-    tol = (F14_ULP + 1) * 2.0 ** -23
-    off = 0
-    for x, y in zip(ra, rb):
-        dx, dy = dataclasses.asdict(x), dataclasses.asdict(y)
-        for k in dx:
-            if k in LATENCY_FIELDS:
-                off += dx[k] != dy[k]
-                if abs(dx[k] - dy[k]) > tol * max(abs(dx[k]), abs(dy[k])):
-                    raise AssertionError(f"epoch {x.epoch}: {k} {dx[k]} vs "
-                                         f"{dy[k]} beyond F14")
-            elif dx[k] != dy[k]:
-                raise AssertionError(f"epoch {x.epoch}: {k} differs")
-    for f in ("keys", "values", "overflow"):
-        if not torch.equal(getattr(da.store, f).cpu(), getattr(db.store, f).cpu()):
-            raise AssertionError(f"final store {f} differs")
-    if not torch.equal(da.load_reg.cpu(), db.load_reg.cpu()):
-        raise AssertionError("load registers differ")
-    return off
-
-
 LAG1 = dict(n_switches=4, lag_per_hop=1)
 SPLIT = dict(skw=dict(split_epoch=2, heal_epoch=7, switch=1), n_epochs=10,
              period=1)
@@ -1438,7 +1422,7 @@ PARITY_RUNS = (
     # the dist backend on an 8-shard mesh (tests/test_torch_dist_driver.py's
     # cases): p2c with the overload plane and both observability planes;
     # craq on YCSB-A; the lag-1 tier through a split brain; and a
-    # lognormal service, card against CPU within F14's bound
+    # lognormal service
     ("dist/overload/planes", "overload_adaptive", "shifting_hotspot",
      dict(dist=True, ovl=OCFG, planes=dict(sample_rate=1 / 4, max_spans=64))),
     ("dist/craq/full_adaptive", "full_adaptive", "ycsb_a",
@@ -1466,14 +1450,8 @@ def phase_parity() -> dict:
         cuda_f = _parity_driver(policy, "cuda", True, scenario, **ckw)
         launches = {k: n for k, n in RMK.launches.items() if n}
         cpu_f = _parity_driver(policy, "cpu", True, scenario, **ckw)
-        if ckw.get("service") == "lognormal":
-            off = _near_run(cuda_f, cpu_f)
-            verdict = ("bitwise" if not off
-                       else f"within F14 ({off} latency values differ)")
-        else:
-            _same_run(cuda_f, cpu_f)
-            verdict = "bitwise"
-        res = {"cuda_vs_cpu": verdict, "epochs": len(cuda_f[1]),
+        _same_run(cuda_f, cpu_f)
+        res = {"cuda_vs_cpu": "bitwise", "epochs": len(cuda_f[1]),
                "host_syncs_fused": cuda_f[0].host_syncs,
                "dirty_reads": sum(r.dirty_reads for r in cuda_f[1]),
                "launches": launches}
@@ -2480,6 +2458,237 @@ def phase_paper() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase benches
+# ---------------------------------------------------------------------------
+
+# the repo's other benches and its six demos on the card, held to the
+# reference's rows at their default sizes (tests/data/bench_rows_reference.json,
+# made by tests/bench_reference.py: no JAX here); every column but the
+# clock's and the host syncs' (repro_torch.benchmarks.compare)
+BENCH_FIXTURE = (Path(__file__).resolve().parent / "tests" / "data"
+                 / "bench_rows_reference.json")
+TRAIN_LM_STEPS = 20
+
+
+def _rows_equal(label: str, rows: list, want: list) -> None:
+    from repro_torch.benchmarks import compare
+
+    got = compare.comparable(rows)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, the reference "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        bad = sorted(k for k in g.keys() | w.keys() if g.get(k) != w.get(k))
+        if bad:
+            raise AssertionError(f"{label}: row {w.get('scenario')}/"
+                                 f"{w.get('arm') or w.get('variant') or w.get('policy')} "
+                                 f"differs from the reference's in {bad}")
+
+
+def _gate(label: str, problems: list) -> None:
+    if problems:
+        raise AssertionError(f"{label} gate: {problems}")
+
+
+def _clock_verdict(label: str, ratio: float, gate: float, above: bool) -> dict:
+    """A wall-clock gate's verdict, printed on its own line; it does not
+    decide ``ok``."""
+    met = ratio >= gate if above else ratio <= gate
+    verdict = {"gate": label, "ratio": ratio, "limit": gate,
+               "met": bool(met)}
+    emit({"wall_clock_gate": verdict})
+    return verdict
+
+
+def _eps(rows: list) -> list:
+    return [r["epochs"] / r["wall_s"] if r.get("wall_s") else None
+            for r in rows]
+
+
+def _bench_runs(dev, tmp: str, want: dict) -> dict:
+    """Items 2-5 of the port's benches at their default sizes."""
+    from repro_torch.benchmarks import balance_bench as BB
+    from repro_torch.benchmarks import dist_bench as DB
+    from repro_torch.benchmarks import history
+    from repro_torch.benchmarks import metrics_bench as MB
+    from repro_torch.benchmarks import overload_bench as OB
+    from repro_torch.replication import bench as RB
+
+    ledger = os.path.join(tmp, history.HISTORY)
+    out = {}
+
+    t0 = time.perf_counter()
+    rows = OB.run_matrix(list(OB.SCENARIOS), False, verbose=False, device=dev)
+    trace_rows, trace_prob = OB.run_trace(False, tmp, device=dev)
+    _rows_equal("overload", rows + trace_rows, want["overload"]["default"])
+    _gate("overload survival", OB.check_survival(rows, quick=False)
+          + trace_prob)
+    history.append("overload", {"quick": False, "rows": rows + trace_rows},
+                   history_path=ledger)
+    out["overload"] = {"seconds": time.perf_counter() - t0,
+                       "epochs_per_s": _eps(rows),
+                       "lost": [r["lost"] for r in rows],
+                       "spans": trace_rows[0]["spans"], "gates": "pass"}
+
+    t0 = time.perf_counter()
+    rows_p, prob_p = MB.run_parity(False, device=dev)
+    rows_b, prob_b = MB.run_breach(False, tmp, device=dev)
+    _rows_equal("metrics", rows_p + rows_b, want["metrics"]["default"]["rows"])
+    _gate("metrics", prob_p + prob_b)
+    history.append("metrics", MB.gate_doc(False, rows_p + rows_b, prob_p,
+                                          prob_b), history_path=ledger)
+    out["metrics"] = {"seconds": time.perf_counter() - t0,
+                      "fire_epochs": rows_b[0]["fire_epochs"],
+                      "flight_dumps": rows_b[0]["flight_dumps"],
+                      "gates": "pass"}
+
+    t0 = time.perf_counter()
+    rows, prob = DB.run(False, device=dev)
+    _rows_equal("dist", rows, want["dist"]["default"]["rows"])
+    ratio, roofline = DB.ratios(rows)
+    _gate("dist parity / syncs", prob + [p for p in DB.check(rows)
+                                         if not p.startswith("ratio:")])
+    history.append("dist", {"quick": False, "rows": rows},
+                   history_path=ledger)
+    out["dist"] = {"seconds": time.perf_counter() - t0,
+                   "steady_eps": {r["variant"]: r["steady_eps"] for r in rows},
+                   "host_syncs_per_epoch": {r["variant"]:
+                                            r["host_syncs_per_epoch"]
+                                            for r in rows},
+                   "roofline_ratio": roofline,
+                   "ratio_gate": _clock_verdict("dist single_host / "
+                                                "dist_fused", ratio,
+                                                DB.RATIO_GATE, above=False)}
+
+    t0 = time.perf_counter()
+    extras = want["balance_extras"]["default"]
+    prof, prof_prob = BB.run_profile(False, device=dev)
+    _rows_equal("balance --profile", prof, extras["profile"])
+    _gate("balance --profile host syncs",
+          [p for p in prof_prob if "host syncs" in p])
+    trace, trace_prob = BB.run_trace(
+        False, os.path.join(tmp, BB.TRACE_ARTIFACT), device=dev)
+    _rows_equal("balance --trace", trace, extras["trace"])
+    _gate("balance --trace", trace_prob)
+    dist = BB.run_dist_parity(False, device=dev)
+    _rows_equal("balance --dist", dist, extras["dist"])
+    _gate("balance --dist", BB.check_dist(dist))
+    repl = (RB.run_replication_matrix(False, verbose=False, device=dev)
+            + RB.run_filter_arm(False, verbose=False, device=dev))
+    _rows_equal("balance --replication", repl, extras["replication"])
+    repl_prob = RB.check_replication(repl) + RB.check_filter_arm(repl)
+    if repl_prob != extras["replication_problems"]:
+        raise AssertionError(f"balance --replication findings {repl_prob}, "
+                             f"the reference's {extras['replication_problems']}")
+    history.append("balance", {"quick": False, "service": "fixed",
+                               "rows": prof + trace + dist + repl},
+                   history_path=ledger)
+    out["balance_extras"] = {
+        "seconds": time.perf_counter() - t0,
+        "profile_steady_eps": {f"{r['policy']}/{'fused' if r['fused'] else 'epoch'}":
+                               r["steady_eps"] for r in prof},
+        "growth_events": [r["growth_events"] for r in dist
+                          if r.get("bench") == "dist_growth"],
+        "replication_findings": repl_prob,
+        "profile_ratio_gates": [
+            _clock_verdict(f"balance --profile {p} fused / per-epoch", r,
+                           BB.PROFILE_RATIO_GATE, above=True)
+            for p, r in BB.profile_ratios(prof).items()]}
+    with open(ledger) as f:
+        out["history_records"] = len(f.read().splitlines())
+    if out["history_records"] != 4:
+        raise AssertionError(f"history ledger: {out['history_records']} "
+                             "records")
+    return out
+
+
+def _demo_runs(dev, tmp: str, want: dict) -> dict:
+    """The six demos on the card, their lines held to the reference's."""
+    import importlib
+
+    from repro_torch.examples._common import timer_free
+
+    out = {}
+    for name in ("quickstart", "failover_demo", "balance_demo", "trace_demo",
+                 "serve_kvcache"):
+        t0 = time.perf_counter()
+        got = importlib.import_module(f"repro_torch.examples.{name}").run(
+            dev, echo=False)
+        lines = timer_free(got["lines"])
+        ref = want[name]["lines"]
+        if name == "serve_kvcache":
+            # the port's own init: its tokens are not the reference's
+            # weights' (the CPU tests hold those); the schedule is
+            lines, ref = lines[:-1], ref[:-1]
+        if lines != ref:
+            bad = next(i for i, (a, b) in enumerate(zip(lines + [None],
+                                                        ref + [None]))
+                       if a != b)
+            raise AssertionError(f"demo {name}: line {bad} {lines[bad:bad + 1]}"
+                                 f" vs the reference's {ref[bad:bad + 1]}")
+        out[name] = {"seconds": time.perf_counter() - t0, "lines": "equal"}
+        if name == "serve_kvcache":
+            out[name].update(tokens=got["tokens"], steps=got["steps"],
+                             tokens_per_s=got["tokens"] / got["seconds"])
+    t0 = time.perf_counter()
+    from repro_torch.examples import train_lm
+
+    tw = want["train_lm"]
+    got = train_lm.run(dev, steps=TRAIN_LM_STEPS, preset=tw["preset"],
+                       ckpt_dir=os.path.join(tmp, "train_lm_ckpt"),
+                       echo=False)
+    hist = got["history"]
+    losses = [h["loss"] for h in hist]
+    # the port's init: losses are its own; the parameter count and the
+    # schedule's rates are the reference's bit for bit
+    if (got["n_params"] != tw["n_params"]
+            or [np.float32(h["lr"]) for h in hist]
+            != [np.float32(h["lr"]) for h in tw["history"]]):
+        raise AssertionError("train_lm: parameters or rates differ from "
+                             "the reference's")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm: losses {losses}")
+    out["train_lm"] = {"seconds": time.perf_counter() - t0,
+                       "loss_first_last": [losses[0], losses[-1]],
+                       "step_s_median": float(np.median(
+                           [h["seconds"] for h in hist[1:]]))}
+    return out
+
+
+def phase_benches() -> dict:
+    """The rest of the repo's benches on the card at their default sizes
+    (the overload survival matrix and its trace column, the metrics
+    plane's parity and forced breach, the scale-out bench's four drivers
+    on the 8-shard mesh, the balance bench's --profile, --trace, --dist and
+    --replication extras), each row equal to the reference's, every
+    correctness gate holding, the two wall-clock gates' verdicts printed;
+    then the six demos (``train_lm`` at --preset tiny, 20 steps).  The
+    artifacts go to a temporary directory.  The store kernels' launches
+    are the ``benches`` path's, and with K6 the ``examples`` path's."""
+    import tempfile
+
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+
+    _free_card()
+    want = json.loads(BENCH_FIXTURE.read_text())
+    dev = torch.device("cuda")
+    out = {"phase": "benches", "fixture_made_at": want["made_at"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        RMK.reset_launches()                       # counts of the main path
+        out.update(_bench_runs(dev, tmp, want))
+        out["launches"] = dict(RMK.launches)
+        _free_card()
+        DAK.reset_launches()
+        RMK.reset_launches()                       # counts of the main path
+        out["examples"] = _demo_runs(dev, tmp, want["examples"])
+        out["examples_launches"] = {**RMK.launches,
+                                    "decode_attn": DAK.launches["decode_attn"]}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase overload
 # ---------------------------------------------------------------------------
 
@@ -3087,10 +3296,11 @@ FAMILY_PARAMS = {"deepseek-moe-16b": (15e9, 18e9), "minicpm3-4b": (3.5e9, 5e9),
                  "internvl2-26b": (19e9, 27e9), "whisper-small": (0.2e9, 0.35e9)}
 FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
                 "internvl2-26b": 4096, "llama4-maverick-400b-a17b": 8192}
-# a quarter of the serving phases' 64 requests: the four engine runs took
+# a fifth of the serving phases' 64 requests: the four engine runs took
 # 145-270 s of host time with 64 each and 137 s with 32 (NVIDIA H100 80GB
-# HBM3, 700 W), and the script must stay well inside its time limit
-FAMILY_REQUESTS = 16
+# HBM3, 700 W), and the script must stay well inside its time limit (16
+# before phase benches joined it)
+FAMILY_REQUESTS = 12
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -3373,8 +3583,8 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 # max(5, steps // 20)); mamba2's SSD scans run K7 forward and the plain
 # chunked scan's VJP backward
 TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-370m")
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
-TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 10, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 16
+TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 8, 2
 
 
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
@@ -3466,9 +3676,10 @@ def _scan_ms(cfg, reps: int = 3, queue: int = 10) -> dict:
 
 
 def _train_full_width(arch: str) -> dict:
-    """``launch/train.py``'s loop on ``arch`` at full width: 20 steps of
-    8 x 2,048 tokens, a checkpoint every 10 on a thread; then the step-10
-    checkpoint restored and steps 10-11 replayed.  Gates: the mean loss of
+    """``launch/train.py``'s loop on ``arch`` at full width:
+    ``TRAIN_STEPS`` steps of 8 x 2,048 tokens, a checkpoint every
+    ``TRAIN_CKPT_EVERY`` on a thread; then that checkpoint restored and
+    the next ``TRAIN_REPLAY`` steps replayed.  Gates: the mean loss of
     the last 5 steps under that of the first 5 (the reference's
     ``test_loss_decreases``), finite losses, no kernel of the port
     launched but K7 (the reference trains through jnp, no Pallas kernel;
@@ -3558,7 +3769,7 @@ def _train_full_width(arch: str) -> dict:
             "device_events"]
         scan["event_ms_over_step_p50"] = L * layer["event_ms"] / p50
         _free_card()
-    # the resume: step 10's checkpoint, steps 10 and 11 again
+    # the resume: the first checkpoint, the steps after it again
     t1 = time.perf_counter()
     _, replay = train_loop(cfg, shape, tcfg,
                            steps=TRAIN_CKPT_EVERY + TRAIN_REPLAY,
@@ -3926,6 +4137,7 @@ def main(argv=None) -> int:
     tel = run("telemetry", phase_telemetry)
     dist = run("dist", phase_dist)
     paper = run("paper", phase_paper)
+    benches = run("benches", phase_benches)
     serving = run("serving", phase_serving)
     serving_ssm = run("serving_ssm", phase_serving_ssm)
     families = run("families", phase_families)
@@ -3947,9 +4159,15 @@ def main(argv=None) -> int:
         # full-width runs on both backends, the qwen2 and mamba2 serving
         # runs, the five runs of phase families summed), in
         # launches_by_path; launches is their sum
+        if benches is not None:   # the benches, then the demos, as two paths
+            benches, examples = ({"launches": benches["launches"]},
+                                 {"launches": benches["examples_launches"]})
+        else:
+            examples = None
         paths = {name: p["launches"] for name, p in
                  (("full_width", full), ("overload", ovl),
                   ("telemetry", tel), ("dist", dist), ("paper", paper),
+                  ("benches", benches), ("examples", examples),
                   ("serving", serving),
                   ("serving_ssm", serving_ssm), ("families", families),
                   ("training", training), ("dryrun", dryrun))

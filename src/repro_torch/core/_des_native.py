@@ -1,5 +1,7 @@
 """Build + load the port's native DES event core (``des_core.c``), which
-also holds the float32 power of the Pareto service draw (:func:`powf`).
+also holds the C library's float32 functions the reference's CPU results
+are made of: the Pareto service draw's power (:func:`powf`) and the
+sinusoidal positions' sine and cosine (:func:`sincosf`).
 
 Compiled once per source hash with the system C compiler into
 ``_native_cache/`` next to this file, and bound with ctypes.  If the core
@@ -75,6 +77,15 @@ def powf(u: np.ndarray, e: float) -> np.ndarray:
     return out
 
 
+def sincosf(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(sinf(x), cosf(x))`` elementwise over a float32 array, by the C
+    library's float32 functions (the reference's bits on the CPU)."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    out = np.empty((2,) + x.shape, np.float32)
+    load().des_sincosf(x.ctypes.data, out.ctypes.data, x.size)
+    return out[0], out[1]
+
+
 def available() -> bool:
     """Whether the core builds and loads here (tried once, then cached)."""
     global _error
@@ -109,5 +120,8 @@ def load() -> ctypes.CDLL:
             lib.des_powf.restype = None
             lib.des_powf.argtypes = [ctypes.c_void_p, ctypes.c_float,
                                      ctypes.c_void_p, ctypes.c_int64]
+            lib.des_sincosf.restype = None
+            lib.des_sincosf.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int64]
             _lib = lib
         return _lib

@@ -41,9 +41,7 @@ class LatencyModel:
 @dataclasses.dataclass(frozen=True)
 class ServiceModel:
     """Per-hop mean-one service multiplier: ``fixed``, ``lognormal`` or
-    ``pareto``.  The Pareto draw is the reference's bit for bit; the
-    lognormal one is within ROADMAP fault F14's bound of it (the normal
-    draw's log1p and the final exp are torch's, see :meth:`draw`)."""
+    ``pareto``, each the reference's draw bit for bit (see :meth:`draw`)."""
 
     kind: str = "fixed"
     sigma: float = 0.6
@@ -56,13 +54,12 @@ class ServiceModel:
         if self.kind == "lognormal":
             # exp(sigma * z - sigma^2 / 2) as the reference's compiled
             # step computes it: z = sqrt(2) * erf_inv(u), the two constant
-            # factors folded into one, f32(sqrt(2)) * f32(sigma), and the
-            # argument one fused multiply-add; the exp is taken in float64
-            # and rounded once (the same bits on every device)
+            # factors folded into one, f32(sqrt(2)) * f32(sigma), the
+            # argument one fused multiply-add, and XLA's float32 exp
             e = prng.normal_erf_inv(rng, shape, device)
             k = prng.SQRT2_F32 * np.float32(self.sigma)
             arg = prng.fma_f32(e, k, -np.float32(0.5 * self.sigma * self.sigma))
-            return torch.exp(arg.to(torch.float64)).to(torch.float32)
+            return prng.exp_f32(arg)
         if self.kind == "pareto":
             if self.alpha <= 1.0:
                 raise ValueError(f"pareto alpha must be > 1, got {self.alpha}")
@@ -153,11 +150,16 @@ def plan_hops(
 
     base = torch.where(chain_nodes != NO_HOP, torch.tensor(model.service, dtype=f32, device=dev),
                        torch.tensor(0.0, dtype=f32, device=dev))
+    # the service column's last product, (base, factor), kept for the
+    # fused multiply-add below
+    product = None
     if service_model is not None and service_model.kind != "fixed":
         rng, r_service = prng.split(rng)
-        base = base * service_model.draw(r_service, (B, r_max), dev)
+        product = (base, service_model.draw(r_service, (B, r_max), dev))
+        base = product[0] * product[1]
     if service_scale is not None:
-        base = base * service_scale[:, None].to(f32)
+        product = (base, service_scale[:, None].to(f32))
+        base = product[0] * product[1]
     if rb is not None:
         col0 = torch.where(rb, torch.tensor(model.lookup, dtype=f32, device=dev),
                            base[:, 0])
@@ -171,15 +173,27 @@ def plan_hops(
                               torch.tensor(model.lookup, dtype=f32, device=dev),
                               torch.tensor(0.0, dtype=f32, device=dev))
 
+    def with_lookup() -> torch.Tensor:
+        """``base + lookup_cost`` as the reference's compiled plan adds it:
+        XLA contracts the column's last product into the add, one fused
+        multiply-add (but where a bounced read's first visit replaced
+        it)."""
+        if product is None:
+            return base + lookup_cost
+        out = prng.fma_f32(product[0], product[1], lookup_cost)
+        if rb is not None:
+            out[:, 0] = base[:, 0] + lookup_cost[:, 0]
+        return out
+
     if mode == IN_SWITCH:
         nodes, service = chain_nodes, base
     elif mode == CLIENT_DRIVEN:
-        nodes, service = chain_nodes, base + lookup_cost
+        nodes, service = chain_nodes, with_lookup()
     else:  # SERVER_DRIVEN: random entry coordinator, forwards if wrong
         coord = prng.randint(rng, (B,), 0, num_nodes, dev)
         entry_target = torch.where(is_write, chain[:, 0], target)
         wrong = coord != entry_target
-        full_service = base + lookup_cost
+        full_service = with_lookup()
         first = coord[:, None]
         rest = torch.where(wrong[:, None], chain_nodes,
                            _shift_left(chain_nodes, NO_HOP))

@@ -170,3 +170,14 @@ void des_powf(const float *u, float e, float *out, int64_t n) {
     for (int64_t i = 0; i < n; i++)
         out[i] = powf(u[i], e);
 }
+
+/* out[i] = sinf(x[i]), out[n + i] = cosf(x[i]) for i < n: the C library's
+ * float32 sine and cosine, which XLA's CPU backend calls for jnp.sin /
+ * jnp.cos (models.common.sinusoid_pos; torch's sin differs in about one
+ * value in twenty, ROADMAP F16). */
+void des_sincosf(const float *x, float *out, int64_t n) {
+    for (int64_t i = 0; i < n; i++) {
+        out[i] = sinf(x[i]);
+        out[n + i] = cosf(x[i]);
+    }
+}

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,17 +65,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def sinusoid_pos(seq_len: int, dim: int, device=None) -> torch.Tensor:
-    """Whisper-style fixed sinusoidal positions (T, D), float32."""
+    """Whisper-style fixed sinusoidal positions (T, D), float32, the
+    reference's bits: the frequencies through XLA's float32 exp
+    (``prng.exp_f32``), the sine and cosine through the C library's
+    float32 functions, which XLA's CPU backend calls (computed on the host
+    and copied to ``device``)."""
+    from repro_torch import prng
+    from repro_torch.core import _des_native
+
     half = dim // 2
     # log(10000) rounded to float32, then a float32 division, as the
     # reference forms its constant
-    step = torch.tensor(math.log(10000.0), dtype=torch.float32,
-                        device=device) / (half - 1)
-    scale = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
-                      * step)
-    pos = (torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    step = torch.tensor(math.log(10000.0), dtype=torch.float32) / (half - 1)
+    scale = prng.exp_f32(-torch.arange(half, dtype=torch.float32) * step)
+    pos = (torch.arange(seq_len, dtype=torch.float32)[:, None]
            * scale[None, :])
-    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
+    sin, cos = _des_native.sincosf(pos.numpy())
+    return torch.from_numpy(np.concatenate([sin, cos], axis=-1)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -126,3 +126,114 @@ def test_cli_writes_rows_and_passes_its_gates(tmp_path, capsys):
     assert got["meta"] == {"device": "cpu"}
     assert [r["policy"] for r in got["rows"]] == list(PR.BALANCE_POLICIES)
     assert all(r["steady_eps"] > 0 for r in got["rows"])
+
+
+# ---------------------------------------------------------------------------
+# the extras: --profile, --trace, --dist, --replication
+# ---------------------------------------------------------------------------
+
+import bench_reference as BR  # noqa: E402
+
+from repro_torch.benchmarks import compare  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def port_extras(tmp_path_factory):
+    """The port's --quick extras: rows (full columns) and findings."""
+    out = tmp_path_factory.mktemp("balance")
+    from repro_torch.replication import bench as RB
+
+    profile, prob_profile = TBB.run_profile(True, device="cpu")
+    trace, prob_trace = TBB.run_trace(True, str(out / TBB.TRACE_ARTIFACT),
+                                      device="cpu")
+    dist = TBB.run_dist_parity(True, device="cpu")
+    repl = RB.run_replication_matrix(True, verbose=False, device="cpu")
+    filt = RB.run_filter_arm(True, verbose=False, device="cpu")
+    return {"profile": profile, "trace": trace, "dist": dist,
+            "replication": repl + filt,
+            "problems": {"profile": prob_profile, "trace": prob_trace,
+                         "dist": TBB.check_dist(dist),
+                         "replication": RB.check_replication(repl)
+                         + RB.check_filter_arm(filt)}}
+
+
+@pytest.mark.parametrize("part", ["profile", "trace", "dist", "replication"])
+def test_quick_extra_rows_match_the_reference_fixture(part, port_extras):
+    want = BR.read_fixture()["balance_extras"]["quick"][part]
+    got = compare.comparable(port_extras[part])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert g[k] == w[k], (part, w.get("scenario"), w.get("policy"), k)
+
+
+def test_fixture_matches_a_fresh_reference_trace_row():
+    """The cheapest extra (the telemetry parity pair), regenerated."""
+    fresh = BR.balance_extras(True, parts=("trace",))["trace"]
+    assert fresh == BR.read_fixture()["balance_extras"]["quick"]["trace"]
+
+
+def test_extras_findings_match_the_reference(port_extras):
+    """The trace and dist gates pass; the replication gates find what the
+    reference's find at --quick (its own two findings there); the
+    profile's host-sync gate passes (its ratio gate is a wall clock's)."""
+    p = port_extras["problems"]
+    assert p["trace"] == [] and p["dist"] == []
+    assert p["replication"] == (
+        BR.read_fixture()["balance_extras"]["quick"]["replication_problems"])
+    assert not [x for x in p["profile"] if "host syncs" in x]
+    grow = [r for r in port_extras["dist"] if r.get("bench") == "dist_growth"]
+    assert len(grow) == 1 and grow[0]["growth_events"] >= 1
+    assert [r["traces"] for r in port_extras["dist"]] == [
+        1 + r["growth_events"] for r in port_extras["dist"]]
+    ratios = TBB.profile_ratios(port_extras["profile"])
+    assert set(ratios) == set(TBB.PROFILE_POLICIES)
+
+
+def test_extras_gates_fail_on_broken_rows(port_extras):
+    """``check_dist``: a rebuilt step and a pool that never grew; the
+    profile rows' host-sync finding, as the reference words them."""
+    rows = [dict(r) for r in port_extras["dist"]]
+    rows[0]["traces"] = 2
+    grow = next(r for r in rows if r.get("bench") == "dist_growth")
+    grow.update(growth_events=0, traces=1)
+    assert TBB.check_dist(rows) == [
+        f"dist {rows[0]['scenario']}/{rows[0]['policy']}: traces 2 != "
+        "1 + growth_events (1)",
+        "keyspace_growth --dist never grew the pool under capacity pressure"]
+
+
+def test_constants_of_the_extras_match_the_reference():
+    JBB = PR.load_reference("balance_bench")
+    for name in ("DIST_SCENARIO", "DIST_POLICIES", "PROFILE_SCENARIO",
+                 "PROFILE_POLICIES", "PROFILE_RATIO_GATE",
+                 "PROFILE_RATIO_GATE_QUICK", "TRACE_SCENARIO",
+                 "TRACE_POLICY"):
+        assert getattr(TBB, name) == getattr(JBB, name), name
+
+
+def test_cli_extras_json_and_exit_code(tmp_path, monkeypatch, capsys):
+    """``--quick --profile --trace --dist --replication`` on the fixture's
+    pair: the JSON holds every extra's rows, the trace under the port's
+    name; exit 1, as the reference's at --quick, whose replication gates
+    find what they find here."""
+    import json
+
+    monkeypatch.chdir(tmp_path)
+    rc = TBB.main(["--quick", "--scenarios", PR.BALANCE_SCENARIO,
+                   "--policies", ",".join(PR.BALANCE_POLICIES),
+                   "--profile", "--trace", "--dist", "--replication",
+                   "--per-epoch", "--device", "cpu",
+                   "--json", "BENCH_torch_balance.json"])
+    out = capsys.readouterr().out
+    assert rc == 1 and "ACCEPTANCE FAILED" in out and "replication" in out
+    doc = json.loads((tmp_path / "BENCH_torch_balance.json").read_text())
+    rows = doc["rows"]
+    assert [r["fused"] for r in rows[:2]] == [False, False]
+    assert sum(1 for r in rows if r.get("profile")) == 4
+    assert sum(1 for r in rows if r.get("trace")) == 1
+    assert sum(1 for r in rows if r.get("backend") == "dist") == 3
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "BENCH_torch_HISTORY.jsonl", "BENCH_torch_balance.json",
+        "TRACE_torch_balance.json"]

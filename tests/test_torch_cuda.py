@@ -819,9 +819,9 @@ def test_dist_read_round_is_one_slab_lookup_launch(dev):
 
 
 def test_lognormal_service_card_matches_cpu(dev):
-    """The lognormal draw (ROADMAP F14): the float64 log1p and exp, each
-    rounded once to float32, give the card the CPU's column within F14's
-    bound (4 ulp at sigma 0.6), and the hop plan's service column too."""
+    """The lognormal draw: the port's reproductions of XLA's float32 log1p
+    and exp (``prng.log1p_f32`` / ``exp_f32``, float32 steps and exact
+    fused multiply-adds) give the card the CPU's column bit for bit."""
     from repro_torch import prng
     from repro_torch.core import coordination as TCo
 
@@ -832,7 +832,7 @@ def test_lognormal_service_card_matches_cpu(dev):
         assert card.device.type == "cuda" and card.dtype == torch.float32
         ulps = (card.cpu().view(torch.int32).to(torch.int64)
                 - cpu.view(torch.int32).to(torch.int64)).abs()
-        assert int(ulps.max()) <= 4, (sigma, int((ulps > 0).sum()))
+        assert int(ulps.max()) == 0, (sigma, int((ulps > 0).sum()))
         assert abs(float(card.mean()) - 1.0) < 0.02
 
 

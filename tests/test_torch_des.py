@@ -168,42 +168,30 @@ def test_plan_hops_pareto_service_matches_reference():
     assert ulps.max() == 0
 
 
-# ROADMAP fault F14: the lognormal multiplier's largest ulp gap to the
-# reference's compiled draw at the default sigma 0.6 (measured: <= 4 ulp in
-# about a tenth of the draws; <= 7 at sigma 1.0)
-F14_ULP = 4
-
-
-def _ulps(a, b):
-    return np.abs(_bits(a).astype(np.int64) - _bits(b).astype(np.int64))
-
-
-@pytest.mark.parametrize("sigma,seed,shape,n_diff,max_ulp", [
-    (0.6, 0, (200_000,), 19820, 4), (0.6, 5, (400, 500), 20120, 3),
-    (1.0, 0, (200_000,), 19919, 4), (1.0, 5, (400, 500), 19967, 7)])
-def test_lognormal_service_not_ported_yet(sigma, seed, shape, n_diff,
-                                          max_ulp):
-    """``ServiceModel("lognormal")`` is ported: its draw against the
-    reference's compiled draw (the argument a fused multiply-add with
-    sqrt(2) * sigma folded into one constant), held to the measured
-    count of differing draws and largest ulp gap (F14).  The name is the
-    one the test had while the port refused the model."""
+@pytest.mark.parametrize("sigma,seed,shape", [
+    (0.6, 0, (200_000,)), (0.6, 5, (400, 500)),
+    (1.0, 0, (200_000,)), (1.0, 5, (400, 500))])
+def test_lognormal_service_matches_reference(sigma, seed, shape):
+    """``ServiceModel("lognormal")`` against the reference's compiled draw
+    (the argument a fused multiply-add with sqrt(2) * sigma folded into
+    one constant), bit for bit: the port takes the normal draw's log1p
+    and the final exp through its reproductions of XLA's float32
+    functions (ROADMAP fault F14, repaired; before, about a tenth of the
+    draws differed by up to 7 ulp)."""
     jsm = JC.ServiceModel(kind="lognormal", sigma=sigma)
     want = np.asarray(jax.jit(lambda k: jsm.draw(k, shape))(
         jax.random.PRNGKey(seed)))
     got = TCo.ServiceModel(kind="lognormal", sigma=sigma).draw(
         prng.PRNGKey(seed), shape, "cpu").numpy()
     assert got.shape == want.shape and got.dtype == np.float32
-    d = _ulps(want, got)
-    assert int((d > 0).sum()) == n_diff and int(d.max()) == max_ulp
+    assert np.array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("mode", ["in_switch", "server_driven"])
 @pytest.mark.parametrize("spread", [False, True])
-def test_plan_hops_lognormal_service_within_f14(mode, spread):
+def test_plan_hops_lognormal_service_matches_reference(mode, spread):
     """The hop plan with lognormal service against the reference's jitted
-    ``plan_hops`` (the driver's step compiles it): nodes bitwise, the
-    service column within F14's bound."""
+    ``plan_hops`` (the driver's step compiles it), bit for bit."""
     N, jq, jdec, tq, tdec = _routed(2, spread=spread)
     plan = jax.jit(lambda q, d, k: JC.plan_hops(
         q, d, mode, JC.LatencyModel(), rng=k, num_nodes=N,
@@ -214,8 +202,7 @@ def test_plan_hops_lognormal_service_within_f14(mode, spread):
                        service_model=TCo.ServiceModel(kind="lognormal"))
     assert np.array_equal(np.asarray(jp.nodes), tp.nodes.numpy())
     assert np.array_equal(_bits(jp.reply_links), _bits(tp.reply_links.numpy()))
-    d = _ulps(jp.service, tp.service.numpy())
-    assert 0 < int((d > 0).sum()) and int(d.max()) <= F14_ULP
+    assert np.array_equal(_bits(jp.service), _bits(tp.service.numpy()))
 
 
 def test_service_model_draws_are_reproducible_and_mean_one():

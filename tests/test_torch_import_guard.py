@@ -69,6 +69,17 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.data.pipeline, repro_torch.launch.train\n"
         "import repro_torch.benchmarks.run, repro_torch.benchmarks.balance_bench\n"
         "import repro_torch.benchmarks.coordination_bench\n"
+        "import repro_torch.benchmarks.overload_bench\n"
+        "import repro_torch.benchmarks.metrics_bench\n"
+        "import repro_torch.benchmarks.dist_bench\n"
+        "import repro_torch.benchmarks.history\n"
+        "import repro_torch.benchmarks.compare\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.failover_demo\n"
+        "import repro_torch.examples.balance_demo\n"
+        "import repro_torch.examples.trace_demo\n"
+        "import repro_torch.examples.serve_kvcache\n"
+        "import repro_torch.examples.train_lm\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
