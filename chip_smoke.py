@@ -78,7 +78,9 @@ exits non-zero):
                registers too): p2c with the overload plane and both
                observability planes, craq on ``ycsb_a``, the lag-1 tier
                through ``split_brain``, and a lognormal service model
-               (the port's reproductions of XLA's float32 log1p and exp);
+               (the port's reproductions of XLA's float32 log1p and exp),
+               and the mesh in four parts on the card (craq under the
+               overload plane; K4a once a part and exchange round);
                then the replication bench
                (``repro_torch.replication.bench``) and the coordination-tier
                bench (``repro_torch.coordination_tier.bench``) on the card
@@ -150,16 +152,22 @@ exits non-zero):
                memory;
    dist        the dist backend (``backend="dist"``, the sharded data
                plane of ``core/dist_store.py``) at phase 4's full width on
-               an 8-shard mesh on the card, buckets of epoch_ops / N =
-               8,192: (a) ``shifting_hotspot`` x ``frozen``, whose metric
-               stream and final store must equal phase 4's oracle run bit
-               for bit, (b) ``full_adaptive`` (K2 once a shard and epoch),
-               (c) YCSB-A ``craq`` x ``full_adaptive`` (K3 likewise) and
-               (d) the four-switch lag-1 tier through ``split_brain``
-               (K5); bucket overflow 0 in every epoch, every acknowledged
-               write read back from every live replica; epochs/s, stage
-               seconds, device step, exchange rounds, dirty reads and peak
-               memory;
+               an 8-shard mesh split over every card when there are 2, 4
+               or 8 (one process drives them; the exchange rounds are
+               copies between cards), else in 4 parts on the one card,
+               buckets of epoch_ops / N = 8,192: (a)
+               ``shifting_hotspot`` x ``frozen``, whose metric stream and
+               final store must equal phase 4's oracle run bit for bit,
+               (b) ``full_adaptive`` (K2 once a shard and epoch), whose
+               stream and store must equal the same run on the one-part
+               mesh bit for bit, (c) YCSB-A ``craq`` x ``full_adaptive``
+               (K3 likewise) and (d) the four-switch lag-1 tier through
+               ``split_brain`` (K5); K4a once a part and exchange round,
+               the store's kernels launched on every card; bucket overflow
+               0 in every epoch, every acknowledged write read back from
+               every live replica; the cards, parts and peer-access
+               matrix, epochs/s, stage seconds, device step, exchange
+               rounds, dirty reads and peak memory by card;
    paper       the paper's evaluation (``repro_torch.benchmarks``): the
                CLI's full run (``python -m repro_torch.benchmarks.run``)
                into ``BENCH_torch_coordination.json``: fig 13a, fig 13b/c,
@@ -325,12 +333,17 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_line() -> str:
+def card_lines() -> list[str]:
+    """Every card's ``name, power.limit``, as nvidia-smi gives them."""
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return res.stdout.strip().splitlines()[0]
+    return res.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def l2_flush() -> None:
@@ -625,7 +638,7 @@ def _dist_read_round_check(RMK, REF, slabs, qkeys, target, opcodes,
     zeros_v = torch.zeros((), dtype=torch.float32,
                           device=dev).expand(n, n * cap, DIST_V)
     out = {"queries": n * n * cap, "shape": {"N": n, "C": C_FULL},
-           "parity": "bitwise"}
+           "parity": "bitwise", "parts_one_card": DIST_PARTS_ONE_CARD}
     for rnd, tgt, ops in (("read", read_t, opcodes), ("del_probe", write_t,
                                                       ops_w)):
         slot, ovf = DS.bucketize(rows(tgt), n, cap)
@@ -657,6 +670,25 @@ def _dist_read_round_check(RMK, REF, slabs, qkeys, target, opcodes,
             if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
                 raise AssertionError(f"K4a {rnd} round: shards_read {f} on "
                                      "the card differs from the CPU's")
+        # the same round on the mesh in parts, as phase dist splits it on
+        # one card: one launch a part, node ids local to it
+        k = DIST_PARTS_ONE_CARD
+        P = n // k
+        cut = lambda x, a: None if x is None else x[a * P:(a + 1) * P]
+        before = RMK.launches["slab_lookup"]
+        pgot = [call(part, R.QueryBatch(*(cut(x, a) for x in (
+            q.opcode, q.key, q.end_key, q.value))),
+            {m: cut(v, a) for m, v in mine.items()})
+            for a, part in enumerate(TS.split_store(store, (dev,) * k).parts)]
+        torch.cuda.synchronize()
+        if RMK.launches["slab_lookup"] - before != k:
+            raise AssertionError(f"K4a {rnd} round in {k} parts: not one "
+                                 "launch a part")
+        for f in ("value", "found"):
+            if not torch.equal(torch.cat([getattr(g, f) for g in pgot]),
+                               getattr(got, f)):
+                raise AssertionError(f"K4a {rnd} round in {k} parts: "
+                                     f"{f} differs from the one launch's")
         # the round's one launch, flat, against the plain version
         probe = mine["read_mine"] if rnd == "read" else mine["del_mine"]
         fk = torch.where(probe, bkeys, K.EMPTY_KEY).reshape(-1).contiguous()
@@ -1242,14 +1274,16 @@ PARITY_SLO = dict(name="p999_fleet", series="p999", bound=10.0,
 def _parity_driver(policy: str, device: str, fused: bool = True,
                    scenario: str = "shifting_hotspot", skw=None, n_epochs=6,
                    period=2, coord=None, ovl=None, pcfg=None, scfg=None,
-                   base=None, planes=None, dist=False, service=None, **ckw):
+                   base=None, planes=None, dist=False, parts=1, service=None,
+                   **ckw):
     """The parity phase's driver: the test configuration of
     ``tests/test_torch_epoch.py``, or ``scfg`` / ``base`` in place of its
     scenario / cluster knobs; ``ovl`` and ``pcfg`` are OverloadConfig and
     PolicyConfig knobs; ``planes`` TelemetryConfig knobs, which turn on
     the trace plane and the metrics plane (``PARITY_SLO``), their flight
     dumps under ``OUT``; ``dist`` the dist backend on an 8-shard mesh on
-    ``device``; ``service`` a ServiceModel kind."""
+    ``device``, in ``parts`` parts there (the split layout of a mesh over
+    that many cards); ``service`` a ServiceModel kind."""
     from repro_torch import cluster as TC
     from repro_torch import coordination_tier as CT
     from repro_torch import overload as OVL
@@ -1287,8 +1321,19 @@ def _parity_driver(policy: str, device: str, fused: bool = True,
     drv = TC.EpochDriver(scen, TC.make_policy(
         policy, None if pcfg is None else TC.PolicyConfig(**pcfg)), cfg,
         fused=fused, device=device,
-        **(dict(backend="dist", mesh=make_mesh(8, device)) if dist else {}))
+        **(dict(backend="dist", mesh=make_mesh(8, device) if parts == 1
+                else make_mesh(8, cards=(device,) * parts))
+           if dist else {}))
     return drv, drv.run()
+
+
+def _k4a_per_part(label: str, launches: dict, parts: int, rounds: int):
+    """The dist backend launched K4a once a part for the preload and for
+    every exchange round."""
+    if launches.get("slab_lookup") != parts * (1 + rounds):
+        raise AssertionError(f"{label}: K4a launched "
+                             f"{launches.get('slab_lookup')}x over {parts} "
+                             f"parts and {rounds} rounds")
 
 
 def _same_planes(a, b, snapshots: bool) -> None:
@@ -1340,8 +1385,9 @@ def _same_run(a, b, snapshots: bool = True) -> None:
     (da, ra), (db, rb) = a, b
     if [dataclasses.asdict(x) for x in ra] != [dataclasses.asdict(x) for x in rb]:
         raise AssertionError("EpochMetrics streams differ")
+    sa, sb = da.store.stacked("cpu"), db.store.stacked("cpu")
     for f in ("keys", "values", "overflow"):
-        if not torch.equal(getattr(da.store, f).cpu(), getattr(db.store, f).cpu()):
+        if not torch.equal(getattr(sa, f), getattr(sb, f)):
             raise AssertionError(f"final store {f} differs")
     if not torch.equal(da.directory.chains.cpu(), db.directory.chains.cpu()):
         raise AssertionError("directory.chains differ")
@@ -1433,6 +1479,10 @@ PARITY_RUNS = (
                    switch=1))),
     ("dist/lognormal", "full_adaptive", "shifting_hotspot",
      dict(dist=True, service="lognormal")),
+    # the mesh in four parts on the card (the layout of four cards): craq
+    # under the overload plane, p2c reads penalised by queue depth
+    ("dist/parts4/craq/overload", "overload_adaptive", "ycsb_a",
+     dict(dist=True, parts=4, ovl=OCFG, replication_mode="craq")),
 )
 
 
@@ -1502,8 +1552,9 @@ def phase_parity() -> dict:
             drv = cuda_f[0]
             if drv.bucket_overflow_total or any(r.retries for r in cuda_f[1]):
                 raise AssertionError(f"{label}: bucket overflow")
-            if not launches.get("slab_lookup"):
-                raise AssertionError(f"{label}: no read round through K4a")
+            parts = ckw.get("parts", 1)
+            _k4a_per_part(label, launches, parts, drv.exchange_rounds)
+            res.update(parts=parts, exchange_rounds=drv.exchange_rounds)
         if ckw.get("replication_mode") != "chain":
             # fused == per-epoch on the card (eventual and craq)
             cuda_e = _parity_driver(policy, "cuda", False, scenario, **ckw)
@@ -1892,11 +1943,14 @@ def _expected_values(scen):
 
 
 def _read_back(drv, keys: np.ndarray, expected: np.ndarray) -> dict:
-    """GET every record from every live member of its chain."""
+    """GET every record from every live member of its chain (on a store
+    split into parts, each member from its part, on its device)."""
     from repro_torch.kernels.range_match import ops as OPS
 
     dev = drv.device
     d = drv.directory
+    parts = drv.store.parts
+    P = parts[0].num_shards
     checked = missing = wrong = 0
     chunk = 1 << 17
     for s in range(0, keys.size, chunk):
@@ -1908,9 +1962,18 @@ def _read_back(drv, keys: np.ndarray, expected: np.ndarray) -> dict:
         for p in range(d.r_max):
             member = chain[:, p]
             live = (p < clen) & (member >= 0)
-            slot, found = OPS.slab_lookup(k, member, drv.store.keys)
-            got = drv.store.values[member.clamp(min=0), slot.long()]
-            same = (got.view(torch.int32) == want.view(torch.int32)).all(dim=1)
+            found = torch.zeros_like(live)
+            same = torch.zeros_like(live)
+            for a, part in enumerate(parts):
+                pdev = part.keys.device
+                mine = ((member >= a * P) & (member < (a + 1) * P)).to(pdev)
+                local = torch.where(mine, member.to(pdev) - a * P, -1)
+                kp, wp = k.to(pdev), want.to(pdev)
+                slot, hit = OPS.slab_lookup(kp, local, part.keys)
+                got = part.values[local.clamp(min=0), slot.long()]
+                eq = (got.view(torch.int32) == wp.view(torch.int32)).all(dim=1)
+                found |= (mine & hit).to(dev)
+                same |= (mine & eq).to(dev)
             checked += int(live.sum())
             missing += int((live & ~found).sum())
             wrong += int((live & found & ~same).sum())
@@ -1983,10 +2046,10 @@ def _route_and_lookup_check(drv, scen) -> dict:
 
 
 def _full_run(label, sname, skw, policy, rep, mode, need, coord,
-              dist: bool = False) -> tuple:
+              dist: bool = False, mesh=None) -> tuple:
     """One full-width run of the epoch driver (the oracle backend, or the
-    dist backend on an 8-shard mesh with buckets of epoch_ops / N), its
-    gates checked: ``(res, drv, rows, scen)``."""
+    dist backend on an 8-shard mesh with buckets of epoch_ops / N: on the
+    card, or ``mesh``), its gates checked: ``(res, drv, rows, scen)``."""
     from repro_torch import cluster as TC
     from repro_torch import coordination_tier as CT
     from repro_torch.core.dist_store import DistConfig, make_mesh
@@ -2002,10 +2065,11 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
                            coordination=(None if coord is None
                                          else CT.CoordConfig(**coord)))
     scen = TC.make_scenario(sname, scfg, **skw)
-    dkw = (dict(backend="dist", mesh=make_mesh(N_FULL, "cuda"),
+    dkw = (dict(backend="dist", mesh=mesh or make_mesh(N_FULL, "cuda"),
                 dist_cfg=DistConfig(bucket_cap=BUCKET_CAP_FULL))
            if dist else {})
-    torch.cuda.reset_peak_memory_stats()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
     RMK.reset_launches()                       # counts of the main path
     t0 = time.perf_counter()
     drv = TC.EpochDriver(scen, TC.make_policy(policy), cfg, fused=True,
@@ -2046,6 +2110,8 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
         "host_syncs": drv.host_syncs,
         "launches": launches,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_by_device": {k: dict(v) for k, v in
+                               RMK.launches_by_device.items()},
         "p50": [r.p50 for r in rows], "p99": [r.p99 for r in rows],
         "p999": [r.p999 for r in rows],
         "read_p99": [r.read_p99 for r in rows],
@@ -2061,9 +2127,14 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
         ovf = drv.bucket_overflow_total
         if ovf or any(r.retries for r in rows):
             raise AssertionError(f"{label}: bucket overflow {ovf}")
+        parts = dkw["mesh"].parts
+        _k4a_per_part(label, launches, parts, drv.exchange_rounds)
         res.update(bucket_cap=BUCKET_CAP_FULL, bucket_overflow=ovf,
                    bucket_overflow_by_epoch=[r.retries for r in rows],
-                   a2a_rounds=drv.exchange_rounds)
+                   a2a_rounds=drv.exchange_rounds, parts=parts,
+                   max_memory_allocated_gb_by_card=[
+                       torch.cuda.max_memory_allocated(i) / 2**30
+                       for i in range(torch.cuda.device_count())])
     if coord is not None:
         # once an epoch, redirects and never a wrong owner, conserved
         if launches["range_match_stale"] != len(rows):
@@ -2163,12 +2234,42 @@ def _free_card() -> None:
 # phase dist
 # ---------------------------------------------------------------------------
 
-# the dist backend at phase 4's full width: 8 shards on the card, buckets
-# of epoch_ops / N; (a) frozen, which must equal phase 4's oracle frozen
-# run bit for bit, (b) full_adaptive (K2 a shard), (c) craq on YCSB-A (K3
-# a shard), (d) the four-switch lag-1 tier through a split brain (K5)
+# the dist backend at phase 4's full width: 8 shards, buckets of epoch_ops
+# / N, on a mesh split over the cards (2, 4 or 8 of them), or in 4 parts
+# on one card; (a) frozen, which must equal phase 4's oracle frozen run
+# bit for bit, (b) full_adaptive (K2 a shard), which must equal the same
+# run on the one-part mesh bit for bit, (c) craq on YCSB-A (K3 a shard),
+# (d) the four-switch lag-1 tier through a split brain (K5)
 DIST_LABELS = ("frozen", "full_adaptive", "craq/full_adaptive",
                "coord/split_brain")
+DIST_PARTS_ONE_CARD = 4
+
+
+def dist_mesh():
+    """Phase dist's mesh: every card when there are 2, 4 or 8 (the 8
+    shards split evenly), else 4 parts on the one card."""
+    from repro_torch.core.dist_store import make_mesh
+
+    cards = torch.cuda.device_count()
+    if cards in (2, 4, 8):
+        return make_mesh(N_FULL, cards=cards)
+    return make_mesh(N_FULL, cards=("cuda:0",) * DIST_PARTS_ONE_CARD)
+
+
+def _same_store(a, b) -> bool:
+    """A one-part store ``a`` and a store in parts ``b``, equal part by
+    part (each of ``b``'s parts against the same rows of ``a``, on
+    ``a``'s device)."""
+    at = 0
+    for part in b.parts:
+        P = part.num_shards
+        for f in ("keys", "values", "overflow"):
+            ref = getattr(a, f)
+            if not torch.equal(getattr(part, f).to(ref.device),
+                               ref[at:at + P]):
+                return False
+        at += P
+    return True
 
 
 def phase_dist() -> dict:
@@ -2177,7 +2278,15 @@ def phase_dist() -> dict:
     from repro_torch.kernels.range_match import kernel as RMK
 
     _free_card()          # no earlier phase's garbage in the peaks
-    out = {"phase": "dist", "shards": N_FULL, "bucket_cap": BUCKET_CAP_FULL}
+    mesh = dist_mesh()
+    n_cards = len(set(mesh.devices))
+    out = {"phase": "dist", "shards": N_FULL, "bucket_cap": BUCKET_CAP_FULL,
+           "cards": n_cards, "parts": mesh.parts,
+           "devices": [str(d) for d in mesh.devices],
+           "card_lines": card_lines(),
+           "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j)
+                            for j in range(torch.cuda.device_count())]
+                           for i in range(torch.cuda.device_count())]}
     if not FROZEN_REF:
         # phase 4 did not run: its oracle frozen run, for (a)
         spec = next(s for s in FULL_RUNS if s[0] == "frozen")
@@ -2188,23 +2297,61 @@ def phase_dist() -> dict:
     main_launches = {k: 0 for k in RMK.launches}
     for spec in (s for s in FULL_RUNS if s[0] in DIST_LABELS):
         label, sname, skw, policy, rep, mode, need, coord = spec
-        res, drv, rows, scen = _full_run(*spec, dist=True)
+        one = None
+        if label == "full_adaptive":
+            # (b)'s reference: the same run on the one-part mesh, its
+            # stream and store kept on the card
+            t0 = time.perf_counter()
+            res1, drv1, rows1, _ = _full_run(*spec, dist=True)
+            one = ([dataclasses.asdict(r) for r in rows1], drv1.store)
+            del drv1
+            out["full_adaptive_one_part"] = {
+                "seconds": time.perf_counter() - t0,
+                "epochs_per_s": res1["epochs_per_s"],
+                "device_step_s": res1["device_step_s"],
+                # held on the card through (b)'s run, inside its peak
+                "store_gb": sum(x.numel() * x.element_size() for x in (
+                    one[1].keys, one[1].values, one[1].overflow)) / 2**30}
+        res, drv, rows, scen = _full_run(*spec, dist=True, mesh=mesh)
         for name, n in res["launches"].items():
             main_launches[name] += n
         if policy != "frozen" and res["launches"][need[0]] != N_FULL * len(rows):
             raise AssertionError(f"{label}: {need[0]} launched "
                                  f"{res['launches'][need[0]]}x, not once a "
                                  "shard and epoch")
+        # the store's kernels ran on every card of the mesh
+        for dev in sorted({str(d) for d in mesh.devices}):
+            got = res["launches_by_device"].get(dev, {})
+            if not got.get("slab_lookup") or not got.get(need[0]):
+                raise AssertionError(f"{label}: no {need[0]} / slab_lookup "
+                                     f"launch on {dev}: {got}")
         if label == "frozen":
             if [dataclasses.asdict(r) for r in rows] != FROZEN_REF["rows"]:
                 raise AssertionError("dist frozen: the metric stream differs "
                                      "from phase 4's oracle run")
-            for f in ("keys", "values", "overflow"):
-                if not torch.equal(getattr(drv.store, f).cpu(), FROZEN_REF[f]):
-                    raise AssertionError(f"dist frozen: final store {f} "
-                                         "differs from phase 4's oracle run")
+            at = 0
+            for part in drv.store.parts:
+                P = part.num_shards
+                for f in ("keys", "values", "overflow"):
+                    if not torch.equal(getattr(part, f).cpu(),
+                                       FROZEN_REF[f][at:at + P]):
+                        raise AssertionError(f"dist frozen: final store {f} "
+                                             "differs from phase 4's oracle "
+                                             "run")
+                at += P
             res["equals_oracle_frozen"] = "bitwise"
             FROZEN_REF.clear()
+        if one is not None:
+            if [dataclasses.asdict(r) for r in rows] != one[0]:
+                raise AssertionError("dist full_adaptive: the split mesh's "
+                                     "metric stream differs from the "
+                                     "one-part mesh's")
+            if not _same_store(one[1], drv.store):
+                raise AssertionError("dist full_adaptive: the split mesh's "
+                                     "final store differs from the "
+                                     "one-part mesh's")
+            res["equals_one_part"] = "bitwise"
+            one = None
         res.update(_read_back_gate(label, drv, scen, rep))
         out[label] = res
         del drv

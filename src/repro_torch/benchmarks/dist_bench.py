@@ -15,8 +15,11 @@ per-stage wall seconds:
 
 The reference forks a subprocess with 8 forced XLA host devices; the
 port's mesh (:func:`repro_torch.core.dist_store.make_mesh`) stacks the 8
-storage nodes on one device under one controller, so all four drivers run
-in this process.
+storage nodes on one device under one controller, or with ``--cards k``
+splits them over ``cuda:0`` .. ``cuda:k-1``, still under one controller,
+so all four drivers run in this process.  The rows are the same either
+way (the split plane is bit for bit the stacked one); the JSON's
+``meta`` names the cards.
 
 Gates (skipped with ``--no-check``):
 
@@ -32,8 +35,9 @@ growth_events``, so the built-once check cannot fail until the step is
 captured as a CUDA graph per pool shape (ROADMAP 6b).
 
 Run: ``PYTHONPATH=src python -m repro_torch.benchmarks.dist_bench
-[--quick] [--device cpu] [--json BENCH_torch_dist.json] [--no-check]``
-(``--device`` defaults to the CUDA card).
+[--quick] [--device cpu] [--cards K] [--json BENCH_torch_dist.json]
+[--no-check]`` (``--device`` defaults to the CUDA card; ``--cards`` needs
+K cards).
 """
 
 from __future__ import annotations
@@ -55,8 +59,10 @@ def _stage_breakdown(drv) -> dict:
     return {"stage_s": s["stage_s"], "stage_share": s["stage_share"]}
 
 
-def run(quick: bool, device=None) -> tuple[list[dict], list[str]]:
-    """The four drivers' rows and the parity gate's findings."""
+def run(quick: bool, device=None, cards=None) -> tuple[list[dict], list[str]]:
+    """The four drivers' rows and the parity gate's findings; ``cards``
+    (a count or a list of devices, :func:`make_mesh`'s) splits the dist
+    drivers' mesh over them."""
     import torch
 
     from repro_torch.benchmarks.balance_bench import (
@@ -67,10 +73,9 @@ def run(quick: bool, device=None) -> tuple[list[dict], list[str]]:
                                      make_policy, make_scenario, summarize)
     from repro_torch.core import DistConfig
     from repro_torch.core.dist_store import make_mesh
-    from repro_torch.device import resolve_device
 
-    device = resolve_device(device)
-    mesh = make_mesh(N_SHARDS, device)
+    mesh = make_mesh(N_SHARDS, device, cards)
+    device = mesh.device            # the controller's: every driver's
     scfg = scenario_config(quick)
     kw = scenario_kwargs(SCENARIO, scfg)
     # dist rows fuse the whole run into one control period; the bucket
@@ -137,9 +142,9 @@ def run(quick: bool, device=None) -> tuple[list[dict], list[str]]:
             if da[k] != db[k]:
                 problems.append(
                     f"parity: epoch {a.epoch} field {k}: {da[k]} != {db[k]}")
+    st_r, st_f = drv_r.store.stacked("cpu"), drv_f.store.stacked("cpu")
     for f in ("keys", "values", "overflow"):
-        if not torch.equal(getattr(drv_r.store, f).cpu(),
-                           getattr(drv_f.store, f).cpu()):
+        if not torch.equal(getattr(st_r, f), getattr(st_f, f)):
             problems.append(f"parity: final store field {f} differs")
     traces = 1 + drv_f.growth_events
     if traces != 1:
@@ -185,13 +190,16 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true", help="CI smoke sizes")
     ap.add_argument("--device", default=None,
                     help="the drivers' device (default: the CUDA card)")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="split the dist drivers' 8 shards over cuda:0 .. "
+                    "cuda:K-1 (default: stacked on --device)")
     ap.add_argument("--json", default=None, help="write rows to this path")
     ap.add_argument("--no-check", action="store_true",
                     help="skip the gates (exploratory runs)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    rows, problems = run(args.quick, device=dev)
+    rows, problems = run(args.quick, device=dev, cards=args.cards)
     for row in rows:
         shares = ", ".join(f"{k} {v:.0%}"
                            for k, v in sorted(row["stage_share"].items(),
@@ -202,7 +210,10 @@ def main(argv=None) -> int:
               f"traces {row['traces']}  [{shares}]")
 
     if args.json:
-        doc = {"quick": args.quick, "meta": card_meta(dev), "rows": rows}
+        meta = card_meta(dev)
+        if args.cards is not None:
+            meta["cards"] = args.cards
+        doc = {"quick": args.quick, "meta": meta, "rows": rows}
         with open(args.json, "w") as f:
             json.dump(doc, f, indent=1)
         print(f"wrote {args.json} ({len(rows)} rows)")

@@ -55,17 +55,25 @@ folds the DES columns into the ring and evaluates the SLO burn rates.
 
 ``backend="dist"`` runs the same epochs through the sharded data plane
 (:mod:`repro_torch.core.dist_store`) on a ``mesh`` of one storage node a
-shard, stacked on one device: each shard routes its slice of the batch
-(K1 for every slice at once under tail reads, K2 / K3 a shard under p2c,
-with draws of its own), one bounded-bucket exchange round serves the
-reads (K4a, one launch for every shard's inbound queries) and ``r_max``
-rounds carry the writes along the chain; the observe stage (op counts,
+shard, stacked on the driver's device or split into parts over several
+devices (the mesh's first is the driver's: the controller's card holds
+the directory, the registers and the observe stage): each shard routes
+its slice of the batch on its part's device (K1 for a part's slices at
+once under tail reads, K2 / K3 a shard under p2c, with draws of its own),
+one bounded-bucket exchange round serves the reads (K4a, one launch a
+part for its shards' inbound queries) and ``r_max`` rounds carry the
+writes along the chain; the observe stage (op counts,
 sketch, overload step, tier accounting with K5, hop plans, register
 advance, spans, metrics row) is the oracle's, on the whole batch.  The
 fused loop runs each segment as one call of ``make_dist_period`` and
 brings its outputs home in one copy; ``EpochMetrics.retries`` is the
 first shard's bucket overflow, as the reference's replicated output
-reads it.  The coordination tier's fault events
+reads it.  Over several parts the store is a
+:class:`~repro_torch.core.store.StoreParts`: the preload, the migrations
+and the overflow reads go part by part, the directory's copies on the
+other devices are refreshed after each control pull and pool growth,
+and the host sends the whole batch to the controller's device and each
+part's slices to its own.  The coordination tier's fault events
 (``coordination_tier.EVENT_KINDS``) are ignored without the tier, so the
 same scenario is the no-tier baseline.
 """
@@ -111,11 +119,12 @@ from repro_torch.core.dist_store import (
     stack_epochs,
     make_dist_apply,
     make_dist_period,
+    replicate,
 )
 from repro_torch.core.migration import execute as execute_migrations
 from repro_torch.core.stats import make_sketch, pull_report, sketch_query, sketch_update
 from repro_torch.core.store import apply_routed, make_store
-from repro_torch.device import resolve_device
+from repro_torch.device import indexed, resolve_device
 from repro_torch import replication as RPL
 from repro_torch.telemetry import metrics as MTR
 from repro_torch.telemetry import slo as SLOM
@@ -243,12 +252,12 @@ class EpochDriver:
         _check_supported(cfg, backend, mesh)
         self.device = resolve_device(device)
         if backend == "dist" and (
-                mesh.device != self.device
+                indexed(mesh.device) != indexed(self.device)
                 or mesh.shape[(dist_cfg or DistConfig()).axis] != cfg.num_nodes):
             raise ValueError(
-                f"mesh of {mesh.n_shards} shards on {mesh.device}: the dist "
-                f"backend holds one storage node a shard ({cfg.num_nodes}) "
-                f"on the driver's device ({self.device})")
+                f"mesh of {mesh.n_shards} shards on {mesh.devices}: the dist "
+                f"backend holds one storage node a shard ({cfg.num_nodes}), "
+                f"its first part on the driver's device ({self.device})")
         self.backend = backend
         self.fused = fused
         self.mode_plan = RPL.resolve_mode(
@@ -313,8 +322,9 @@ class EpochDriver:
             # every record on up to r_max chains, plus 2x headroom for
             # skewed placement and widen copies
             capacity = max(256, 2 * scfg.n_records * cfg.r_max // cfg.num_nodes)
-        self.store = make_store(cfg.num_nodes, capacity, scfg.value_dim,
-                                device=self.device)
+        self.store = make_store(
+            cfg.num_nodes, capacity, scfg.value_dim, device=self.device,
+            parts=mesh.devices if backend == "dist" else None)
         self.directory = directory
         self.load_reg = torch.zeros(cfg.num_nodes, dtype=torch.int64,
                                     device=self.device)
@@ -402,6 +412,10 @@ class EpochDriver:
         # (per-epoch loop) or a segment a call (fused loop); the bucket
         # overflow of every source shard, summed over the run
         self._mesh = mesh
+        # the directory's copies on the mesh's other devices (none on a
+        # one-device mesh), refreshed whenever the tables change
+        self._dir_copies = {}
+        self._q_parts = None
         self._dist_apply = self._period_fn = None
         self.bucket_overflow_total = 0
         self.exchange_rounds = 0    # the dist plane's a2a rounds run
@@ -421,6 +435,7 @@ class EpochDriver:
             else:
                 self._dist_apply = make_dist_apply(mesh, directory,
                                                    self._dist_cfg)
+            self._replicate()
         self._preload()
 
     # -- host-side helpers -------------------------------------------------
@@ -474,7 +489,27 @@ class EpochDriver:
         opcodes, keys, end_keys, values = self.scenario.epoch(e)
         self._note_keys(keys)
         q = R.make_queries(keys, opcodes, values, end_keys, device=self.device)
+        if self._dir_copies:
+            # the dist mesh spans other devices: each part's slices go
+            # there from the same host arrays (the controller's part is
+            # a view of the whole batch)
+            k = self._mesh.parts
+            Bp = len(keys) // k
+            self._q_parts = [
+                R.QueryBatch(*(x[a * Bp:(a + 1) * Bp] for x in (
+                    q.opcode, q.key, q.end_key, q.value)))
+                if indexed(dev) == q.key.device else R.make_queries(
+                    *(x[a * Bp:(a + 1) * Bp] for x in (keys, opcodes, values,
+                                                       end_keys)),
+                    device=dev)
+                for a, dev in enumerate(self._mesh.devices)]
         return opcodes, q
+
+    def _replicate(self) -> None:
+        """Copy the directory to the dist mesh's other devices (after the
+        tables change: a control pull, a failure, a pool growth)."""
+        if self._mesh is not None and self.backend == "dist":
+            self._dir_copies = replicate(self.directory, self._mesh)
 
     # -- setup -------------------------------------------------------------
     def _preload(self):
@@ -567,7 +602,8 @@ class EpochDriver:
         mp = self.mode_plan
         fn = self._dist_apply
         qp = (queue_pen,) if self._dist_cfg.queue_pen else ()
-        kw = dict(scans=scans, write_rounds=self._write_rounds())
+        kw = dict(scans=scans, write_rounds=self._write_rounds(),
+                  q_parts=self._q_parts, dir_copies=self._dir_copies)
         if mp.dirty_reads:
             (self.store, _resp, self.directory, self.load_reg, m) = fn(
                 self.store, self.directory, self.load_reg, *qp, dirty, q,
@@ -767,6 +803,7 @@ class EpochDriver:
                 en, by = migration_traffic(self.store, ops, scfg.value_dim)
                 execute_migrations(self.store, ops)
                 self.directory = self.controller.refresh(self.directory)
+                self._replicate()
                 mig_entries += en
                 mig_bytes += by
                 tables_changed = True
@@ -777,6 +814,7 @@ class EpochDriver:
                 en, by = migration_traffic(self.store, ops, scfg.value_dim)
                 execute_migrations(self.store, ops)
                 self.directory = self.controller.refresh(self.directory)
+                self._replicate()
                 mig_entries += en
                 mig_bytes += by
                 tables_changed = True
@@ -920,6 +958,7 @@ class EpochDriver:
             events.append(f"grow_pool:{self.controller.num_slots}")
         else:
             self.directory = self.controller.refresh(self.directory)
+        self._replicate()
         self._sync_repl()
         if self.coord_mgr is not None:
             if grew:
@@ -1291,7 +1330,7 @@ class EpochDriver:
                 scans.append(bool((opcodes == K.OP_SCAN).any()))
                 clock[0] = self.timers.lap("inject", clock[0])
                 start = step_event() if cuda else None
-                yield q
+                yield q if self._q_parts is None else (q, self._q_parts)
             if start is not None:
                 self._step_events.append((start, step_event()))
 
@@ -1301,7 +1340,7 @@ class EpochDriver:
             self.repl, self.ovl, self.coord, self.metrics, batches(),
             [prng.fold_in(self.key, e) for e in range(e0, e0 + L)],
             list(range(e0, e0 + L)), scans=scans,
-            write_rounds=self._write_rounds())
+            write_rounds=self._write_rounds(), dir_copies=self._dir_copies)
         self.exchange_rounds += rounds
         self.timers.block(self.device)
         t0 = self.timers.lap("route_apply", clock[0])

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import keys as K
 from repro_torch.core.migration import MigrationOp
-from repro_torch.core.store import StoreState
+from repro_torch.core.store import StoreParts, StoreState
 
 
 @dataclasses.dataclass
@@ -199,20 +199,25 @@ def imbalance_stats(node_ops: np.ndarray, live: np.ndarray | None = None
     return float(ops.max() / mean), float(ops.std() / mean)
 
 
-def migration_traffic(store: StoreState, ops: list[MigrationOp],
+def migration_traffic(store: StoreState | StoreParts, ops: list[MigrationOp],
                       value_dim: int) -> tuple[int, int]:
     """(entries, bytes) a migration plan will move, counted on the source.
 
     Counts actual resident entries in each op's [lo, hi] span on its
     source shard *before* execution — the directory-span estimate the
     controller reasons with can be badly off under skew.  Bytes model the
-    shim wire format: 4-byte key + value_dim f32 words.
+    shim wire format: 4-byte key + value_dim f32 words.  On a store of
+    several parts each count is taken on its source's device.
     """
-    counts = [
-        ((store.keys[op.src] >= op.lo) & (store.keys[op.src] <= op.hi)
-         & (store.keys[op.src] != K.EMPTY_KEY)).sum()
-        for op in ops if op.kind != "reclaim"    # reclaims move no data
-    ]
+    dev = store.parts[0].keys.device
+    counts = []
+    for op in ops:
+        if op.kind == "reclaim":                 # reclaims move no data
+            continue
+        part, s = store.locate(op.src)
+        keys = part.keys[s]
+        counts.append(((keys >= op.lo) & (keys <= op.hi)
+                       & (keys != K.EMPTY_KEY)).sum().to(dev))
     # counted on the device, one transfer for the whole plan
     entries = int(torch.stack(counts).sum()) if counts else 0
     return entries, entries * 4 * (1 + value_dim)

@@ -69,7 +69,9 @@ def store_from_numpy(keys, values, overflow, *, device=None) -> StoreState:
     )
 
 
-def store_to_numpy(store: StoreState) -> dict[str, np.ndarray]:
+def store_to_numpy(store) -> dict[str, np.ndarray]:
+    """A store (one part or several) as the reference's stacked arrays."""
+    store = store.stacked("cpu")
     return {
         "keys": store.keys.cpu().numpy().astype(np.uint32),
         "values": store.values.cpu().numpy(),

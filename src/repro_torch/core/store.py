@@ -13,8 +13,13 @@ largest keys and counts them per shard.
 
 :func:`shard_apply` is the reference's one-shard apply; the sharded data
 plane (:mod:`repro_torch.core.dist_store`) runs its halves on every shard
-at once, :func:`shards_read` (each row's GET / DEL probes against its own
-slab, one K4a launch for all rows) and :func:`shards_write`.
+of a part at once, :func:`shards_read` (each row's GET / DEL probes against
+its own slab, one K4a launch for all rows) and :func:`shards_write`.
+
+A store on a mesh of several parts (:class:`StoreParts`) is one
+:class:`StoreState` a part, ``(N / k, C)`` on its own device; every
+function that takes a store takes either, and :meth:`StoreState.locate`
+names the part and row that hold a shard.
 
 Two deliberate departures from the reference's program shape, neither
 visible in the results:
@@ -65,6 +70,78 @@ class StoreState:
     def value_dim(self) -> int:
         return self.values.shape[2]
 
+    @property
+    def parts(self) -> tuple["StoreState", ...]:
+        return (self,)
+
+    def locate(self, shard: int) -> tuple["StoreState", int]:
+        """``(part, row)`` holding ``shard``: the store itself."""
+        return self, shard
+
+    def stacked(self, device=None) -> "StoreState":
+        """The ``(N, C)`` store on ``device`` (None: where it lies)."""
+        if device is None or torch.device(device) == self.keys.device:
+            return self
+        return StoreState(*(x.to(device) for x in (self.keys, self.values,
+                                                    self.overflow)))
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreParts:
+    """A store split over a mesh's parts: ``parts[a]`` holds shards
+    ``a * P .. (a + 1) * P - 1`` (``P = num_shards / k``) as a
+    :class:`StoreState` on part ``a``'s device.  The first part's device
+    is the controller's, where :attr:`overflow` is gathered."""
+
+    parts: tuple[StoreState, ...]
+
+    @property
+    def num_shards(self) -> int:
+        return sum(p.num_shards for p in self.parts)
+
+    @property
+    def capacity(self) -> int:
+        return self.parts[0].capacity
+
+    @property
+    def value_dim(self) -> int:
+        return self.parts[0].value_dim
+
+    @property
+    def overflow(self) -> torch.Tensor:
+        """(N,) cumulative dropped entries, on the controller's device."""
+        dev = self.parts[0].keys.device
+        return torch.cat([p.overflow.to(dev) for p in self.parts])
+
+    def locate(self, shard: int) -> tuple[StoreState, int]:
+        """``(part, row)`` holding ``shard``."""
+        per = self.parts[0].num_shards
+        return self.parts[shard // per], shard % per
+
+    def stacked(self, device=None) -> StoreState:
+        """The parts as one ``(N, C)`` store on ``device`` (None: the
+        controller's), for tests and gates."""
+        dev = self.parts[0].keys.device if device is None else device
+        return StoreState(*(torch.cat([getattr(p, f).to(dev)
+                                       for p in self.parts])
+                            for f in ("keys", "values", "overflow")))
+
+
+def split_store(store: StoreState, devices) -> StoreState | StoreParts:
+    """``store``'s shards copied into ``len(devices)`` parts, contiguous
+    blocks in shard order, part ``a`` on ``devices[a]``; one device gives
+    a plain :class:`StoreState` on it."""
+    k = len(devices)
+    if store.num_shards % k:
+        raise ValueError(f"{store.num_shards} shards do not split over "
+                         f"{k} parts")
+    P = store.num_shards // k
+    parts = tuple(StoreState(*(x[a * P:(a + 1) * P].to(dev, copy=True)
+                               for x in (store.keys, store.values,
+                                         store.overflow)))
+                  for a, dev in enumerate(devices))
+    return parts[0] if k == 1 else StoreParts(parts)
+
 
 @dataclasses.dataclass(frozen=True)
 class Responses:
@@ -79,9 +156,19 @@ class Responses:
 
 
 def make_store(num_shards: int, capacity: int, value_dim: int, *,
-               device=None) -> StoreState:
+               device=None, parts=None) -> StoreState | StoreParts:
+    """An empty store on ``device``, or, with ``parts`` (a mesh's devices,
+    more than one), a :class:`StoreParts` with ``num_shards / k`` shards
+    on each."""
     from repro_torch.device import resolve_device
 
+    if parts is not None and len(parts) > 1:
+        if num_shards % len(parts):
+            raise ValueError(f"{num_shards} shards do not split over "
+                             f"{len(parts)} parts")
+        return StoreParts(tuple(
+            make_store(num_shards // len(parts), capacity, value_dim,
+                       device=dev) for dev in parts))
     dev = resolve_device(device)
     return StoreState(
         keys=torch.full((num_shards, capacity), EMPTY, dtype=torch.int64,
@@ -254,9 +341,10 @@ def _apply_writes(store: StoreState, n: int, q: QueryBatch,
     store.overflow[n] += dropped
 
 
-def apply_routed(store: StoreState, q: QueryBatch, decision: RoutingDecision,
-                 *, max_scan_results: int = 8,
-                 scans: bool = True) -> tuple[StoreState, Responses]:
+def apply_routed(store: StoreState | StoreParts, q: QueryBatch,
+                 decision: RoutingDecision, *, max_scan_results: int = 8,
+                 scans: bool = True) -> tuple[StoreState | StoreParts,
+                                              Responses]:
     """Apply a routed batch: reads served by the routed target, writes by
     every live chain member.  Updates ``store`` in place and returns it
     with the per-query responses.
@@ -264,27 +352,61 @@ def apply_routed(store: StoreState, q: QueryBatch, decision: RoutingDecision,
     ``scans=False`` is the caller's host-side knowledge that the batch
     holds no SCAN: the scan gather is skipped (it costs a node-offset
     copy of every slab key) and the scan responses are the empty answer
-    it would have given, as zero-stride views."""
-    N = store.num_shards
-    dev = store.keys.device
+    it would have given, as zero-stride views.
+
+    Over a :class:`StoreParts` each part serves the reads it owns (one
+    K4a launch a part, node ids local to it) and applies its shards'
+    writes on its own device; each response is the owning part's, taken
+    by a select (no arithmetic), so the bits are the stacked store's."""
+    dev = q.key.device
     is_write = (q.opcode == K.OP_PUT) | (q.opcode == K.OP_DEL)
     r_max = decision.chain.shape[1]
     member_live = (torch.arange(r_max, device=dev)[None, :]
                    < decision.chain_len[:, None])
-
-    # --- reads against the pre-batch state, from the owning shard ---
-    # K4a probes (key, target): GETs are owned by their read target, DELs
-    # by the chain head, which is their write target
-    every = torch.ones_like(is_write)
-    resp = serve_reads(store, decision.target, q, every, every,
-                       max_scan_results=max_scan_results, scans=scans)
-
-    # --- writes, shard by shard ---
-    for n in range(N):
-        write_mine = is_write & ((decision.chain == n) & member_live).any(dim=1)
-        _apply_writes(store, n, q, write_mine)
-
+    resp = None
+    base = 0
+    for part in store.parts:
+        pdev = part.keys.device
+        P = part.num_shards
+        qp = q if pdev == dev else QueryBatch(*(
+            x.to(pdev, non_blocking=True) for x in (q.opcode, q.key,
+                                                    q.end_key, q.value)))
+        to = lambda x: x.to(pdev, non_blocking=True)
+        target, chain, live = (to(decision.target), to(decision.chain),
+                               to(member_live))
+        wr = to(is_write)
+        # --- reads against the pre-batch state, from the owning shard ---
+        # K4a probes (key, target): GETs are owned by their read target,
+        # DELs by the chain head, which is their write target; a target
+        # off this part (or NO_NODE) probes node -1, which finds nothing
+        owned = (target >= base) & (target < base + P)
+        got = serve_reads(part, torch.where(owned, target - base, -1), qp,
+                          owned, owned, max_scan_results=max_scan_results,
+                          scans=scans)
+        resp = _select_owned(resp, got, owned.to(dev), dev, scans)
+        # --- writes, shard by shard ---
+        for n in range(P):
+            write_mine = wr & ((chain == base + n) & live).any(dim=1)
+            _apply_writes(part, n, qp, write_mine)
+        base += P
     return store, resp
+
+
+def _select_owned(acc: Responses | None, got: Responses, owned: torch.Tensor,
+                  dev, scans: bool) -> Responses:
+    """``got``'s answers (a part's, on its device) where ``owned``, else
+    ``acc``'s, on ``dev``; the first part's answers start ``acc``.
+    Without SCANs every part's scan answers are the same empty views,
+    kept as they are (a select would materialise them)."""
+    fields = ("value", "found") + (
+        ("scan_values", "scan_keys", "scan_count") if scans else ())
+    new = {f: getattr(got, f).to(dev, non_blocking=True) for f in fields}
+    if acc is None:
+        return dataclasses.replace(got, **new)
+    for f, x in new.items():
+        m = owned.reshape(owned.shape + (1,) * (x.dim() - 1))
+        new[f] = torch.where(m, x, getattr(acc, f))
+    return dataclasses.replace(acc, **new)
 
 
 def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
@@ -404,6 +526,9 @@ def slab_scan_rows(store: StoreState, node: torch.Tensor, k0: torch.Tensor,
     return ks, vs, count
 
 
-def store_fill(store: StoreState) -> torch.Tensor:
-    """(N,) live entries per shard."""
-    return (store.keys != EMPTY).sum(dim=1)
+def store_fill(store: StoreState | StoreParts) -> torch.Tensor:
+    """(N,) live entries per shard, part by part, on the first part's
+    device."""
+    dev = store.parts[0].keys.device
+    return torch.cat([(p.keys != EMPTY).sum(dim=1).to(dev)
+                      for p in store.parts])

@@ -34,3 +34,13 @@ def on_cpu(*ts: torch.Tensor) -> bool:
     if devs != {"cuda"}:
         raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
     return False
+
+
+def indexed(device: str | torch.device) -> torch.device:
+    """``device`` with its index: ``cuda`` names the current card
+    (``cuda:0`` unless the caller switched), so two names of one card
+    compare equal; every other device is taken as given."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -88,6 +88,7 @@ constexpr int kGMax = 8;
 constexpr int kStages = 3;
 constexpr int kStageBytes = 16384;     // K bytes of one stage; V the same
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;     // cards whose opt-in is remembered
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -483,13 +484,17 @@ int launch(const void* q, const void* k, const void* v, const int32_t* lengths,
   constexpr int smem = Sh::RING + kWarps * (Sh::RW + 1) * Pad<G>::value * 4;
   static_assert(2 * kWarps * G * 4 + kWarps * G * D * 4 <= Sh::RING,
                 "the warps' partials must fit in the ring");
-  static bool opted = false;   // once an instance (and never in a capture)
-  if (!opted) {
+  // once an instance and card (and never in a capture): the attribute
+  // belongs to the current device, which the caller sets to the tensors'
+  static bool opted[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attn_partial<T, D, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    opted = true;
+    if (dev < kMaxDevices) opted[dev] = true;
   }
   decode_attn_partial<T, D, G><<<dim3(n_split, Hkv, B), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

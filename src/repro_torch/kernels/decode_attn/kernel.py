@@ -133,14 +133,15 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     parts = B * Hkv * n * G
     scratch = torch.empty(parts * (D + 2), dtype=torch.float32, device=dev)
     base = scratch.data_ptr()
-    rc = _load().da_decode_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        B, S, Hkv, G, D, int(q.dtype == torch.bfloat16),
-        -1 if window is None else int(window),
-        float(D ** -0.5 if scale is None else scale), n,
-        base, base + 4 * parts, base + 8 * parts,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _load().da_decode_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            B, S, Hkv, G, D, int(q.dtype == torch.bfloat16),
+            -1 if window is None else int(window),
+            float(D ** -0.5 if scale is None else scale), n,
+            base, base + 4 * parts, base + 8 * parts,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"decode_attn kernel launch failed: CUDA error {rc}")
     launches["decode_attn"] += 1

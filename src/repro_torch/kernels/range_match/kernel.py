@@ -10,8 +10,11 @@ CPU tests import this module.
 Each wrapper takes the plain PyTorch version (:mod:`.ref`) when its
 tensors lie on the CPU, and launches its kernel for CUDA tensors — or
 raises.  There is no fallback from a CUDA tensor to the plain version.
-``launches`` counts kernel launches per wrapper (plain-version calls do
-not count), so a run can show that the main path went through the card.
+A launch runs with its tensors' card as the current device, on that
+card's current stream, so the kernels serve every card of a dist mesh
+from one host thread.  ``launches`` counts kernel launches per wrapper
+(plain-version calls do not count), so a run can show that the main path
+went through the card; ``launches_by_device`` splits them by card.
 
 The four route wrappers (K1, K2, K3, K4b) each launch two kernels through
 one C entry point: ``span_order``, which writes the live spans in (lo,
@@ -49,6 +52,9 @@ _lib: ctypes.CDLL | None = None
 launches = {"range_match": 0, "range_match_spread": 0,
             "range_match_spread_dirty": 0, "range_match_apply": 0,
             "slab_lookup": 0, "range_match_stale": 0}
+# the same launches by card, ``{"cuda:i": {wrapper: count}}``: the store's
+# kernels run on every card of a dist mesh
+launches_by_device: dict[str, dict[str, int]] = {}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -65,6 +71,14 @@ _orders: dict[str, tuple[torch.Tensor, int, int]] = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launches_by_device.clear()
+
+
+def _count(name: str, dev: torch.device) -> None:
+    """One launch of wrapper ``name``'s kernel on ``dev``."""
+    launches[name] += 1
+    by = launches_by_device.setdefault(str(dev), {})
+    by[name] = by.get(name, 0) + 1
 
 
 def build(verbose: bool = False) -> Path:
@@ -267,16 +281,17 @@ def range_match(mvals, opcodes, slot_lo, slot_hi, chains, chain_len, *,
     if B == 0:
         return ridx, target, chain
     _check_smem("range_match", S, r_max, 0, dev)
-    rc = _load().rm_range_match(
-        mvals.data_ptr(), opcodes.data_ptr(), slot_lo.data_ptr(),
-        slot_hi.data_ptr(), chains.data_ptr(), chain_len.data_ptr(),
-        B, S, r_max, num_slots, _grid(B, dev),
-        _order("range_match", S, dev).data_ptr(), ridx.data_ptr(),
-        target.data_ptr(), chain.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _load().rm_range_match(
+            mvals.data_ptr(), opcodes.data_ptr(), slot_lo.data_ptr(),
+            slot_hi.data_ptr(), chains.data_ptr(), chain_len.data_ptr(),
+            B, S, r_max, num_slots, _grid(B, dev),
+            _order("range_match", S, dev).data_ptr(), ridx.data_ptr(),
+            target.data_ptr(), chain.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(rc, "range_match")
-    launches["range_match"] += 1
+    _count("range_match", dev)
     return ridx, target, chain
 
 
@@ -298,16 +313,17 @@ def range_match_spread(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     if B == 0:
         return ridx, target, chain
     _check_smem("range_match_spread", S, r_max, n, dev)
-    rc = _load().rm_range_match_spread(
-        mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-        slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
-        chain_len.data_ptr(), loads.data_ptr(), B, S, r_max, num_slots, n,
-        _grid(B, dev), _order("range_match_spread", S, dev).data_ptr(),
-        ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _load().rm_range_match_spread(
+            mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
+            chain_len.data_ptr(), loads.data_ptr(), B, S, r_max, num_slots, n,
+            _grid(B, dev), _order("range_match_spread", S, dev).data_ptr(),
+            ridx.data_ptr(), target.data_ptr(), chain.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(rc, "range_match_spread")
-    launches["range_match_spread"] += 1
+    _count("range_match_spread", dev)
     return ridx, target, chain
 
 
@@ -371,18 +387,19 @@ def range_match_spread_dirty(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     if B == 0:
         return out
     _check_smem("range_match_spread_dirty", S, r_max, n, dev)
-    rc = _load().rm_range_match_spread_dirty(
-        mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-        slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
-        chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
-        keys.data_ptr() if F else None, key_filter.data_ptr() if F else None,
-        B, S, r_max, num_slots, n, F, _grid(B, dev),
-        _order("range_match_spread_dirty", S, dev).data_ptr(),
-        *(t.data_ptr() for t in out),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _load().rm_range_match_spread_dirty(
+            mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
+            chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
+            keys.data_ptr() if F else None, key_filter.data_ptr() if F else None,
+            B, S, r_max, num_slots, n, F, _grid(B, dev),
+            _order("range_match_spread_dirty", S, dev).data_ptr(),
+            *(t.data_ptr() for t in out),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(rc, "range_match_spread_dirty")
-    launches["range_match_spread_dirty"] += 1
+    _count("range_match_spread_dirty", dev)
     return out
 
 
@@ -414,17 +431,18 @@ def range_match_apply(mvals, opcodes, u1, u2, slot_lo, slot_hi, chains,
     if B == 0:
         return out
     _check_smem("range_match_apply", S, r_max, n, dev)
-    rc = _load().rm_range_match_apply(
-        mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-        slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
-        chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
-        qkeys.data_ptr(), slabs.data_ptr(), B, S, r_max, num_slots, n, N, C,
-        _grid(B, dev), _order("range_match_apply", S, dev).data_ptr(),
-        *(t.data_ptr() for t in out),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _load().rm_range_match_apply(
+            mvals.data_ptr(), opcodes.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            slot_lo.data_ptr(), slot_hi.data_ptr(), chains.data_ptr(),
+            chain_len.data_ptr(), loads.data_ptr(), dirty.data_ptr(),
+            qkeys.data_ptr(), slabs.data_ptr(), B, S, r_max, num_slots, n, N, C,
+            _grid(B, dev), _order("range_match_apply", S, dev).data_ptr(),
+            *(t.data_ptr() for t in out),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(rc, "range_match_apply")
-    launches["range_match_apply"] += 1
+    _count("range_match_apply", dev)
     return out
 
 
@@ -478,16 +496,17 @@ def range_match_stale(keys, opcodes, lo_w, hi_w, chains_w, clen_w, version_w,
         return sridx, server, divergent
     scratch = torch.empty(_order_bytes(S, W), dtype=torch.uint8, device=dev)
     _orders["range_match_stale"] = (scratch, W, S)
-    rc = lib.rm_range_match_stale(
-        keys.data_ptr(), opcodes.data_ptr(), lo_w.data_ptr(), hi_w.data_ptr(),
-        chains_w.data_ptr(), clen_w.data_ptr(), version_w.data_ptr(),
-        committed.data_ptr(), B, S, W, r_max, num_slots,
-        int(bool(hash_partitioned)), _grid(B, dev), scratch.data_ptr(),
-        sridx.data_ptr(), server.data_ptr(), divergent.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = lib.rm_range_match_stale(
+            keys.data_ptr(), opcodes.data_ptr(), lo_w.data_ptr(), hi_w.data_ptr(),
+            chains_w.data_ptr(), clen_w.data_ptr(), version_w.data_ptr(),
+            committed.data_ptr(), B, S, W, r_max, num_slots,
+            int(bool(hash_partitioned)), _grid(B, dev), scratch.data_ptr(),
+            sridx.data_ptr(), server.data_ptr(), divergent.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(rc, "range_match_stale")
-    launches["range_match_stale"] += 1
+    _count("range_match_stale", dev)
     return sridx, server, divergent
 
 
@@ -509,11 +528,12 @@ def slab_lookup(qkeys, target, slabs):
     found = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return slot, found
-    rc = _load().rm_slab_lookup(
-        qkeys.data_ptr(), target.data_ptr(), slabs.data_ptr(), B, N, C,
-        slot.data_ptr(), found.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _load().rm_slab_lookup(
+            qkeys.data_ptr(), target.data_ptr(), slabs.data_ptr(), B, N, C,
+            slot.data_ptr(), found.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(rc, "slab_lookup")
-    launches["slab_lookup"] += 1
+    _count("slab_lookup", dev)
     return slot, found

@@ -119,12 +119,13 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(x)
     fs = torch.empty_like(init_state)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    rc = lib.ssd_chunk_scan(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), init_state.data_ptr(), y.data_ptr(), fs.data_ptr(),
-        scratch.data_ptr(), B, T, H, P, G, N, chunk,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = lib.ssd_chunk_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), init_state.data_ptr(), y.data_ptr(), fs.data_ptr(),
+            scratch.data_ptr(), B, T, H, P, G, N, chunk,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {rc}")
     launches["ssd_chunk"] += 1

@@ -1551,3 +1551,169 @@ def test_ssd_scan_trains_through_the_plain_scan_and_serves_through_k7(dev):
     assert SK.launches["ssd_chunk"] == before["ssd_chunk"] + 1
     assert SK.launches["ssd_chunk_plain_grad"] == before["ssd_chunk_plain_grad"]
     _ssd_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The store's kernels on a second card; the dist plane split into parts
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def second(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("n_slots", [64, 2048])
+def test_store_kernels_on_a_second_card(second, n_slots):
+    """K1-K5 and K4a with their tensors on cuda:1 while cuda:0 is the
+    current device: each launches once, on cuda:1 (``launches_by_device``),
+    and equals its plain version; K4b's and K5's shared-memory opt-in is
+    taken on cuda:1 too (64 slots take one launch, 2,048 the span_order
+    pass first)."""
+    assert torch.cuda.current_device() == 0
+    N, B, C = 8, 70000, 100_003
+    d = _directory(n_slots + 1, n_slots // 2, n_slots, second)
+    coord = _coord_state(d, 4, second, n_slots)
+    rng = np.random.default_rng(n_slots)
+    slabs = np.full((N, C), 0xFFFFFFFF, np.int64)
+    for n in range(N):
+        m = int(rng.integers(0, C + 1))
+        slabs[n, :m] = np.sort(rng.choice(2**32 - 1, m, replace=False))
+    target = rng.integers(-1, N, B)
+    resident = slabs[np.clip(target, 0, N - 1), rng.integers(0, C, B)]
+    fresh = rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.int64)
+    t = lambda a: torch.tensor(a, device=second)  # noqa: E731
+    keys = t(np.where(rng.random(B) < 0.6, resident, fresh))
+    ops = t(rng.integers(0, 4, B).astype(np.int32))
+    loads = t(rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.int64))
+    dirty = t(rng.random((n_slots, 4)) < 0.5)
+    store_keys, tgt = t(slabs), t(target)
+    rk = np.array([3, n_slots], np.uint32)
+    calls = {
+        "range_match": lambda d, c, *a: OPS.range_match(d, *a[:2]),
+        "range_match_spread": lambda d, c, *a: OPS.range_match_spread(
+            d, *a[:3], rk),
+        "range_match_spread_dirty": lambda d, c, *a: (
+            OPS.range_match_spread_dirty(d, *a[:4], rk)),
+        "range_match_apply": lambda d, c, *a: OPS.range_match_apply(
+            d, *a[:5], rk),
+        "range_match_stale": lambda d, c, *a: OPS.range_match_stale(
+            c, *a[:2]),
+        "slab_lookup": lambda d, c, *a: OPS.slab_lookup(a[0], a[5], a[4]),
+    }
+    args = (keys, ops, loads, dirty, store_keys, tgt)
+    RMK.reset_launches()
+    got = {name: f(d, coord, *args) for name, f in calls.items()}
+    torch.cuda.synchronize(second)
+    assert RMK.launches_by_device == {"cuda:1": {k: 1 for k in calls}}
+    cpu_coord = CT.CoordState(*(getattr(coord, f.name).cpu()
+                                for f in dataclasses.fields(CT.CoordState)))
+    for name, f in calls.items():
+        want = f(_cpu(d), cpu_coord, *(a.cpu() for a in args))
+        assert all(x.device == second for x in got[name]), name
+        _same(got[name], want)
+
+
+def test_decode_attn_and_ssd_chunk_on_a_second_card(second, no_tf32):
+    """K6 opts in to its shared memory on each card (once a card, not once
+    an instance): the same instance launched on cuda:0, then with its
+    tensors on cuda:1 while cuda:0 is current, equals its plain version on
+    both; K7 likewise."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.decode_attn import ref as DAR
+    from repro_torch.kernels.ssd_chunk import ops as SO
+
+    lengths = [1, 700, 1300]
+    for card in (torch.device("cuda", 0), second):
+        q, k, v, L = _attn_inputs(5, 3, 1300, 12, 2, 128, torch.bfloat16,
+                                  lengths, card)
+        got = DAK.decode_attn(q, k, v, L)
+        want = DAR.decode_attn_ref(q, k, v, L)
+        torch.cuda.synchronize(card)
+        assert got.device == card
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                                   rtol=2.0 ** -6)
+        x, dt, A, Bm, Cm, s0 = _ssd_inputs(7, 2, 128, 4, 16, 8, 1, card)
+        y, fs = SO.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=32)
+        want = SO.ssd_scan(*(a.cpu() for a in (x, dt, A, Bm, Cm, s0)),
+                           chunk=32)
+        torch.cuda.synchronize(card)
+        assert y.device == card
+        _ssd_close([y.cpu(), fs.cpu()], want)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("strategy,spread,craq,qpen", DIST_CASES)
+def test_dist_plane_in_parts_card_matches_cpu(dev, strategy, spread, craq,
+                                              qpen):
+    """``make_dist_apply`` on an 8-shard mesh in four parts on the card
+    (``("cuda:0",) * 4``, the layout of a mesh over four cards) against
+    the same split on the CPU and against the card's one-part mesh, bit
+    for bit over three calls; each part probes its inbound queries with
+    its own K4a launch (four a round)."""
+    from repro_torch import replication as RPL
+    from repro_torch.core import dist_store as DS
+
+    N, V, C, B = 8, 4, 32768, 16384
+    cfg = DS.DistConfig(strategy=strategy, bucket_cap=B // N,
+                        read_spread=spread, return_decision=True,
+                        replication_mode="craq" if craq else "eventual",
+                        queue_pen=qpen)
+    runs = {}
+    for device, parts in ((dev, 4), (torch.device("cpu"), 4), (dev, 1)):
+        mesh = (DS.make_mesh(N, device=device) if parts == 1 else
+                DS.make_mesh(N, cards=(device,) * parts))
+        d = _directory(7, 64, 128, device, num_nodes=N)
+        store = S.make_store(N, C, V, device=device, parts=mesh.devices)
+        f = DS.make_dist_apply(mesh, d, cfg)
+        load = torch.zeros(N, dtype=torch.int64, device=device)
+        dirty = RPL.dirty_bits(RPL.make_state(128, 4, 0, device=device))
+        calls = []
+        RMK.reset_launches()
+        for step in range(3):
+            r = np.random.default_rng(step)
+            keys = r.integers(0, 2**32 - 2, B, dtype=np.uint64).astype(np.uint32)
+            ops = (np.ones(B, np.int32) if step == 0
+                   else r.integers(0, 4, B).astype(np.int32))
+            ends = np.minimum(keys.astype(np.uint64) + 2**24, 2**32 - 2)
+            q = R.make_queries(keys, ops, r.normal(size=(B, V)).astype(np.float32),
+                               ends.astype(np.uint32), device=device)
+            if spread:
+                args = [store, d, load]
+                if qpen:
+                    args.append(torch.tensor(r.integers(0, 2**32, N),
+                                             device=device))
+                if craq:
+                    dirty = torch.tensor(r.random(dirty.shape) < 0.3,
+                                         device=device)
+                    args.append(dirty)
+                store, resp, d, load, m = f(*args, q,
+                                            np.array([0, step], np.uint32))
+            else:
+                store, resp, d, m = f(store, d, q)
+            st = store.stacked()
+            calls.append((resp, dict(m), d.read_count, d.write_count,
+                          load.clone(), st.keys.clone(), st.values.clone(),
+                          st.overflow.clone()))
+        runs[(device.type, parts)] = (calls, dict(RMK.launches))
+    (cg, lg), (cc, _), (c1, l1) = (runs[("cuda", 4)], runs[("cpu", 4)],
+                                   runs[("cuda", 1)])
+    for other in (cc, c1):
+        for a, b in zip(cg, other):
+            ra, rb = a[0], b[0]
+            _same((ra.value, ra.found, ra.scan_values, ra.scan_keys,
+                   ra.scan_count),
+                  (rb.value, rb.found, rb.scan_values, rb.scan_keys,
+                   rb.scan_count))
+            assert a[1].keys() == b[1].keys()
+            _same([a[1][k] for k in sorted(a[1])],
+                  [b[1][k] for k in sorted(b[1])])
+            _same(a[2:], b[2:])
+    bucket = strategy == "bucket_a2a"
+    assert lg["slab_lookup"] == 4 * l1["slab_lookup"]
+    route = ("range_match_spread_dirty" if craq else
+             "range_match_spread" if spread else "range_match")
+    # K1 once a part under tail reads, K2 / K3 once a shard under p2c
+    assert lg[route] == 3 * (N if bucket and spread else 4 if bucket else 1)

@@ -13,7 +13,8 @@ batch after, every query at one key through 2-slot buckets, p2c read
 spreading — and on craq with and without the queue penalty, for both
 strategies, and writes every call's inputs and outputs (responses, store,
 directory counters, load registers, decision metrics) as ``.npz``; the
-port replays the same calls on an 8-shard mesh on the CPU."""
+port replays the same calls on an 8-shard mesh on the CPU, in 1, 2, 4 and
+8 parts (``("cpu",) * k``: the split layout of a mesh over k cards)."""
 
 import os
 import subprocess
@@ -183,6 +184,16 @@ def reference(tmp_path_factory):
     return out
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads buy nothing here, and under
+    the parallel test run they only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(x: np.ndarray) -> np.ndarray:
     x = np.asarray(x)
     if x.dtype == np.float32:
@@ -198,9 +209,17 @@ def _same(got, want) -> bool:
     return got.shape == want.shape and np.array_equal(_bits(got), _bits(want))
 
 
-def _replay(z, case, strategy, **kw):
-    """The port's replay of a case's calls on an 8-shard CPU mesh: yields
-    ``(i, resp, store, directory, load, metrics)`` after each call."""
+def _mesh(parts):
+    """An 8-shard CPU mesh in ``parts`` parts."""
+    if parts == 1:
+        return DS.make_mesh(8, device="cpu")
+    return DS.make_mesh(8, cards=("cpu",) * parts)
+
+
+def _replay(z, case, strategy, parts=1, **kw):
+    """The port's replay of a case's calls on an 8-shard CPU mesh in
+    ``parts`` parts: yields ``(i, resp, store, directory, load, metrics)``
+    after each call, the store stacked."""
     cap, spread, craq, qpen = CASES[case]
     cfg = DS.DistConfig(strategy=strategy, bucket_cap=cap, read_spread=spread,
                         return_decision=True,
@@ -208,9 +227,11 @@ def _replay(z, case, strategy, **kw):
                         queue_pen=qpen)
     d = convert.directory_from_numpy(
         {k[4:]: z[k] for k in z.files if k.startswith("dir_")}, device="cpu")
-    store = convert.store_from_numpy(z["store_keys"], z["store_values"],
-                                     z["store_overflow"], device="cpu")
-    f = DS.make_dist_apply(DS.make_mesh(8, device="cpu"), d, cfg)
+    mesh = _mesh(parts)
+    store = TS.split_store(convert.store_from_numpy(
+        z["store_keys"], z["store_values"], z["store_overflow"],
+        device="cpu"), mesh.devices)
+    f = DS.make_dist_apply(mesh, d, cfg)
     load = torch.zeros(8, dtype=torch.int64)
     i = 0
     while f"in{i}_op" in z.files:
@@ -226,19 +247,21 @@ def _replay(z, case, strategy, **kw):
             store, resp, d, load, m = f(*args, q, rng, **kw)
         else:
             store, resp, d, m = f(store, d, q, **kw)
-        yield i, resp, store, d, load, m
+        yield i, resp, store.stacked(), d, load, m
         i += 1
 
 
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
 @pytest.mark.parametrize("strategy", STRATEGIES)
 @pytest.mark.parametrize("case", list(CASES))
-def test_dist_apply_matches_reference(reference, case, strategy):
+def test_dist_apply_matches_reference(reference, case, strategy, parts):
     """Every call of the case: responses, store, directory counters, load
     registers and every metric the reference returns (bucket overflow,
-    exchange rounds, the decision, craq's picked / bounced)."""
+    exchange rounds, the decision, craq's picked / bounced), with the
+    mesh's 8 shards in 1, 2, 4 or 8 parts."""
     z = np.load(reference / f"{case}_{strategy}.npz")
     calls = 0
-    for i, resp, store, d, load, m in _replay(z, case, strategy):
+    for i, resp, store, d, load, m in _replay(z, case, strategy, parts):
         for k in ("value", "found", "scan_values", "scan_keys", "scan_count"):
             assert _same(getattr(resp, k), z[f"out{i}_resp_{k}"]), (i, k)
         for k in ("keys", "values", "overflow"):

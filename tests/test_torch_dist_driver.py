@@ -10,8 +10,9 @@ The reference's dist backend needs its 8-device mesh, so one subprocess
 its fused dist driver on each case and writes the metric stream, the final
 store, chains, load registers, replication / overload / coordination /
 ring state, span records and alert timeline as ``.npz``; the port runs
-the same cases on an 8-shard mesh on the CPU, fused and per-epoch, and
-must equal it (no tolerance).  Also: the port's fused loop equals its
+the same cases on an 8-shard mesh on the CPU, fused and per-epoch, in one
+part and in four (``("cpu",) * 4``: the split layout of a mesh over four
+cards), and must equal it (no tolerance).  Also: the port's fused loop equals its
 per-epoch loop with fewer host syncs, dist ``frozen`` equals the oracle
 backend's, the metrics plane stays a pure observer on this backend, and
 ``craq_filter_bits`` and a mesh that does not fit are refused."""
@@ -145,19 +146,36 @@ def reference(tmp_path_factory):
     return out
 
 
-def _driver(name, fused, backend="dist", **over):
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads buy nothing here, and under
+    the parallel test run they only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mesh(parts):
+    """An 8-shard CPU mesh in ``parts`` parts."""
+    if parts == 1:
+        return make_mesh(8, device="cpu")
+    return make_mesh(8, cards=("cpu",) * parts)
+
+
+def _driver(name, fused, backend="dist", parts=1, **over):
     scen, pol, ckw, skw = CASES[name]
     cfg = TC.ClusterConfig(**BASE, **{**ckw(), **over})
     return TC.EpochDriver(
         TC.make_scenario(scen, TC.ScenarioConfig(**SCFG), **skw),
         TC.make_policy(pol), cfg, backend=backend,
-        mesh=make_mesh(8, device="cpu") if backend == "dist" else None,
+        mesh=_mesh(parts) if backend == "dist" else None,
         fused=fused, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
-def _port(name, fused):
-    drv = _driver(name, fused)
+def _port(name, fused, parts=1):
+    drv = _driver(name, fused, parts=parts)
     return drv, [dataclasses.asdict(r) for r in drv.run()]
 
 
@@ -177,14 +195,16 @@ def _rows_diff(a, b):
             for k in x if x[k] != y[k]]
 
 
+@pytest.mark.parametrize("parts", [1, 4])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("name", list(CASES))
-def test_dist_driver_matches_reference(reference, name, fused):
+def test_dist_driver_matches_reference(reference, name, fused, parts):
     z = np.load(reference / f"{name}.npz")
-    drv, rows = _port(name, fused)
+    drv, rows = _port(name, fused, parts)
     assert _rows_diff(rows, json.loads(str(z["rows"]))) == []
+    store = drv.store.stacked()
     for f in ("keys", "values", "overflow"):
-        assert _same(getattr(drv.store, f), z["store_" + f]), f
+        assert _same(getattr(store, f), z["store_" + f]), f
     assert _same(drv.directory.chains, z["chains"])
     assert _same(drv.load_reg, z["load_reg"])
     for f, v in convert.repl_to_numpy(drv.repl).items():
@@ -205,7 +225,7 @@ def test_dist_driver_matches_reference(reference, name, fused):
     if drv.metrics is not None:
         assert drv.alert_timeline() == json.loads(str(z["alerts"]))
     if name == "coordination_tier":
-        rows_ = _port(name, fused)[1]
+        rows_ = _port(name, fused, parts)[1]
         assert all(r["routed"] == r["direct"] + r["redirected"] for r in rows_)
         assert sum(r["mis_served"] for r in rows_) == 0
         assert sum(r["redirected"] for r in rows_) > 0
