@@ -10,8 +10,10 @@ exits non-zero):
                build of the CUDA kernels (range_match, decode_attn,
                ssd_chunk) and the DES core from the sources in this
                checkout, one compiler process each, all started together
-               (build seconds); the DES must time with its native core,
-               not the heapq fallback;
+               (build seconds), while phase dryrun's cells are counted
+               on ``meta`` in spawned workers when that phase runs; the
+               DES must time with its native core, not the heapq
+               fallback;
 2. kernels     each range_match kernel (K1 ``range_match``, K2
                ``range_match_spread``, K3 ``range_match_spread_dirty`` without
                and with the 64-bit key filter, K4a ``slab_lookup``, K4b
@@ -117,7 +119,8 @@ exits non-zero):
                under ``craq``/``full_adaptive`` and ``chain``/``frozen``, and
                the four-switch lag-1 coordination tier under
                ``full_adaptive`` (``shifting_hotspot``) and ``frozen``
-               (``split_brain``); the kernels' launch counts are read around
+               (``split_brain``), each workload's preload made once for
+               every run of it; the kernels' launch counts are read around
                each run, every acknowledged write is read back from every
                live replica, and the tier runs must redirect, mis-serve
                nothing and conserve ``routed == direct + redirected`` on
@@ -254,9 +257,9 @@ exits non-zero):
                embeddings), each at its published widths and depth: bf16
                compute over float32 master weights and AdamW state,
                remat, the copy task, 16 steps of 8 x 2,048 tokens, lr
-               3e-4 with the launcher's warmup, a checkpoint every 8
-               steps on a thread; then step 8's checkpoint restored and
-               steps 8-9 replayed.  tokens/s, step ms p50 / p99 (CUDA
+               3e-4 with the launcher's warmup, a checkpoint at step 12
+               on a thread; then that checkpoint restored and steps
+               12-13 replayed.  tokens/s, step ms p50 / p99 (CUDA
                events), peak memory, ``train_mfu`` (model FLOPs over the
                H100's dense bf16 peak; mamba2 has no attention term) and
                the device's busy share of one more, profiled step, and
@@ -274,7 +277,8 @@ exits non-zero):
 10. dryrun     the dry-run (``repro_torch.launch.dryrun``) on this machine,
                which has no JAX: (a) the ten configs' ``train_4k`` and
                ``decode_32k`` cells on the 16x16 mesh at published widths,
-               counted on ``meta`` in spawned workers (status or skip
+               counted on ``meta`` in spawned workers during phase
+               device's build (status or skip
                reason, argument GiB a device, counted and model FLOPs, the
                bound and the roofline fraction); (b) qwen2-1.5b and
                mamba2-370m at full width on the ``card`` mesh (1x1 on this
@@ -458,7 +462,10 @@ def device_split(fn, names: tuple, calls: int = 20) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> dict:
+def phase_device(count_cells: bool = False) -> dict:
+    """Build every kernel; with ``count_cells``, phase dryrun's cells are
+    counted on ``meta`` meanwhile (neither needs the card, and the build
+    leaves most of the host's cores idle)."""
     from repro_torch.core import _des_native
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.range_match import kernel as RMK
@@ -466,11 +473,14 @@ def phase_device() -> dict:
 
     t0 = time.perf_counter()
     # one compiler process per source, all started together
-    with ThreadPoolExecutor(max_workers=4) as ex:
+    with ThreadPoolExecutor(max_workers=5) as ex:
+        counting = ex.submit(_count_dryrun_cells) if count_cells else None
         futures = [ex.submit(RMK.build), ex.submit(DAK.build),
                    ex.submit(SSK.build), ex.submit(_des_native.load)]
         libs = [f.result() for f in futures]
-    build_s = time.perf_counter() - t0
+        build_s = time.perf_counter() - t0
+        if counting is not None:
+            _DRYRUN_COUNTED.update(zip(("recs", "count_s"), counting.result()))
     RMK._load()
     DAK._load()
     SSK._load()
@@ -488,7 +498,8 @@ def phase_device() -> dict:
            "kernel_library": os.path.relpath(libs[0], here),
            "decode_attn_library": os.path.relpath(libs[1], here),
            "ssd_chunk_library": os.path.relpath(libs[2], here),
-           "des_backend": "native", "build_s": build_s}
+           "des_backend": "native", "build_s": build_s,
+           "dryrun_cells_counted_meanwhile": count_cells}
     emit(out)
     return out
 
@@ -1926,6 +1937,37 @@ def _facade_parity(arch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the full-width runs' preloads, one a workload (scenario, knobs, config):
+# 1,000,000 records of 256 normals are ~6 s of host time, and the runs of
+# phases 4, overload, telemetry and dist share five workloads
+_LOADS: dict = {}
+
+
+def _workload(sname: str, scfg, **skw):
+    """``make_scenario(sname, scfg, **skw)``, its preload made once a
+    workload and handed to every run of it, its epoch streams kept as the
+    driver draws them (the read-back gate's expected values read them
+    again)."""
+    from repro_torch import cluster as TC
+
+    scen = TC.make_scenario(sname, scfg, **skw)
+    key = (sname, repr(sorted(skw.items())), repr(scfg))
+    scen.load_cached = key in _LOADS
+    if not scen.load_cached:
+        _LOADS[key] = scen.load()
+    loaded = _LOADS[key]
+    draw, kept = scen.epoch, {}
+
+    def epoch(e: int):
+        if e not in kept:
+            kept[e] = draw(e)
+        return kept[e]
+
+    scen.load = lambda: loaded
+    scen.epoch = epoch
+    return scen
+
+
 def _expected_values(scen):
     """Every record's last acknowledged value: the preload, then each
     epoch's PUTs in batch order (last write wins)."""
@@ -2064,7 +2106,7 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
                            replication_mode=mode,
                            coordination=(None if coord is None
                                          else CT.CoordConfig(**coord)))
-    scen = TC.make_scenario(sname, scfg, **skw)
+    scen = _workload(sname, scfg, **skw)
     dkw = (dict(backend="dist", mesh=mesh or make_mesh(N_FULL, "cuda"),
                 dist_cfg=DistConfig(bucket_cap=BUCKET_CAP_FULL))
            if dist else {})
@@ -2098,7 +2140,7 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
     res = {
         "scenario": sname, "policy": policy, "replication": rep,
         "mode": mode,
-        "setup_s": t1 - t0,
+        "setup_s": t1 - t0, "load_cached": scen.load_cached,
         "run_s": t2 - t1,
         "epochs_per_s": len(rows) / (t2 - t1),
         "host_inject_s": ss.get("inject", 0.0),
@@ -2157,17 +2199,8 @@ def _full_run(label, sname, skw, policy, rep, mode, need, coord,
     return res, drv, rows, scen
 
 
-# the expected values of the runs phase dist repeats, kept from phase 4
-# (the same scenario and seed: the same data) so the host generates each
-# run's workload once more, not twice
-_EXPECTED: dict = {}
-
-
 def _read_back_gate(label, drv, scen, rep) -> dict:
-    keys, expected = (_EXPECTED.pop(label) if label in _EXPECTED
-                      else _expected_values(scen))
-    if drv.backend != "dist" and label in DIST_LABELS:
-        _EXPECTED[label] = (keys, expected)
+    keys, expected = _expected_values(scen)
     rb = _read_back(drv, keys, expected)
     if rb["missing"] or rb["wrong_value"] or rb["replica_reads"] < rep * keys.size:
         raise AssertionError(f"{label}: read-back failed {rb}")
@@ -2886,7 +2919,7 @@ def phase_overload() -> dict:
                                replication=2, r_max=R_MAX,
                                standby_nodes=OVL_STANDBY, report_every=2,
                                overload=OVL.OverloadConfig(**{**OVL_FULL, **okw}))
-        scen = TC.make_scenario(sname, scfg, **skw)
+        scen = _workload(sname, scfg, **skw)
         torch.cuda.reset_peak_memory_stats()
         RMK.reset_launches()                       # counts of the main path
         t0 = time.perf_counter()
@@ -2938,7 +2971,8 @@ def phase_overload() -> dict:
         ss = drv.stage_seconds
         out[label] = {
             "overload_changes": okw,
-            "setup_s": t1 - t0, "run_s": t2 - t1,
+            "setup_s": t1 - t0, "load_cached": scen.load_cached,
+            "run_s": t2 - t1,
             "epochs_per_s": len(rows) / (t2 - t1),
             "host_inject_s": ss.get("inject", 0.0),
             "host_route_apply_enqueue_s": ss.get("route_apply", 0.0),
@@ -3037,7 +3071,7 @@ def _telemetry_run(planes: bool) -> dict:
                            standby_nodes=OVL_STANDBY, report_every=2,
                            overload=OVL.OverloadConfig(**{**OVL_FULL, **okw}),
                            **extra)
-    scen = TC.make_scenario(sname, scfg, **skw)
+    scen = _workload(sname, scfg, **skw)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()       # what another run still holds
     RMK.reset_launches()                       # counts of the main path
@@ -3053,7 +3087,8 @@ def _telemetry_run(planes: bool) -> dict:
     t2 = time.perf_counter()
     return {"drv": drv, "rows": rows, "scen": scen,
             "launches": dict(RMK.launches), "setup_s": t1 - t0,
-            "run_s": t2 - t1, "epochs_per_s": len(rows) / (t2 - t1),
+            "load_cached": scen.load_cached, "run_s": t2 - t1,
+            "epochs_per_s": len(rows) / (t2 - t1),
             "stage_seconds": dict(drv.stage_seconds),
             "device_step_s": drv.device_step_seconds,
             "host_syncs": drv.host_syncs,
@@ -3179,9 +3214,9 @@ def phase_telemetry() -> dict:
         problems.append(f"sampled {sampled}, recorded {summ['spans']}")
     if problems:
         raise AssertionError(f"telemetry: {problems}")
-    keep = ("setup_s", "run_s", "epochs_per_s", "stage_seconds",
-            "device_step_s", "host_syncs", "max_memory_allocated_gb",
-            "launches")
+    keep = ("setup_s", "load_cached", "run_s", "epochs_per_s",
+            "stage_seconds", "device_step_s", "host_syncs",
+            "max_memory_allocated_gb", "launches")
     out.update(
         planes_off={k: off[k] for k in keep},
         planes_on={k: on[k] for k in keep},
@@ -3731,7 +3766,9 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 # chunked scan's VJP backward
 TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-370m")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 16
-TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 8, 2
+# one checkpoint, at step 12: its write overlaps the last 4 steps (a
+# checkpoint at 8 and 16 left the whole of the second's write to wait for)
+TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 12, 2
 
 
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
@@ -3956,7 +3993,7 @@ def _train_full_width(arch: str) -> dict:
         "resume": {"from_step": TRAIN_CKPT_EVERY, "losses": again,
                    "first_run": first, "bitwise": again == first,
                    "max_abs_diff": max(diffs), "seconds": replay_s},
-        "reduced": {"steps": "20: the script's time limit"},
+        "reduced": {"steps": f"{TRAIN_STEPS}: the script's time limit"},
     }
     if scan is not None:
         out["scan"] = scan
@@ -3999,6 +4036,32 @@ DRYRUN_JOBS = 8            # worker processes counting the meta cells
 # the caching allocator rounds each block up to 512 bytes: a card cell's
 # arguments occupy the predicted bytes plus less than that a leaf
 DRYRUN_ALLOC_ROUND = 512
+# phase dryrun's records and count seconds, when phase device counted them
+_DRYRUN_COUNTED: dict = {}
+
+
+def _dryrun_jobs() -> tuple[list, list]:
+    """Phase dryrun's (a) meta jobs, the train cells first (they take the
+    longest to count), and (b) card jobs, as ``dryrun.run_cells`` takes
+    them."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun as DR
+
+    meta_jobs = [(a, s, "single", {}) for s in DRYRUN_META for a in ARCH_IDS]
+    card_jobs = [(a, s, "card", {"measure": False})
+                 for a in DRYRUN_CARD_ARCHS for s in DR.CARD_SHAPES]
+    return meta_jobs, card_jobs
+
+
+def _count_dryrun_cells() -> tuple[list, float]:
+    """Every cell of phase dryrun predicted on ``meta`` in ``DRYRUN_JOBS``
+    spawned processes: their records, in job order, and the seconds."""
+    from repro_torch.launch import dryrun as DR
+
+    meta_jobs, card_jobs = _dryrun_jobs()
+    t0 = time.perf_counter()
+    recs = list(DR.run_cells(meta_jobs + card_jobs, DRYRUN_JOBS))
+    return recs, time.perf_counter() - t0
 
 
 def _kernel_plain_flops(cfg, shape) -> tuple[str | None, int]:
@@ -4044,7 +4107,7 @@ def phase_dryrun() -> dict:
     prediction exactly, and K6 (qwen2's decode) and K7 (mamba2's prefill
     and train: forward and remat recompute) launch once a layer and step,
     K7's backward through the plain scan's VJP once a layer and step."""
-    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.range_match import kernel as RMK
     from repro_torch.kernels.ssd_chunk import kernel as SSK
@@ -4052,13 +4115,11 @@ def phase_dryrun() -> dict:
     from repro_torch.launch import roofline as RL
     from repro_torch.launch.input_specs import parse_shape
 
-    # the train cells first: they take the longest to count
-    meta_jobs = [(a, s, "single", {}) for s in DRYRUN_META for a in ARCH_IDS]
-    card_jobs = [(a, s, "card", {"measure": False})
-                 for a in DRYRUN_CARD_ARCHS for s in DR.CARD_SHAPES]
-    t0 = time.perf_counter()
-    recs = list(DR.run_cells(meta_jobs + card_jobs, DRYRUN_JOBS))
-    count_s = time.perf_counter() - t0
+    meta_jobs, card_jobs = _dryrun_jobs()
+    meanwhile = bool(_DRYRUN_COUNTED)
+    recs, count_s = ((_DRYRUN_COUNTED.pop("recs"),
+                      _DRYRUN_COUNTED.pop("count_s"))
+                     if meanwhile else _count_dryrun_cells())
     bad = {f"{a}/{s}/{m}": r.get("error") for (a, s, m, _), r
            in zip(meta_jobs + card_jobs, recs) if r["status"] == "error"}
     if bad:
@@ -4085,7 +4146,7 @@ def phase_dryrun() -> dict:
                           "reason": rec["reason"]})
     emit({"phase": "dryrun", "part": "meta", "mesh": "16x16",
           "cells": meta_rows, "seconds_all_predictions": count_s,
-          "workers": DRYRUN_JOBS})
+          "counted_during_the_build": meanwhile, "workers": DRYRUN_JOBS})
 
     _free_card()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
@@ -4276,13 +4337,15 @@ def main(argv=None) -> int:
         seconds[name] = time.perf_counter() - ts
         return out
 
-    dev_info = run("device", phase_device)   # always: the build is every phase's
+    # always: the build is every phase's
+    dev_info = run("device", phase_device, count_cells="dryrun" in phases)
     kernels = run("kernels", phase_kernels, grid_study="grid_study" in phases)
     run("parity", phase_parity)
     full = run("full_width", phase_full_width, keep_frozen="dist" in phases)
     ovl = run("overload", phase_overload)
     tel = run("telemetry", phase_telemetry)
     dist = run("dist", phase_dist)
+    _LOADS.clear()                # no later phase runs those workloads
     paper = run("paper", phase_paper)
     benches = run("benches", phase_benches)
     serving = run("serving", phase_serving)
