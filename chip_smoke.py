@@ -274,7 +274,23 @@ exits non-zero):
                jnp; mamba2's scans launch K7 twice a layer and step and
                count one backward through the plain scan's VJP), the
                replay within 1e-3 (and whether bit for bit);
-10. dryrun     the dry-run (``repro_torch.launch.dryrun``) on this machine,
+10. train_sharded the sharded train step (``launch/train.py``'s
+               ``--model-parallel`` path): ranks started through
+               ``torch.distributed.run``, a card a rank over NCCL on an
+               (n / 2, 2) ("data", "model") mesh when there are 2, 4 or 8
+               cards, else one rank on a 1 x 1 mesh (four ranks sharing
+               the card would need gloo, whose path for DTensor's
+               all-gather of CUDA tensors crashes); (a) qwen2-1.5b at
+               full width cut to 2 layers, float32, TF32 off, one step of
+               8 x 256 tokens against the one-card ``make_train_step``
+               from the same init and batch: loss within 1e-3, every
+               parameter within 2e-3 (the reference's 8-devices-equal-1
+               tolerance), the first moment within 1e-3 of its largest;
+               (b) bf16 over float32 masters, remat, 2 layers, 4 steps of
+               8 x 2,048 tokens with a checkpoint at step 2 and a resume
+               from it: finite losses, the replay bit for bit; no kernel
+               launched (the reference trains qwen2 through jnp);
+11. dryrun     the dry-run (``repro_torch.launch.dryrun``) on this machine,
                which has no JAX: (a) the ten configs' ``train_4k`` and
                ``decode_32k`` cells on the 16x16 mesh at published widths,
                counted on ``meta`` in spawned workers during phase
@@ -295,12 +311,18 @@ exits non-zero):
                prediction exactly, K6 (qwen2's decode) and K7 (mamba2's
                prefill and train) once a layer and step, finite outputs.
 
-Three more phases run only when named in ``--phases``: ``profile``
+Four more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver),
 ``serving_profile`` (over two full-width decode steps with every slot busy,
-and one prefill of 2,048 tokens) and ``grid_study`` (with ``kernels``: the
+and one prefill of 2,048 tokens), ``grid_study`` (with ``kernels``: the
 device time of K1-K4b at the phase 2 shape under a grid of one thread a
-packet and of 1, 2 and 3 blocks an SM, in turns).
+packet and of 1, 2 and 3 blocks an SM, in turns) and ``train_sharded_full``
+(four cards: qwen2-1.5b at full width and depth on 2 x 2, 16 steps with a
+checkpoint at step 12 and its replay; step ms p50 / p99, the largest over
+the ranks; tokens/s; peak memory a card; each rank's argument bytes against
+``sharded_bytes_per_device``, less than 512 B a leaf above; one step's
+collectives by ``CommDebugMode`` against the dry-run's ring model; one
+profiled step a rank).
 
 It then prints the kernel table (``{"kernels": [...]}``, with each main
 path's launch counts in ``launches_by_path``, and beside K7 the backward
@@ -328,9 +350,9 @@ import torch
 
 PHASES = ("device", "kernels", "parity", "full_width", "overload",
           "telemetry", "dist", "paper", "benches", "serving", "serving_ssm",
-          "families", "training", "dryrun")
+          "families", "training", "train_sharded", "dryrun")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
-                "grid_study")
+                "grid_study", "train_sharded_full")
 
 
 def emit(obj: dict) -> None:
@@ -4022,6 +4044,432 @@ def phase_training() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase train_sharded
+# ---------------------------------------------------------------------------
+
+# the sharded train step over a process group (launch/train.py's
+# --model-parallel path): ranks are child processes of
+# torch.distributed.run, one a card over NCCL, on an (n / 2, 2) ("data",
+# "model") mesh when there are 2, 4 or 8 cards.  On one card it is one rank
+# on a 1 x 1 mesh: NCCL refuses two ranks on a card, and with gloo
+# DTensor's functional all-gather of CUDA tensors crashes the process in
+# wait_tensor (torch 2.11; c10d's own collectives pass), so the launcher
+# refuses ranks that share a card and the collectives are proven on
+# four cards and in the CPU tests.  (a) parity: qwen2-1.5b at full width
+# cut to 2 layers, float32 compute, TF32 off, one step of 8 x 256 tokens
+# against the one-card make_train_step from the same init and batch (on
+# rank 0's card); (b) bf16 over float32 masters, remat, 8 x 2,048 tokens,
+# SHARDED_BF16_LAYERS layers, SHARDED_BF16_STEPS steps with a checkpoint at
+# SHARDED_BF16_CKPT, then a resume from it.  train_sharded_full (run only
+# when named; four cards): qwen2-1.5b at full width and depth on 2 x 2 for
+# SHARDED_FULL_STEPS steps, the measurements of PERF.md's sharded-step
+# table
+SHARDED_MP = 2
+SHARDED_PARITY_LAYERS = 2
+SHARDED_PARITY_SHAPE = (8, 256)          # batch, tokens
+SHARDED_LOSS_TOL = 1e-3                  # tests/test_dist.py's 8 == 1 test
+SHARDED_PARAM_TOL = 2e-3
+SHARDED_MOMENT_TOL = 1e-3                # of the largest |m|
+SHARDED_BF16_LAYERS = 2
+SHARDED_BF16_STEPS = 4
+SHARDED_BF16_CKPT = 2
+SHARDED_FULL_STEPS = 16
+SHARDED_FULL_CKPT = 12
+SHARDED_TIMEOUT_S = 900
+
+
+def _sharded_ranks() -> int:
+    cards = torch.cuda.device_count()
+    return cards if cards in (2, 4, 8) else 1
+
+
+def _kernel_launches() -> dict:
+    """The port's kernels' launch counts in this process."""
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+
+    return {**RMK.launches, "decode_attn": DAK.launches["decode_attn"],
+            "ssd_chunk": SSK.launches["ssd_chunk"]}
+
+
+def _reset_kernel_launches() -> None:
+    from repro_torch.kernels.decode_attn import kernel as DAK
+    from repro_torch.kernels.range_match import kernel as RMK
+    from repro_torch.kernels.ssd_chunk import kernel as SSK
+
+    RMK.reset_launches()
+    DAK.reset_launches()
+    SSK.reset_launches()
+
+
+def _sharded_parity(mesh) -> dict:
+    """(a): one sharded step and, on rank 0, the one-card step from the
+    same init and batch; the worst differences (rank 0's record)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.constraints import (activation_policy,
+                                                     make_mesh_policy)
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.train import device_batch, mesh_batch, placed_state
+    from repro_torch.training import tree as T
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import (TrainConfig, init_train_state,
+                                           make_train_step)
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=SHARDED_PARITY_LAYERS, dtype="float32")
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=10),
+                       remat=False)
+    B, T_ = SHARDED_PARITY_SHAPE
+    batch = make_batch(cfg, ShapeSpec("sharded_parity", T_, B, "train"), 0,
+                       DataConfig("copy"))
+    step = make_train_step(cfg, tcfg)
+    with _tf32_off():
+        state, _ = placed_state(cfg, tcfg, mesh)
+        with activation_policy(make_mesh_policy(mesh, dp_axes(mesh))):
+            new, m = step(state, mesh_batch(batch, mesh))
+        loss = TP.whole(m["loss"]).item()
+        gnorm = TP.whole(m["grad_norm"]).item()
+        del state
+        new = SH.gather(new)
+        if mesh.rank != 0:
+            return {"loss": loss}
+        ref = init_train_state(cfg, tcfg, device=mesh.device)
+        ref_new, ref_m = step(ref, device_batch(batch, mesh.device))
+    del ref
+
+    def worst(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(T.leaves(a), T.leaves(b)))
+
+    m_scale = max(float(x.abs().max()) for x in T.leaves(ref_new["opt"]["m"]))
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": B, "seq": T_,
+           "compute_dtype": cfg.dtype, "tf32": False,
+           "loss": loss, "loss_one_card": float(ref_m["loss"]),
+           "loss_err": abs(loss - float(ref_m["loss"])),
+           "grad_norm": gnorm, "grad_norm_one_card": float(ref_m["grad_norm"]),
+           "params_worst": worst(new["params"], ref_new["params"]),
+           "m_worst_over_max": worst(new["opt"]["m"],
+                                     ref_new["opt"]["m"]) / m_scale,
+           "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"])}
+    out["ok"] = (out["loss_err"] < SHARDED_LOSS_TOL
+                 and out["params_worst"] < SHARDED_PARAM_TOL
+                 and out["m_worst_over_max"] < SHARDED_MOMENT_TOL)
+    del new, ref_new
+    return out
+
+
+def _sharded_train(mesh, out_dir: Path, *, layers: int, steps: int,
+                   ckpt_at: int) -> dict:
+    """``launch/train.py``'s loop on ``mesh`` (bf16 over float32 masters,
+    remat, 8 x 2,048 tokens): ``steps`` steps with a checkpoint at
+    ``ckpt_at``, then the steps after it again from that checkpoint.
+    Step ms (CUDA events) are this rank's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import train_config, train_loop
+
+    cfg = get_config("qwen2-1.5b")
+    if layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(steps, TRAIN_LR)
+    ckpt = str(out_dir / "ckpt")
+    log = print if mesh.rank == 0 else (lambda s: None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, recs = train_loop(cfg, shape, tcfg, steps=steps, ckpt_dir=ckpt,
+                             ckpt_every=ckpt_at, mesh=mesh, log=log)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    _free_card()
+    dist.barrier()
+    t1 = time.perf_counter()
+    _, replay = train_loop(cfg, shape, tcfg, steps=ckpt_at + 2, ckpt_dir=ckpt,
+                           ckpt_every=10**9, mesh=mesh, resume_step=ckpt_at,
+                           log=log)
+    replay_s = time.perf_counter() - t1
+    losses = [r["loss"] for r in recs]
+    again = [r["loss"] for r in replay]
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype,
+            "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": steps, "ckpt_at": ckpt_at, "losses": losses,
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "ms": [r["ms"] for r in recs],
+            "seconds": [r["seconds"] for r in recs],
+            "replay": again,
+            "replay_bitwise": again == losses[ckpt_at:ckpt_at + 2],
+            "run_s": run_s, "replay_s": replay_s,
+            "max_memory_allocated_gb": peak / 2**30}
+
+
+# the collectives of _c10d_functional (DTensor's) and of c10d
+_COLLECTIVE_KIND = {"all_reduce": "all-reduce", "allreduce_": "all-reduce",
+                    "all_gather_into_tensor": "all-gather",
+                    "_allgather_base_": "all-gather",
+                    "reduce_scatter_tensor": "reduce-scatter",
+                    "_reduce_scatter_base_": "reduce-scatter",
+                    "all_to_all_single": "all-to-all"}
+
+
+def _comm_counter(mesh):
+    """A ``CommDebugMode`` that also sums each collective's payload by
+    kind and mesh axis, as the dry-run's ring model counts it (an
+    all-gather's payload is its output, the others' their input)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    axis_of = {mesh.device_mesh.get_group(i).group_name: name
+               for i, name in enumerate(mesh.axis_names)}
+
+    class Counter(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.payload = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kind = _COLLECTIVE_KIND.get(
+                getattr(getattr(func, "_overloadpacket", None), "__name__", ""))
+            if kind is not None and not any(t is DTensor for t in types):
+                t = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+                n = t.numel() * t.element_size()
+                group = [a for a in args[1:] if isinstance(a, str)][-1:]
+                group = group[0] if group else None
+                if kind == "all-gather":
+                    n *= next(a for a in args[1:] if isinstance(a, int))
+                key = f"{kind}/{axis_of.get(group, 'other')}"
+                c, b = self.payload.get(key, (0, 0))
+                self.payload[key] = (c + 1, b + n)
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Counter()
+
+
+def _sharded_full(mesh, out_dir: Path) -> dict:
+    """train_sharded_full on one rank: the placed arguments' bytes against
+    the rules', the run and its replay (:func:`_sharded_train`), one more
+    step's collectives against the dry-run's ring model, and one more
+    under ``torch.profiler`` (this card's busy share and NCCL's part)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.constraints import (activation_policy,
+                                                     make_mesh_policy)
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.mesh import MeshLayout, dp_axes
+    from repro_torch.launch.train import mesh_batch, placed_state, train_config
+    from repro_torch.training import tree as T
+    from repro_torch.training.step import abstract_train_state, make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("qwen2-1.5b")
+    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(SHARDED_FULL_STEPS, TRAIN_LR)
+    cell = DRY.build_cell(cfg, f"train@B{TRAIN_BATCH}xT{TRAIN_SEQ}",
+                          MeshLayout(mesh.axis_names,
+                                     tuple(mesh.shape.values())))
+    predicted = DRY.count_cell(cell)
+    # the arguments' bytes on the card against the rules'
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state, specs = placed_state(cfg, tcfg, mesh)
+    raw = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, shape, 0, DataConfig("copy")).items()}
+    batch = SH.place(raw, SH.batch_specs(raw, dp_axes(mesh)), mesh)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    want = (SH.sharded_bytes_per_device(abstract_train_state(cfg, tcfg),
+                                        specs, mesh)
+            + SH.sharded_bytes_per_device(
+                raw, SH.batch_specs(raw, dp_axes(mesh)), mesh))
+    n_leaves = len(T.leaves(state)) + len(batch)
+    del state, batch
+    _free_card()
+    run = _sharded_train(mesh, out_dir, layers=cfg.n_layers,
+                         steps=SHARDED_FULL_STEPS, ckpt_at=SHARDED_FULL_CKPT)
+    # one more step's collectives, counted
+    state, _ = placed_state(cfg, tcfg, mesh)
+    batch = mesh_batch(make_batch(cfg, shape, 0, DataConfig("copy")), mesh)
+    step = make_train_step(cfg, tcfg)
+    counter = _comm_counter(mesh)
+    with activation_policy(make_mesh_policy(mesh, dp_axes(mesh))):
+        with counter:
+            _, m = step(state, batch)
+            float(m["loss"].full_tensor())
+        # and one more under the profiler: this card's busy share, and
+        # NCCL's kernels among its device time
+        torch.cuda.synchronize()
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            _, m = step(state, batch)
+            float(m["loss"].full_tensor())
+            wall = time.perf_counter() - tp
+    busy = _device_summary(prof, wall, top=8)
+    nccl = [e for e in prof.key_averages()
+            if "nccl" in e.key.lower() and _dev_us(e) > 0]
+    busy["nccl_device_s"] = sum(_dev_us(e) for e in nccl) / 1e6
+    busy["nccl_kernels"] = sum(e.count for e in nccl)
+    del state, batch, m, prof
+    _free_card()
+    dist.barrier()
+    comm = {str(k): v for k, v in counter.get_comm_counts().items()}
+    return {**run, "held_bytes": held, "predicted_bytes": want,
+            "leaves": n_leaves,
+            "bytes_gate": want <= held < want + 512 * n_leaves,
+            "comm_counts": comm, "comm_payload": counter.payload,
+            "profiled_step": busy,
+            "ring_model": predicted["collectives"],
+            "ring_model_argument_bytes": predicted["memory"]["argument_bytes"]}
+
+
+def sharded_rank(part: str, out: str) -> None:
+    """One rank of phase train_sharded (``part`` "smoke") or of
+    train_sharded_full ("full"), under torch.distributed.run: joins the
+    group (NCCL or gloo, ``training.elastic``), fits the (n / 2, 2) mesh
+    and writes its record to ``<out>/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.training import elastic as EL
+
+    import faulthandler
+
+    faulthandler.enable()         # a crash in a collective names its frame
+    out_dir = Path(out)
+    dev = EL.init_process_group()
+    mesh = EL.fit_mesh(model_parallel=min(SHARDED_MP, dist.get_world_size()),
+                       device=dev)
+    rec = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "mesh": mesh.shape, "card": torch.cuda.get_device_name(dev)}
+    try:
+        _reset_kernel_launches()
+        if part == "smoke":
+            rec["parity"] = _sharded_parity(mesh)
+            _free_card()
+            dist.barrier()
+            rec["bf16"] = _sharded_train(
+                mesh, out_dir, layers=SHARDED_BF16_LAYERS,
+                steps=SHARDED_BF16_STEPS, ckpt_at=SHARDED_BF16_CKPT)
+        else:
+            rec["full"] = _sharded_full(mesh, out_dir)
+        rec["launches"] = _kernel_launches()
+        with open(out_dir / f"rank{mesh.rank}.json", "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_sharded(part: str = "smoke") -> dict:
+    """Start the ranks through torch.distributed.run, read their records
+    and gate them: (a) within the tolerances, (b) finite losses and a
+    bit-for-bit replay, every rank on NCCL and the mesh expected, no
+    kernel launched (the qwen2 path runs none).  ``part`` "full" is
+    train_sharded_full, which needs four cards."""
+    import shutil
+
+    cards = torch.cuda.device_count()
+    n = _sharded_ranks()
+    if part == "full" and cards != 4:
+        raise RuntimeError("train_sharded_full runs on four cards")
+    out_dir = OUT / f"train_sharded_{part}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    _free_card()
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
+           "PYTHONPATH": os.pathsep.join(
+               [str(here / "src"), os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", f"--nproc_per_node={n}",
+                        str(here / "chip_smoke.py"), "--sharded-rank", part,
+                        "--out", str(out_dir)],
+                       env=env, capture_output=True, text=True,
+                       timeout=SHARDED_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        raise RuntimeError(f"the ranks failed (rc {r.returncode}):\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    recs = [json.loads((out_dir / f"rank{i}.json").read_text())
+            for i in range(n)]
+    want_backend = "nccl"
+    mp = min(SHARDED_MP, n)
+    mesh = {"data": n // mp, "model": mp}
+    for rec in recs:
+        if rec["backend"] != want_backend or rec["mesh"] != mesh:
+            raise AssertionError(f"rank {rec['rank']} ran on {rec['backend']} "
+                                 f"{rec['mesh']}, not {want_backend} {mesh}")
+    launches = {k: sum(rec["launches"][k] for rec in recs)
+                for k in recs[0]["launches"]}
+    if any(launches.values()):
+        raise AssertionError(f"the qwen2 path launched kernels: {launches}")
+    out = {"phase": "train_sharded" if part == "smoke" else
+           "train_sharded_full", "ranks": n, "cards": cards,
+           "backend": want_backend, "mesh": mesh,
+           "devices": [rec["device"] for rec in recs],
+           "how": (f"{n} ranks, one a card, over NCCL" if n > 1 else
+                   "one rank on the one card over NCCL, a 1 x 1 mesh: ranks "
+                   "sharing a card need gloo, whose functional all-gather of "
+                   "CUDA tensors crashes (torch 2.11); the collectives are "
+                   "proven on four cards and in the CPU tests"),
+           "wall_s": wall}
+    runs = "full" if part == "full" else "bf16"
+    for rec in recs:
+        run = rec[runs]
+        if not (np.isfinite(run["losses"]).all() and run["replay_bitwise"]):
+            raise AssertionError(f"rank {rec['rank']}: losses {run['losses']}"
+                                 f", replay {run['replay']}")
+    first = recs[0][runs]
+    ms = np.max([rec[runs]["ms"] for rec in recs], axis=0)[1:]
+    secs = np.max([rec[runs]["seconds"] for rec in recs], axis=0)[1:]
+    out[runs] = {**{k: first[k] for k in (
+        "layers", "d_model", "compute_dtype", "master_dtype", "remat",
+        "batch", "seq", "steps", "ckpt_at", "losses", "grad_norms", "replay",
+        "replay_bitwise", "run_s", "replay_s")},
+        "first_step_ms_max_over_ranks": max(rec[runs]["ms"][0] for rec in recs),
+        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(secs) / float(secs.sum()),
+        "max_memory_allocated_gb_by_rank": [
+            rec[runs]["max_memory_allocated_gb"] for rec in recs]}
+    if part == "full":
+        out[runs].update({k: [rec[runs][k] for rec in recs] for k in (
+            "held_bytes", "bytes_gate", "comm_payload", "profiled_step")})
+        out[runs].update({k: first[k] for k in (
+            "predicted_bytes", "leaves", "comm_counts", "ring_model",
+            "ring_model_argument_bytes")})
+        if not all(rec[runs]["bytes_gate"] for rec in recs):
+            raise AssertionError("a rank's arguments are not the rules' bytes: "
+                                 f"{out[runs]['held_bytes']} vs "
+                                 f"{first['predicted_bytes']}")
+    else:
+        par = recs[0]["parity"]
+        out["parity"] = par
+        if not par["ok"]:
+            raise AssertionError(f"sharded step against one card: {par}")
+    emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase dryrun
 # ---------------------------------------------------------------------------
 
@@ -4315,6 +4763,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + EXTRA_PHASES))
+    ap.add_argument("--sharded-rank", choices=("smoke", "full"),
+                    help=argparse.SUPPRESS)   # a rank of train_sharded
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -4325,6 +4776,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.sharded_rank:
+        sharded_rank(args.sharded_rank, args.out)
+        return 0
 
     t0 = time.perf_counter()
     seconds: dict[str, float] = {}
@@ -4352,6 +4806,8 @@ def main(argv=None) -> int:
     serving_ssm = run("serving_ssm", phase_serving_ssm)
     families = run("families", phase_families)
     training = run("training", phase_training)
+    sharded = run("train_sharded", phase_train_sharded)
+    run("train_sharded_full", phase_train_sharded, "full")
     dryrun = run("dryrun", phase_dryrun)
     if families is not None:      # the five runs' launches as one path
         families = {"launches": {name: sum(f["launches"][name]
@@ -4380,7 +4836,8 @@ def main(argv=None) -> int:
                   ("benches", benches), ("examples", examples),
                   ("serving", serving),
                   ("serving_ssm", serving_ssm), ("families", families),
-                  ("training", training), ("dryrun", dryrun))
+                  ("training", training), ("train_sharded", sharded),
+                  ("dryrun", dryrun))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]

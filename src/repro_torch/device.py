@@ -7,6 +7,8 @@ tests do), and it never falls back to the CPU on its own.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -44,3 +46,20 @@ def indexed(device: str | torch.device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def rank_device(device: str | torch.device | None = None) -> torch.device:
+    """This rank's device in a process group that ``torchrun`` started:
+    ``cuda:(LOCAL_RANK % device_count)`` (raising when no card is
+    present; ``training.elastic.init_process_group`` refuses more ranks
+    than cards), or ``device`` as given when it names another device or a
+    card by index."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the ranks on the host")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device("cuda", local % torch.cuda.device_count())

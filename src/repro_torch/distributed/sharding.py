@@ -20,14 +20,20 @@ axes, major first).  Spec trees mirror the port's nested-dict pytrees,
 ``P`` at the leaves.  :func:`to_placements` maps a spec to
 ``torch.distributed.tensor`` placements, one per mesh axis, with no
 process group; a rule reads nothing of a mesh but ``shape`` and
-``axis_names``.
+``axis_names``.  On a mesh over a process group
+(``training.elastic.DistMesh``) :func:`place` makes each leaf a
+``DTensor`` holding only this rank's shard, and :func:`gather` makes the
+whole tensors back.
 """
 
 from __future__ import annotations
 
 import math
 
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.tensor_parallel import from_whole
 
 from repro_torch.training import tree as T
 
@@ -253,3 +259,31 @@ def to_placements(spec: P, mesh) -> tuple:
         for a in axes:
             out[names.index(a)] = Shard(d)
     return tuple(out)
+
+
+def place(tree: dict, specs: dict, mesh) -> dict:
+    """Each leaf of ``tree`` as a ``DTensor`` on ``mesh`` (a
+    ``training.elastic.DistMesh``) laid out by its spec, on the rank's
+    device.  Every rank holds the same whole tree (the seeded init, a
+    restored checkpoint), on any device, and keeps a copy of its own
+    shards: nothing is sent, and the whole leaves may be freed after."""
+    return T.tree_map(lambda leaf, spec: from_whole(
+        leaf, mesh.device_mesh, to_placements(spec, mesh), mesh.device),
+        tree, specs)
+
+
+def gather(tree: dict) -> dict:
+    """The whole tensors of a placed tree (every rank joins the
+    collectives and gets them all); plain leaves are returned as they
+    are."""
+    return T.tree_map(
+        lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+def local_bytes(tree: dict) -> int:
+    """The bytes this rank holds of a placed tree."""
+    def nbytes(t: torch.Tensor) -> int:
+        local = t.to_local() if isinstance(t, DTensor) else t
+        return local.numel() * local.element_size()
+
+    return sum(nbytes(t) for t in T.leaves(tree))

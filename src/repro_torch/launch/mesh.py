@@ -8,9 +8,12 @@ axis being the hierarchical level of the paper (Core/AGG switches).
 The production layouts are plain data (:class:`MeshLayout`): axis names
 and sizes, no devices, the same shapes as the reference's, so the
 placement rules of ``distributed.sharding`` compare spec for spec.  A mesh
-over real cards is ``training.elastic``'s :class:`~repro_torch.training.
-elastic.Mesh`; both answer ``shape`` and ``axis_names``, which is all the
-rules read.
+over real cards is ``training.elastic``'s: a single controller's
+:class:`~repro_torch.training.elastic.Mesh`, or the
+:class:`~repro_torch.training.elastic.DistMesh` of a process group's ranks
+that ``fit_mesh`` returns once ``elastic.init_process_group`` has joined
+one (the sharded train step's).  All answer ``shape`` and ``axis_names``,
+which is all the rules and :func:`dp_axes` read.
 """
 
 from __future__ import annotations

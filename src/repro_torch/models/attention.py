@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.constraints import constrain
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
@@ -54,6 +55,10 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
 
 
 def _project_qkv(x, p, cfg: ArchConfig, positions):
+    """q (B, T, Hq, Dh), k and v (B, T, Hkv, Dh), normed and rotated.  On
+    a ``DTensor`` x, each rank's own heads as plain tensors, and the
+    ``DTensor`` whose layout the attention output takes
+    (``tensor_parallel.local_heads``); else that fourth item is None."""
     B, T, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -61,15 +66,22 @@ def _project_qkv(x, p, cfg: ArchConfig, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, Hq, Dh)
-    k = k.reshape(B, T, Hkv, Dh)
-    v = v.reshape(B, T, Hkv, Dh)
+    like = None
+    if TP.is_dtensor(q):
+        q, k, v, like = TP.local_heads(q, k, v, Hq, Hkv)
+        q_norm, k_norm = (TP.local_replica(p[n], like) if cfg.qk_norm else None
+                          for n in ("q_norm", "k_norm"))
+    else:
+        q = q.reshape(B, T, Hq, Dh)
+        k = k.reshape(B, T, Hkv, Dh)
+        v = v.reshape(B, T, Hkv, Dh)
+        q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+        q = rms_norm(q, q_norm, cfg.norm_eps, plus_one=cfg.norm_plus_one)
+        k = rms_norm(k, k_norm, cfg.norm_eps, plus_one=cfg.norm_plus_one)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, like
 
 
 def gqa_seq(x, p, cfg: ArchConfig, *, is_global: bool = False, positions=None,
@@ -77,8 +89,12 @@ def gqa_seq(x, p, cfg: ArchConfig, *, is_global: bool = False, positions=None,
     """Full-sequence GQA; positions default to arange(T)."""
     B, T, _ = x.shape
     if positions is None:
-        positions = torch.arange(T, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(x, p, cfg, positions)
+        dev = x.to_local().device if TP.is_dtensor(x) else x.device
+        positions = torch.arange(T, dtype=torch.int32, device=dev)
+    q, k, v, like = _project_qkv(x, p, cfg, positions)
+    if like is not None and return_kv:
+        raise NotImplementedError("sharded serving caches (cache_specs) "
+                                  "are not ported: return_kv needs one card")
     q = constrain(q, "attn_q")
     k = constrain(k, "attn_kv")
     v = constrain(v, "attn_kv")
@@ -86,6 +102,8 @@ def gqa_seq(x, p, cfg: ArchConfig, *, is_global: bool = False, positions=None,
                           is_global=is_global, q_block=q_block,
                           kv_block=kv_block)
     out = constrain(out, "attn_out")
+    if like is not None:        # each rank's heads back into the DTensor
+        out = TP.from_local_heads(out, like)
     y = out.reshape(B, T, -1) @ p["wo"]
     if return_kv:
         return y, (k, v)
@@ -98,7 +116,7 @@ def gqa_decode(x_t, p, cfg: ArchConfig, k_cache, v_cache, length, *,
     place; length (B,) int32.  Returns ``(y, k_cache, v_cache)``."""
     B = x_t.shape[0]
     positions = length[:, None]                       # (B, 1) absolute position
-    q, k_t, v_t = _project_qkv(x_t, p, cfg, positions)
+    q, k_t, v_t, _ = _project_qkv(x_t, p, cfg, positions)
 
     # append the new token's K/V at position `length`
     _write_at(k_cache, k_t[:, 0], length)

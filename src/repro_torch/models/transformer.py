@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.constraints import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FF
@@ -191,7 +192,11 @@ def _layer(tree: dict, l: int) -> dict:
 
 
 def _norm(x, w, cfg: ArchConfig):
-    return rms_norm(x, w, cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    """RMSNorm; on a ``DTensor`` its gradient is summed over the mesh where
+    it arises (``tensor_parallel.reduce_grad``): the norm's output feeds
+    the column-sharded projections."""
+    return TP.reduce_grad(rms_norm(x, w, cfg.norm_eps,
+                                   plus_one=cfg.norm_plus_one))
 
 
 def _residual(x, y, cfg: ArchConfig):
@@ -209,6 +214,7 @@ def _attn_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
         out = A.gqa_seq(h, lp["attn"], cfg, is_global=is_global,
                         return_kv=return_cache)
     y, kv = out if return_cache else (out, None)
+    y = TP.like(y, x)
     if cfg.post_norms:
         y = _norm(y, lp["ln1_post"], cfg)
     return _residual(x, y, cfg), kv
@@ -222,6 +228,7 @@ def _ffn_seq(x, lp, cfg: ArchConfig, kind: str = "dense"):
         y, aux = MOE.moe_layer(h, lp["moe"], cfg)
     else:
         y = FF.swiglu(h, lp["mlp"], cfg)
+    y = TP.like(y, x)
     if cfg.post_norms:
         y = _norm(y, lp["ln2_post"], cfg)
     return _residual(x, y, cfg), aux
@@ -278,9 +285,8 @@ def forward_seq(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
     under ``jax.checkpoint``: the backward recomputes a layer's
     activations from its input instead of keeping them."""
     caches = {}
-    aux_total = {
-        "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=x.device),
-        "moe_dropped": torch.zeros((), dtype=torch.int32, device=x.device)}
+    aux_total = {"moe_aux_loss": TP.zeros_like_scalar(x, torch.float32),
+                 "moe_dropped": TP.zeros_like_scalar(x, torch.int32)}
     for g in layer_groups(cfg):
         flags = global_flags(cfg, g.layer_ids)
         entries = []
@@ -317,7 +323,13 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
 
 
 def embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
-    x = params["embed"][tokens.long()].to(model_dtype(cfg))
+    """The scaled embeddings of ``tokens``; on a ``DTensor`` table the
+    vocab-parallel lookup (``distributed.tensor_parallel``)."""
+    if TP.is_dtensor(params["embed"]):
+        x = TP.vocab_parallel_embed(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens.long()]
+    x = x.to(model_dtype(cfg))
     return x * _in_dtype(cfg.embed_scale, x.dtype)
 
 
@@ -364,8 +376,11 @@ def _ce_chunk(params: dict, cfg: ArchConfig, xc: torch.Tensor,
     """One chunk's (nll sum, scored tokens): float32 logits, log-sum-exp
     less the gold logit.  The reference contracts the logits with a
     one-hot of the labels; a gather takes the same value (the other terms
-    are exact zeros) without the (B, chunk, V) one-hot."""
+    are exact zeros) without the (B, chunk, V) one-hot.  On ``DTensor``
+    inputs the vocab-parallel version, which never gathers the logits."""
     logits = constrain(lm_head(params, cfg, xc).float(), "logits")
+    if TP.is_dtensor(logits):
+        return TP.vocab_parallel_ce(logits, lc)
     mask = lc >= 0
     safe = lc.clamp(min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -387,8 +402,8 @@ def chunked_ce_loss(params: dict, cfg: ArchConfig, x: torch.Tensor,
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
-    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    loss_sum = TP.zeros_like_scalar(x, torch.float32)
+    count = TP.zeros_like_scalar(x, torch.int32)
     for c0 in range(0, T + pad, chunk):
         nll, n = checkpoint(_ce_chunk, params, cfg, x[:, c0:c0 + chunk],
                             labels[:, c0:c0 + chunk], use_reentrant=False)

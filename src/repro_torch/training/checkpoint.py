@@ -12,6 +12,12 @@ corrupts a committed step; it then keeps the newest ``keep`` steps.
 Restore reads the newest committed step (or the one asked for) into the
 structure of a template tree, on the template leaves' devices.
 
+A tree of ``DTensor`` leaves (a state placed over a process group) is
+gathered leaf by leaf, with every rank joining, and the group's rank 0
+writes the same files the one-device path writes; a restore into such a
+template reads the files on every rank and keeps each rank's shards, laid
+out as the template's leaves.
+
 A bfloat16 leaf is written as the reference writes it: its raw 16-bit
 patterns as numpy's ``<V2`` and ``"bfloat16"`` in the manifest.  It is
 read back through a 16-bit integer view bit-cast to ``torch.bfloat16``, with
@@ -28,7 +34,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.tensor_parallel import from_whole
 from repro_torch.training import tree as T
 
 _SEP = "|"
@@ -68,12 +77,23 @@ def save(tree: dict, directory: str, step: int, *, keep: int = 3,
          blocking: bool = True):
     """Checkpoint ``tree`` at ``step``.  Atomic: tmp dir -> rename.  The
     copy to the host happens now; with ``blocking=False`` the writes run
-    on a thread, which is returned (join it before the next save)."""
-    os.makedirs(directory, exist_ok=True)
+    on a thread, which is returned (join it before the next save).  Of
+    a placed tree (``DTensor`` leaves) every rank must call this, since
+    each gathered leaf is a collective; only the group's rank 0 copies it
+    to the host and writes, the others drop it and return None."""
+    placed = any(isinstance(leaf, DTensor) for leaf in T.leaves(tree))
+    writer = not placed or dist.get_rank() == 0
     flat = {}
     for path, leaf in T.items(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if not writer:
+            continue
         arr = _host(leaf)
         flat[_SEP.join(map(str, path))] = (arr, _dtype_name(leaf, arr))
+    if not writer:
+        return None
+    os.makedirs(directory, exist_ok=True)
 
     def _write():
         tmp = os.path.join(directory, f".tmp_step_{step:08d}")
@@ -122,9 +142,12 @@ def _load(path: str, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(template: dict, directory: str, step: int | None = None):
+def restore(template: dict, directory: str, step: int | None = None, *,
+            device=None):
     """Restore into the structure of ``template`` (shapes must match; each
-    leaf takes the template leaf's dtype and device).
+    leaf takes the template leaf's dtype, and its device unless
+    ``device`` is given).  A ``DTensor`` template leaf gives a ``DTensor``
+    laid out as it, each rank keeping its own shard.
 
     Returns (tree, step).  Raises FileNotFoundError if no checkpoint."""
     steps = latest_steps(directory)
@@ -144,6 +167,10 @@ def restore(template: dict, directory: str, step: int | None = None):
         if list(t.shape) != list(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
-        return t.to(device=leaf.device, dtype=leaf.dtype)
+        t = t.to(dtype=leaf.dtype)
+        if isinstance(leaf, DTensor):
+            return from_whole(t, leaf.device_mesh, leaf.placements,
+                              leaf.to_local().device)
+        return t.to(device=device if device is not None else leaf.device)
 
     return T.map_with_path(one, template), step

@@ -12,6 +12,16 @@ fused multiply-add.  Plain torch float32 differs from it by an ulp in
 some steps (on the CPU against the jitted reference: its ``pow`` in 22 of
 20,000 steps at b1 0.9, ``float64`` cos rounded once in 278 of 20,001
 schedule values).  The same host floats drive the CPU and the card.
+
+On a state placed over a process group (``DTensor`` leaves,
+``distributed.sharding.place``) a gradient arrives as partial sums over
+the data axes.  AdamW moves each one into its ``m`` leaf's layout first
+(a reduce-scatter where ZeRO splits ``m`` over the data axes, an
+all-reduce where it cannot), clips there, updates the master weight in
+that layout and gathers it back into the weight's own; Adafactor's
+factored state is replicated, so its gradients go to the weights'
+layout.  The global norm sums every leaf's shards, and its value is the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +34,9 @@ import math
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.prng import fma_f32
 from repro_torch.training import tree as T
 
@@ -110,12 +123,14 @@ def _step_scalars(opt_state: dict, cfg: OptConfig):
     state on the ``meta`` device holds no count to read (the dry-run's
     abstract step): the host takes it for the first step."""
     t = opt_state["step"]
-    step = 1 if t.is_meta else int(t) + 1
+    local = t.to_local() if isinstance(t, DTensor) else t
+    step = 1 if local.is_meta else int(local) + 1
     return step, t + 1, schedule(cfg, step)
 
 
 def _lr_metrics(lr: float, gnorm: torch.Tensor) -> dict:
-    return {"lr": torch.tensor(lr, dtype=torch.float32, device=gnorm.device),
+    dev = (gnorm.to_local() if isinstance(gnorm, DTensor) else gnorm).device
+    return {"lr": torch.tensor(lr, dtype=torch.float32, device=dev),
             "grad_norm": gnorm}
 
 
@@ -143,10 +158,12 @@ def adamw_init(params: dict, state_dtype: str = "float32") -> dict:
 
 def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig):
     step, step_t, lr = _step_scalars(opt_state, cfg)
+    grads = T.tree_map(TP.like, grads, opt_state["m"])
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     bc1, bc2 = bias_corrections(cfg, step)
 
     def upd(p, g, m, v):
+        master, p = p, TP.like(p, m)
         gf = g.float()
         m32, v32 = m.float(), v.float()
         m_new = cfg.b1 * m32 + (1 - cfg.b1) * gf
@@ -154,7 +171,7 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig):
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             update = update + cfg.weight_decay * p.float()
-        p_new = p.float() - lr * update
+        p_new = TP.like(p.float() - lr * update, master)
         return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
     out = T.tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
@@ -183,6 +200,7 @@ def adafactor_init(params: dict, state_dtype: str = "float32") -> dict:
 def adafactor_update(params: dict, grads: dict, opt_state: dict,
                      cfg: OptConfig):
     step, step_t, lr = _step_scalars(opt_state, cfg)
+    grads = T.tree_map(TP.like, grads, params)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     decay = adafactor_decay(step)
     keep = float(_f32(1) - _f32(decay))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import model as MODEL
 from repro_torch.models.transformer import model_dtype
 from repro_torch.training import optimizer as OPT
@@ -52,6 +53,33 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, seed: int = 0, *,
     if tcfg.grad_compression:
         state["err"] = init_error_feedback(params)
     return state
+
+
+def init_placed_train_state(cfg: ArchConfig, tcfg: TrainConfig, mesh,
+                            specs: dict, seed: int = 0) -> dict:
+    """:func:`init_train_state` placed on ``mesh`` (a
+    ``training.elastic.DistMesh``) by ``specs``: every rank draws the
+    same master weights on its device, keeps its shards and frees the
+    whole leaves, and makes only its shards of the optimizer's zeros, so
+    the placed state equals the one-device state leaf for leaf."""
+    from repro_torch.distributed.sharding import place, to_placements
+
+    if tcfg.grad_compression:
+        raise NotImplementedError("the int8-compressed DP step over ranks is "
+                                  "ROADMAP step 16d; use make_dp_train_step")
+    params = place(MODEL.init_params(cfg, seed, device=mesh.device,
+                                     dtype=cfg.param_dtype),
+                   specs["params"], mesh)
+
+    def zeros(leaf, spec):
+        placements = to_placements(spec, mesh)
+        shape = TP.local_shard(leaf, mesh.device_mesh, placements).shape
+        local = torch.zeros(shape, dtype=leaf.dtype, device=mesh.device)
+        return TP.from_local_layout(local, mesh.device_mesh, placements)
+
+    abstract = abstract_train_state(cfg, tcfg)
+    return {"params": params,
+            "opt": T.tree_map(zeros, abstract["opt"], specs["opt"])}
 
 
 def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig) -> dict:
@@ -88,9 +116,15 @@ def value_and_grad(cfg: ArchConfig, params: dict, batch: dict, *,
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:
-    """(B, ...) -> n microbatches of B/n consecutive rows."""
-    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(n)]
+    """(B, ...) -> n microbatches of B/n consecutive rows.  A batch split
+    over the data axes (``DTensor``) is gathered, cut the same way, and
+    each microbatch split over the data axes again: consecutive rows lie
+    on one rank, and the microbatches' rows must be those of the one-card
+    step (their token counts weight the mean)."""
+    whole = {k: TP.whole(v) for k, v in batch.items()}
+    return [{k: TP.laid_out_as(
+        w.reshape(n, w.shape[0] // n, *w.shape[1:])[i], batch[k])
+        for k, w in whole.items()} for i in range(n)]
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:

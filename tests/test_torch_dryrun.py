@@ -12,7 +12,9 @@
   cache and the roofline over it); a cell built on the CPU runs and
   ``FlopCounterMode`` over it counts what the prediction says, which is
   the card cell's gate; the ``meta`` repairs (``device.on_cpu``, the
-  optimizer's step count); ``launch/train.py``'s refusal names step 16c."""
+  optimizer's step count).  The sharded launcher that replaced
+  ``launch/train.py``'s refusal of step 16c is held in
+  ``tests/test_torch_train_sharded.py``."""
 
 import sys
 
@@ -224,10 +226,3 @@ def test_meta_runs_the_plain_versions_and_the_optimizer():
     step, step_t, lr = OPT._step_scalars(state["opt"], OPT.OptConfig())
     assert step == 1 and step_t.is_meta
     assert lr == OPT.schedule(OPT.OptConfig(), 1)
-
-
-def test_train_launcher_refusal_names_step_16c():
-    from repro_torch.launch import train as TRAIN
-
-    with pytest.raises(NotImplementedError, match="step 16c"):
-        TRAIN.main(["--model-parallel", "2", "--device", "cpu"])
