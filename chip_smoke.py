@@ -53,8 +53,9 @@ exits non-zero):
                heads at B 4 over 2,100 tokens (padded), (c) a chunk of 10
                with G 2, (d) mamba2-370m's heads at the serving phase's
                mean prompt of 1,170 tokens, (e) mamba2-370m's heads at
-               the training shape, B 8 x 2,048; its bound counts
-               operations and bytes;
+               the training shape, B 8 x 2,048, (f) one rank's share of
+               mamba2-370m's sharded step on 2 x 2 (B 4 x 2,048, 16 of
+               its 32 heads); its bound counts operations and bytes;
 3. parity      the port's EpochDriver on the card against itself on the
                CPU at the test configuration (metric stream, final store,
                chains, replication register file and coordination-tier
@@ -280,16 +281,21 @@ exits non-zero):
                (n / 2, 2) ("data", "model") mesh when there are 2, 4 or 8
                cards, else one rank on a 1 x 1 mesh (four ranks sharing
                the card would need gloo, whose path for DTensor's
-               all-gather of CUDA tensors crashes); (a) qwen2-1.5b at
-               full width cut to 2 layers, float32, TF32 off, one step of
-               8 x 256 tokens against the one-card ``make_train_step``
-               from the same init and batch: loss within 1e-3, every
-               parameter within 2e-3 (the reference's 8-devices-equal-1
-               tolerance), the first moment within 1e-3 of its largest;
-               (b) bf16 over float32 masters, remat, 2 layers, 4 steps of
-               8 x 2,048 tokens with a checkpoint at step 2 and a resume
-               from it: finite losses, the replay bit for bit; no kernel
-               launched (the reference trains qwen2 through jnp);
+               all-gather of CUDA tensors crashes); qwen2-1.5b,
+               mamba2-370m and hymba-1.5b at full width cut to 2 layers:
+               (a) float32, TF32 off, one step of 8 x 256 tokens against
+               the one-card ``make_train_step`` from the same init and
+               batch: loss within 1e-3, every parameter within 2e-3 (the
+               reference's 8-devices-equal-1 tolerance), the first moment
+               within 1e-3 of its largest; (b) bf16 over float32 masters,
+               remat, 2 layers, 4 steps of 8 x 2,048 tokens with a
+               checkpoint at step 2 and a resume from it: finite losses,
+               the replay bit for bit; the kernels counted around each
+               rank's sharded steps: K7 exactly once a scan layer and step
+               (twice under remat) for mamba2 and hymba, each rank on its
+               own SSD heads, one plain-VJP backward a scan layer and
+               step, nothing else (qwen2 launches none), the counts on a
+               line of their own;
 11. dryrun     the dry-run (``repro_torch.launch.dryrun``) on this machine,
                which has no JAX: (a) the ten configs' ``train_4k`` and
                ``decode_32k`` cells on the 16x16 mesh at published widths,
@@ -317,8 +323,9 @@ Four more phases run only when named in ``--phases``: ``profile``
 and one prefill of 2,048 tokens), ``grid_study`` (with ``kernels``: the
 device time of K1-K4b at the phase 2 shape under a grid of one thread a
 packet and of 1, 2 and 3 blocks an SM, in turns) and ``train_sharded_full``
-(four cards: qwen2-1.5b at full width and depth on 2 x 2, 16 steps with a
-checkpoint at step 12 and its replay; step ms p50 / p99, the largest over
+(four cards: qwen2-1.5b and mamba2-370m at full width and depth on 2 x 2,
+16 steps of 8 x 2,048 tokens with a checkpoint at step 12 and its replay,
+K7 counted as in ``train_sharded``; step ms p50 / p99, the largest over
 the ranks; tokens/s; peak memory a card; each rank's argument bytes against
 ``sharded_bytes_per_device``, less than 512 B a leaf above; one step's
 collectives by ``CommDebugMode`` against the dry-run's ring model; one
@@ -1166,6 +1173,10 @@ K7_CASES = (
     ("Q10/G2", 2, 250, 8, 16, 16, 2, 10, False),
     ("serve_1170/mamba2-370m", 1, 1170, 32, 64, 128, 1, 128, True),
     ("train_2048/mamba2-370m", 8, 2048, 32, 64, 128, 1, 128, True),
+    # a rank of mamba2-370m's sharded step on 2 x 2: half the batch and
+    # its own 16 of the 32 heads
+    ("train_sharded_2048/mamba2-370m/rank", 4, 2048, 16, 64, 128, 1, 128,
+     True),
 )
 # K7 against its plain version, on y and on the final state: tests/
 # test_kernels.py's 2e-4, scaled by the output (both sides sum in f32 in
@@ -4055,16 +4066,20 @@ def phase_training() -> dict:
 # DTensor's functional all-gather of CUDA tensors crashes the process in
 # wait_tensor (torch 2.11; c10d's own collectives pass), so the launcher
 # refuses ranks that share a card and the collectives are proven on
-# four cards and in the CPU tests.  (a) parity: qwen2-1.5b at full width
-# cut to 2 layers, float32 compute, TF32 off, one step of 8 x 256 tokens
-# against the one-card make_train_step from the same init and batch (on
-# rank 0's card); (b) bf16 over float32 masters, remat, 8 x 2,048 tokens,
-# SHARDED_BF16_LAYERS layers, SHARDED_BF16_STEPS steps with a checkpoint at
-# SHARDED_BF16_CKPT, then a resume from it.  train_sharded_full (run only
-# when named; four cards): qwen2-1.5b at full width and depth on 2 x 2 for
-# SHARDED_FULL_STEPS steps, the measurements of PERF.md's sharded-step
-# table
+# four cards and in the CPU tests.  For each of SHARDED_ARCHS (the dense,
+# SSM and hybrid families) at full width cut to 2 layers: (a) parity,
+# float32 compute, TF32 off, one step of 8 x 256 tokens against the
+# one-card make_train_step from the same init and batch (on rank 0's
+# card); (b) bf16 over float32 masters, remat, 8 x 2,048 tokens,
+# SHARDED_BF16_STEPS steps with a checkpoint at SHARDED_BF16_CKPT, then a
+# resume from it.  K7 is counted around the sharded steps alone: each rank
+# scans its own SSD heads once a layer and step, twice under remat.
+# train_sharded_full (run only when named; four cards): SHARDED_FULL_ARCHS
+# at full width and depth on 2 x 2 for SHARDED_FULL_STEPS steps, the
+# measurements of PERF.md's sharded-step table
 SHARDED_MP = 2
+SHARDED_ARCHS = ("qwen2-1.5b", "mamba2-370m", "hymba-1.5b")
+SHARDED_FULL_ARCHS = ("qwen2-1.5b", "mamba2-370m")
 SHARDED_PARITY_LAYERS = 2
 SHARDED_PARITY_SHAPE = (8, 256)          # batch, tokens
 SHARDED_LOSS_TOL = 1e-3                  # tests/test_dist.py's 8 == 1 test
@@ -4075,7 +4090,7 @@ SHARDED_BF16_STEPS = 4
 SHARDED_BF16_CKPT = 2
 SHARDED_FULL_STEPS = 16
 SHARDED_FULL_CKPT = 12
-SHARDED_TIMEOUT_S = 900
+SHARDED_TIMEOUT_S = {"smoke": 900, "full": 1800}
 
 
 def _sharded_ranks() -> int:
@@ -4084,13 +4099,15 @@ def _sharded_ranks() -> int:
 
 
 def _kernel_launches() -> dict:
-    """The port's kernels' launch counts in this process."""
+    """The port's kernels' launch counts in this process, and the SSD
+    scan's backward passes through the plain VJP."""
     from repro_torch.kernels.decode_attn import kernel as DAK
     from repro_torch.kernels.range_match import kernel as RMK
     from repro_torch.kernels.ssd_chunk import kernel as SSK
 
     return {**RMK.launches, "decode_attn": DAK.launches["decode_attn"],
-            "ssd_chunk": SSK.launches["ssd_chunk"]}
+            "ssd_chunk": SSK.launches["ssd_chunk"],
+            "ssd_chunk_plain_grad": SSK.launches["ssd_chunk_plain_grad"]}
 
 
 def _reset_kernel_launches() -> None:
@@ -4103,12 +4120,27 @@ def _reset_kernel_launches() -> None:
     SSK.reset_launches()
 
 
-def _sharded_parity(mesh) -> dict:
-    """(a): one sharded step and, on rank 0, the one-card step from the
-    same init and batch; the worst differences (rank 0's record)."""
+def _scan_layers(cfg) -> int:
+    """The layers whose mixer runs the SSD scan (K7): every layer of the
+    ssm and hybrid families."""
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def _sharded_cfg(arch: str, layers: int | None = None, **kw):
     import dataclasses
 
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is not None and layers != cfg.n_layers:
+        kw["n_layers"] = layers
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _sharded_parity(mesh, arch: str) -> dict:
+    """(a): one sharded step and, on rank 0, the one-card step from the
+    same init and batch; the worst differences (rank 0's record) and the
+    sharded step's kernel launches (this rank's)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.distributed import sharding as SH
@@ -4122,8 +4154,7 @@ def _sharded_parity(mesh) -> dict:
     from repro_torch.training.step import (TrainConfig, init_train_state,
                                            make_train_step)
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
-                              n_layers=SHARDED_PARITY_LAYERS, dtype="float32")
+    cfg = _sharded_cfg(arch, SHARDED_PARITY_LAYERS, dtype="float32")
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=10),
                        remat=False)
     B, T_ = SHARDED_PARITY_SHAPE
@@ -4132,14 +4163,18 @@ def _sharded_parity(mesh) -> dict:
     step = make_train_step(cfg, tcfg)
     with _tf32_off():
         state, _ = placed_state(cfg, tcfg, mesh)
+        _reset_kernel_launches()
         with activation_policy(make_mesh_policy(mesh, dp_axes(mesh))):
             new, m = step(state, mesh_batch(batch, mesh))
         loss = TP.whole(m["loss"]).item()
+        launches = _kernel_launches()
         gnorm = TP.whole(m["grad_norm"]).item()
         del state
         new = SH.gather(new)
+        run = {"launches": launches, "steps_run": 1, "remat": tcfg.remat,
+               "scan_layers": _scan_layers(cfg)}
         if mesh.rank != 0:
-            return {"loss": loss}
+            return {"loss": loss, **run}
         ref = init_train_state(cfg, tcfg, device=mesh.device)
         ref_new, ref_m = step(ref, device_batch(batch, mesh.device))
     del ref
@@ -4158,7 +4193,7 @@ def _sharded_parity(mesh) -> dict:
            "params_worst": worst(new["params"], ref_new["params"]),
            "m_worst_over_max": worst(new["opt"]["m"],
                                      ref_new["opt"]["m"]) / m_scale,
-           "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"])}
+           "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"]), **run}
     out["ok"] = (out["loss_err"] < SHARDED_LOSS_TOL
                  and out["params_worst"] < SHARDED_PARAM_TOL
                  and out["m_worst_over_max"] < SHARDED_MOMENT_TOL)
@@ -4166,44 +4201,44 @@ def _sharded_parity(mesh) -> dict:
     return out
 
 
-def _sharded_train(mesh, out_dir: Path, *, layers: int, steps: int,
-                   ckpt_at: int) -> dict:
+def _sharded_train(mesh, out_dir: Path, arch: str, *, layers: int | None,
+                   steps: int, ckpt_at: int) -> dict:
     """``launch/train.py``'s loop on ``mesh`` (bf16 over float32 masters,
     remat, 8 x 2,048 tokens): ``steps`` steps with a checkpoint at
     ``ckpt_at``, then the steps after it again from that checkpoint.
-    Step ms (CUDA events) are this rank's."""
-    import dataclasses
-
+    Step ms (CUDA events) and the kernels' launches (both runs) are this
+    rank's."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.train import train_config, train_loop
 
-    cfg = get_config("qwen2-1.5b")
-    if layers != cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = _sharded_cfg(arch, layers)
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     tcfg = train_config(steps, TRAIN_LR)
     ckpt = str(out_dir / "ckpt")
     log = print if mesh.rank == 0 else (lambda s: None)
     torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_launches()
     t0 = time.perf_counter()
     state, recs = train_loop(cfg, shape, tcfg, steps=steps, ckpt_dir=ckpt,
                              ckpt_every=ckpt_at, mesh=mesh, log=log)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    launches = _kernel_launches()
     del state
     _free_card()
     dist.barrier()
     t1 = time.perf_counter()
+    _reset_kernel_launches()
     _, replay = train_loop(cfg, shape, tcfg, steps=ckpt_at + 2, ckpt_dir=ckpt,
                            ckpt_every=10**9, mesh=mesh, resume_step=ckpt_at,
                            log=log)
     replay_s = time.perf_counter() - t1
+    launches = {k: v + _kernel_launches()[k] for k, v in launches.items()}
     losses = [r["loss"] for r in recs]
     again = [r["loss"] for r in replay]
-    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+    return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
             "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype,
             "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "steps": steps, "ckpt_at": ckpt_at, "losses": losses,
@@ -4213,7 +4248,9 @@ def _sharded_train(mesh, out_dir: Path, *, layers: int, steps: int,
             "replay": again,
             "replay_bitwise": again == losses[ckpt_at:ckpt_at + 2],
             "run_s": run_s, "replay_s": replay_s,
-            "max_memory_allocated_gb": peak / 2**30}
+            "max_memory_allocated_gb": peak / 2**30,
+            "launches": launches, "steps_run": len(recs) + len(replay),
+            "scan_layers": _scan_layers(cfg)}
 
 
 # the collectives of _c10d_functional (DTensor's) and of c10d
@@ -4258,14 +4295,14 @@ def _comm_counter(mesh):
     return Counter()
 
 
-def _sharded_full(mesh, out_dir: Path) -> dict:
-    """train_sharded_full on one rank: the placed arguments' bytes against
-    the rules', the run and its replay (:func:`_sharded_train`), one more
-    step's collectives against the dry-run's ring model, and one more
-    under ``torch.profiler`` (this card's busy share and NCCL's part)."""
+def _sharded_full(mesh, out_dir: Path, arch: str) -> dict:
+    """train_sharded_full on one rank for ``arch``: the placed arguments'
+    bytes against the rules', the run and its replay
+    (:func:`_sharded_train`), one more step's collectives against the
+    dry-run's ring model, and one more under ``torch.profiler`` (this
+    card's busy share and NCCL's part)."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.distributed import sharding as SH
@@ -4278,7 +4315,7 @@ def _sharded_full(mesh, out_dir: Path) -> dict:
     from repro_torch.training.step import abstract_train_state, make_train_step
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = _sharded_cfg(arch)
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     tcfg = train_config(SHARDED_FULL_STEPS, TRAIN_LR)
     cell = DRY.build_cell(cfg, f"train@B{TRAIN_BATCH}xT{TRAIN_SEQ}",
@@ -4301,13 +4338,14 @@ def _sharded_full(mesh, out_dir: Path) -> dict:
     n_leaves = len(T.leaves(state)) + len(batch)
     del state, batch
     _free_card()
-    run = _sharded_train(mesh, out_dir, layers=cfg.n_layers,
+    run = _sharded_train(mesh, out_dir, arch, layers=None,
                          steps=SHARDED_FULL_STEPS, ckpt_at=SHARDED_FULL_CKPT)
     # one more step's collectives, counted
     state, _ = placed_state(cfg, tcfg, mesh)
     batch = mesh_batch(make_batch(cfg, shape, 0, DataConfig("copy")), mesh)
     step = make_train_step(cfg, tcfg)
     counter = _comm_counter(mesh)
+    _reset_kernel_launches()
     with activation_policy(make_mesh_policy(mesh, dp_axes(mesh))):
         with counter:
             _, m = step(state, batch)
@@ -4321,6 +4359,9 @@ def _sharded_full(mesh, out_dir: Path) -> dict:
             _, m = step(state, batch)
             float(m["loss"].full_tensor())
             wall = time.perf_counter() - tp
+    run["launches"] = {k: v + _kernel_launches()[k]
+                       for k, v in run["launches"].items()}
+    run["steps_run"] += 2
     busy = _device_summary(prof, wall, top=8)
     nccl = [e for e in prof.key_averages()
             if "nccl" in e.key.lower() and _dev_us(e) > 0]
@@ -4358,29 +4399,48 @@ def sharded_rank(part: str, out: str) -> None:
     rec = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
            "mesh": mesh.shape, "card": torch.cuda.get_device_name(dev)}
     try:
-        _reset_kernel_launches()
         if part == "smoke":
-            rec["parity"] = _sharded_parity(mesh)
-            _free_card()
-            dist.barrier()
-            rec["bf16"] = _sharded_train(
-                mesh, out_dir, layers=SHARDED_BF16_LAYERS,
-                steps=SHARDED_BF16_STEPS, ckpt_at=SHARDED_BF16_CKPT)
+            rec["parity"], rec["bf16"] = {}, {}
+            for arch in SHARDED_ARCHS:
+                rec["parity"][arch] = _sharded_parity(mesh, arch)
+                _free_card()
+                dist.barrier()
+                rec["bf16"][arch] = _sharded_train(
+                    mesh, out_dir / arch, arch, layers=SHARDED_BF16_LAYERS,
+                    steps=SHARDED_BF16_STEPS, ckpt_at=SHARDED_BF16_CKPT)
+                _free_card()
+                dist.barrier()
         else:
-            rec["full"] = _sharded_full(mesh, out_dir)
-        rec["launches"] = _kernel_launches()
+            rec["full"] = {arch: _sharded_full(mesh, out_dir / arch, arch)
+                           for arch in SHARDED_FULL_ARCHS}
         with open(out_dir / f"rank{mesh.rank}.json", "w") as f:
             json.dump(rec, f)
     finally:
         dist.destroy_process_group()
 
 
+def _sharded_launch_gate(rec: dict, where: str, run: dict) -> int:
+    """The kernels a rank's sharded steps launched: K7 exactly
+    ``scan_layers`` a step (twice under remat, whose recompute scans
+    again), one plain-VJP backward a scan layer and step, nothing else.
+    Returns the K7 count."""
+    want = {k: 0 for k in run["launches"]}
+    scans = run["scan_layers"] * run["steps_run"]
+    want["ssd_chunk"] = scans * (2 if run["remat"] else 1)
+    want["ssd_chunk_plain_grad"] = scans
+    if run["launches"] != want:
+        raise AssertionError(f"rank {rec['rank']} {where}: launches "
+                             f"{run['launches']}, not {want}")
+    return run["launches"]["ssd_chunk"]
+
+
 def phase_train_sharded(part: str = "smoke") -> dict:
     """Start the ranks through torch.distributed.run, read their records
     and gate them: (a) within the tolerances, (b) finite losses and a
-    bit-for-bit replay, every rank on NCCL and the mesh expected, no
-    kernel launched (the qwen2 path runs none).  ``part`` "full" is
-    train_sharded_full, which needs four cards."""
+    bit-for-bit replay, every rank on NCCL and the mesh expected, and the
+    kernels each rank's sharded steps launched: K7 once a scan layer and
+    step (twice under remat) for mamba2 and hymba, none for qwen2.
+    ``part`` "full" is train_sharded_full, which needs four cards."""
     import shutil
 
     cards = torch.cuda.device_count()
@@ -4402,7 +4462,7 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                         str(here / "chip_smoke.py"), "--sharded-rank", part,
                         "--out", str(out_dir)],
                        env=env, capture_output=True, text=True,
-                       timeout=SHARDED_TIMEOUT_S)
+                       timeout=SHARDED_TIMEOUT_S[part])
     wall = time.perf_counter() - t0
     if r.returncode:
         raise RuntimeError(f"the ranks failed (rc {r.returncode}):\n"
@@ -4416,10 +4476,26 @@ def phase_train_sharded(part: str = "smoke") -> dict:
         if rec["backend"] != want_backend or rec["mesh"] != mesh:
             raise AssertionError(f"rank {rec['rank']} ran on {rec['backend']} "
                                  f"{rec['mesh']}, not {want_backend} {mesh}")
-    launches = {k: sum(rec["launches"][k] for rec in recs)
-                for k in recs[0]["launches"]}
-    if any(launches.values()):
-        raise AssertionError(f"the qwen2 path launched kernels: {launches}")
+    runs = "full" if part == "full" else "bf16"
+    archs = SHARDED_FULL_ARCHS if part == "full" else SHARDED_ARCHS
+    # the kernels of the sharded steps, gated rank by rank; the path's
+    # launches are their sum over the ranks and runs
+    where = (runs, "parity") if part == "smoke" else (runs,)
+    k7 = {arch: {name: [] for name in where} for arch in archs}
+    launches: dict = {}
+    for rec in recs:
+        for arch in archs:
+            for name in where:
+                run = rec[name][arch]
+                k7[arch][name].append(_sharded_launch_gate(
+                    rec, f"{arch} {name}", run))
+                for k, v in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    emit({"phase": f"train_sharded_{part}_k7_launches",
+          "k7_launches_by_arch_and_rank": k7,
+          "rule": "a rank's K7 launches: scan layers x steps run, x 2 "
+                  "under remat (bf16: 4 steps and a 2-step replay; parity: "
+                  "1 step without remat)"})
     out = {"phase": "train_sharded" if part == "smoke" else
            "train_sharded_full", "ranks": n, "cards": cards,
            "backend": want_backend, "mesh": mesh,
@@ -4429,44 +4505,53 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                    "sharing a card need gloo, whose functional all-gather of "
                    "CUDA tensors crashes (torch 2.11); the collectives are "
                    "proven on four cards and in the CPU tests"),
-           "wall_s": wall}
-    runs = "full" if part == "full" else "bf16"
-    for rec in recs:
-        run = rec[runs]
-        if not (np.isfinite(run["losses"]).all() and run["replay_bitwise"]):
-            raise AssertionError(f"rank {rec['rank']}: losses {run['losses']}"
-                                 f", replay {run['replay']}")
-    first = recs[0][runs]
-    ms = np.max([rec[runs]["ms"] for rec in recs], axis=0)[1:]
-    secs = np.max([rec[runs]["seconds"] for rec in recs], axis=0)[1:]
-    out[runs] = {**{k: first[k] for k in (
-        "layers", "d_model", "compute_dtype", "master_dtype", "remat",
-        "batch", "seq", "steps", "ckpt_at", "losses", "grad_norms", "replay",
-        "replay_bitwise", "run_s", "replay_s")},
-        "first_step_ms_max_over_ranks": max(rec[runs]["ms"][0] for rec in recs),
-        "step_ms_p50": float(np.percentile(ms, 50)),
-        "step_ms_p99": float(np.percentile(ms, 99)),
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(secs) / float(secs.sum()),
-        "max_memory_allocated_gb_by_rank": [
-            rec[runs]["max_memory_allocated_gb"] for rec in recs]}
-    if part == "full":
-        out[runs].update({k: [rec[runs][k] for rec in recs] for k in (
-            "held_bytes", "bytes_gate", "comm_payload", "profiled_step")})
-        out[runs].update({k: first[k] for k in (
-            "predicted_bytes", "leaves", "comm_counts", "ring_model",
-            "ring_model_argument_bytes")})
-        if not all(rec[runs]["bytes_gate"] for rec in recs):
-            raise AssertionError("a rank's arguments are not the rules' bytes: "
-                                 f"{out[runs]['held_bytes']} vs "
-                                 f"{first['predicted_bytes']}")
-    else:
-        par = recs[0]["parity"]
-        out["parity"] = par
-        if not par["ok"]:
-            raise AssertionError(f"sharded step against one card: {par}")
+           "wall_s": wall, runs: {}, "k7_launches": k7}
+    for arch in archs:
+        for rec in recs:
+            run = rec[runs][arch]
+            if not (np.isfinite(run["losses"]).all()
+                    and run["replay_bitwise"]):
+                raise AssertionError(
+                    f"rank {rec['rank']} {arch}: losses {run['losses']}, "
+                    f"replay {run['replay']}")
+        first = recs[0][runs][arch]
+        ms = np.max([rec[runs][arch]["ms"] for rec in recs], axis=0)[1:]
+        secs = np.max([rec[runs][arch]["seconds"] for rec in recs], axis=0)[1:]
+        res = {**{k: first[k] for k in (
+            "layers", "d_model", "compute_dtype", "master_dtype", "remat",
+            "batch", "seq", "steps", "ckpt_at", "losses", "grad_norms",
+            "replay", "replay_bitwise", "run_s", "replay_s")},
+            "first_step_ms_max_over_ranks": max(rec[runs][arch]["ms"][0]
+                                                for rec in recs),
+            "step_ms_p50": float(np.percentile(ms, 50)),
+            "step_ms_p99": float(np.percentile(ms, 99)),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(secs) / float(
+                secs.sum()),
+            "max_memory_allocated_gb_by_rank": [
+                rec[runs][arch]["max_memory_allocated_gb"] for rec in recs]}
+        if part == "full":
+            res.update({k: [rec[runs][arch][k] for rec in recs] for k in (
+                "held_bytes", "bytes_gate", "comm_payload", "profiled_step")})
+            res.update({k: first[k] for k in (
+                "predicted_bytes", "leaves", "comm_counts", "ring_model",
+                "ring_model_argument_bytes")})
+            if not all(res["bytes_gate"]):
+                raise AssertionError(
+                    f"{arch}: a rank's arguments are not the rules' bytes: "
+                    f"{res['held_bytes']} vs {first['predicted_bytes']}")
+        else:
+            par = recs[0]["parity"][arch]
+            res["parity"] = {k: v for k, v in par.items()
+                             if k not in ("launches", "steps_run")}
+            if not par["ok"]:
+                raise AssertionError(f"{arch} sharded step against one card: "
+                                     f"{par}")
+        out[runs][arch] = res
     emit(out)
     shutil.rmtree(out_dir, ignore_errors=True)
-    return {"launches": launches}
+    return {"launches": {k: v for k, v in launches.items()
+                         if k != "ssd_chunk_plain_grad"},
+            "plain_vjp_backward": launches["ssd_chunk_plain_grad"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4851,7 +4936,8 @@ def main(argv=None) -> int:
                 # the plain scan's VJP on the training paths
                 row["plain_vjp_backward_by_path"] = {
                     name: p["plain_vjp_backward"] for name, p in
-                    (("training", training), ("dryrun", dryrun))
+                    (("training", training), ("train_sharded", sharded),
+                     ("dryrun", dryrun))
                     if p is not None}
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",

@@ -34,11 +34,22 @@ path, bit for bit):
 * :func:`zeros_like_scalar`: a scalar accumulator (the loss sums, the aux
   terms) as a replicated ``DTensor`` on the mesh of the tensor it joins;
   nothing relies on ``implicit_replication``.
+* :class:`SSDHeads`: the Mamba-2 mixer on each rank's own SSD heads, from
+  ``in_proj`` and the conv gathered over "model" (the rules split them
+  inside xBC, off the heads' boundaries) with the gradient of every
+  gathered weight a sum over "model" (:func:`gathered_local`), and the
+  gated norm's squares summed over "model".  The scan takes plain
+  tensors: K7 on the card.
+* :func:`batch_rows`: hymba's meta tokens repeated over each rank's own
+  batch rows.
 
 Every collective here goes through a ``DTensor`` redistribution, so
 autograd carries it into the backward; the one exception, the max that
 steadies the exponentials, is detached (its value cancels in the
-gradient).
+gradient).  Where each rank goes on to use a gathered or summed tensor
+on its own part of the work, the backward must sum the ranks' gradients,
+which DTensor's default backward of a gather does not (it keeps a local
+chunk): those carry ``Partial`` gradient placements.
 """
 
 from __future__ import annotations
@@ -164,6 +175,22 @@ def _sum_over(local: torch.Tensor, like: DTensor,
                                                             dst).to_local()
 
 
+def _partial_on(t: DTensor, dims) -> list:
+    """``t``'s placements with ``Partial`` on the mesh dims ``dims``."""
+    return [Partial() if i in dims else p for i, p in enumerate(t.placements)]
+
+
+def _sum_for_parts(local: torch.Tensor, like: DTensor,
+                   dims: list[int]) -> torch.Tensor:
+    """:func:`_sum_over`, where each rank goes on to use the sum on its
+    own part of the work (its heads): the gradient each rank returns is
+    then its part of a sum over ``dims`` too, which the backward adds up
+    (DTensor's default would take it as already whole)."""
+    mesh, part = like.device_mesh, _partial_on(like, dims)
+    return from_local_layout(local, mesh, part).redistribute(
+        mesh, like.placements).to_local(grad_placements=part)
+
+
 def _grad_placements(param: DTensor, data: DTensor) -> list:
     """The placements of the gradient a rank computes for ``param``'s
     local shard from ``data``'s local shard: partial over every mesh dim
@@ -177,12 +204,14 @@ def _grad_placements(param: DTensor, data: DTensor) -> list:
     return out
 
 
-def local_replica(param: DTensor, like: DTensor) -> torch.Tensor:
+def local_replica(param: DTensor, like: DTensor, split=()) -> torch.Tensor:
     """A replicated parameter's (a qk-norm weight's) local copy, for use on
     ``like``'s local shard: its gradient is this rank's part of a sum over
-    every mesh dim that splits ``like``."""
-    grad = [Partial() if isinstance(lp, Shard) else pp
-            for pp, lp in zip(param.placements, like.placements)]
+    every mesh dim that splits ``like`` and over ``split`` (dims whose ranks
+    each keep their own part of the result)."""
+    grad = [Partial() if isinstance(lp, Shard) or i in split else pp
+            for i, (pp, lp) in enumerate(zip(param.placements,
+                                             like.placements))]
     return param.to_local(grad_placements=grad)
 
 
@@ -258,8 +287,17 @@ def _gather_last(t: DTensor) -> DTensor:
         Replicate() if i in dims else p for i, p in enumerate(t.placements)])
 
 
+def whole_heads_split(like: DTensor, wo: DTensor) -> list[int]:
+    """Where a rank computed every head (``like``'s last dim whole), the
+    mesh dims on which it keeps only its own columns of the attention
+    output: those that split the output projection ``wo``'s rows."""
+    if _sharded_dims(like, like.ndim - 1):
+        return []
+    return _sharded_dims(wo, 0)
+
+
 def local_heads(q: DTensor, k: DTensor, v: DTensor, n_heads: int,
-                n_kv_heads: int):
+                n_kv_heads: int, wo: DTensor | None = None):
     """q (B, T, Hq * Dq), k (B, T, Hkv * Dq), v (B, T, Hkv * Dv) as each
     rank's plain (b, T, h, D) q and the (b, T, hkv, D) k / v its q heads
     attend to, with ``hkv`` dividing ``h`` as GQA needs.  Returns (q, k,
@@ -271,38 +309,167 @@ def local_heads(q: DTensor, k: DTensor, v: DTensor, n_heads: int,
     kv heads of its own q heads, repeated to one a q head (their gradient
     is then this rank's part of a sum over "model").  A q projection that
     "model" does not split into whole heads is gathered whole, and every
-    rank computes every head."""
+    rank computes every head; where the output projection ``wo``'s rows
+    are split, each rank keeps its own columns of the output, so the
+    gradients of q, k and v are then its part of a sum over those dims."""
     if not _heads_split(q, n_heads):
         q = _gather_last(q)
     q_dims = _sharded_dims(q, q.ndim - 1)
-    q_loc = q.to_local()
+    part = whole_heads_split(q, wo) if wo is not None else []
+    q_loc = q.to_local(grad_placements=_partial_on(q, part))
     b, T = q_loc.shape[:2]
     h = q_loc.shape[-1] * n_heads // q.shape[-1]
     q_loc = q_loc.reshape(b, T, h, -1)
     if (_heads_split(k, n_kv_heads) and _heads_split(v, n_kv_heads)
             and _sharded_dims(k, k.ndim - 1) == q_dims
             and _sharded_dims(v, v.ndim - 1) == q_dims):
-        kv = [t.to_local() for t in (k, v)]
+        kv = [t.to_local(grad_placements=_partial_on(t, part))
+              for t in (k, v)]
         hkv = kv[0].shape[-1] * n_kv_heads // k.shape[-1]
         return (q_loc, kv[0].reshape(b, T, hkv, -1),
                 kv[1].reshape(b, T, hkv, -1), q)
     # gather the kv heads; keep those of this rank's q heads, one a q head
+    # (an expand, whose backward sums in a fixed order: index_select's
+    # adds atomically on the card, and the step would not replay bit for
+    # bit)
     first = _shard_offset(q, q.ndim - 1)[0] * n_heads // q.shape[-1]
-    idx = torch.arange(first, first + h, device=q_loc.device) // (
-        n_heads // n_kv_heads)
+    group = n_heads // n_kv_heads
+    lo, hi = first // group, (first + h - 1) // group + 1
     out = []
     for t in (k, v):
         g = _gather_last(t)
-        grad = [Partial() if i in q_dims else p
-                for i, p in enumerate(g.placements)]
+        grad = _partial_on(g, q_dims + part)
         full = g.to_local(grad_placements=grad).reshape(b, T, n_kv_heads, -1)
-        out.append(full.index_select(2, idx))
+        rep = full[:, :, lo:hi, None].expand(-1, -1, -1, group, -1)
+        rep = rep.reshape(b, T, (hi - lo) * group, -1)
+        out.append(rep[:, :, first - lo * group:first - lo * group + h])
     return q_loc, out[0], out[1], q
 
 
-def from_local_heads(out: torch.Tensor, like: DTensor) -> DTensor:
+def from_local_heads(out: torch.Tensor, like: DTensor,
+                     wo: DTensor | None = None) -> DTensor:
     """Each rank's (b, T, h, D) attention output as the (B, T, H * D)
-    ``DTensor`` laid out as the q projection ``like`` was."""
+    ``DTensor`` laid out as the q projection ``like`` was; where the rank
+    computed every head and ``wo``'s rows are split, only its own columns,
+    split as those rows (no implicit redistribution before ``wo``)."""
     b, T = out.shape[:2]
-    return from_local_layout(out.reshape(b, T, -1), like.device_mesh,
-                             like.placements)
+    out = out.reshape(b, T, -1)
+    placements = list(like.placements)
+    part = whole_heads_split(like, wo) if wo is not None else []
+    if part:
+        lo, size = _shard_offset(wo, 0)
+        out = out[..., lo:lo + size]
+        for i in part:
+            placements[i] = Shard(2)
+    return from_local_layout(out, like.device_mesh, placements)
+
+
+def gathered_local(param: DTensor, like: DTensor, split) -> torch.Tensor:
+    """``param`` whole on this rank, plain: gathered over the mesh dims
+    that shard it.  Its gradient is this rank's part of a sum over the
+    mesh dims that split ``like`` (the batch) and over ``split`` (dims
+    whose ranks each use their own part of it); DTensor's default
+    backward of the gather would keep a local chunk instead."""
+    mesh = param.device_mesh
+    whole_p = param.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = [Partial() if i in split or isinstance(lp, Shard) else Replicate()
+            for i, lp in enumerate(like.placements)]
+    return whole_p.to_local(grad_placements=grad)
+
+
+def batch_rows(param: DTensor, like: DTensor) -> DTensor:
+    """A replicated (n, D) parameter (hymba's meta tokens) repeated over
+    the batch of ``like`` (B, T, D), laid out as ``like``: each rank
+    repeats it over its own rows, and its gradient is summed over the mesh
+    dims that split the batch."""
+    local = local_replica(param, like)
+    b = like.to_local().shape[0]
+    return from_local_layout(local[None].expand(b, *local.shape),
+                             like.device_mesh, like.placements)
+
+
+class SSDHeads:
+    """Each rank's share of a Mamba-2 (SSD) mixer on a ``DTensor`` input
+    x (B, T, D), split over the batch and replicated on "model".
+
+    The rules column-shard ``in_proj`` (z | x | B | C | dt) and
+    ``conv_w`` / ``conv_b`` (x | B | C) on "model" at boundaries that are
+    not the mixer's (they fall inside xBC), and leave ``A_log``, ``D`` and
+    ``dt_bias`` replicated.  So those are gathered over "model", and each
+    rank takes the columns of its own SSD heads and the B / C columns of
+    their groups (:attr:`x`, :attr:`params`: plain tensors, which the
+    scan, K7 on the card, takes as one card's).  Every gradient of a
+    gathered weight and of x is marked as this rank's part of a sum over
+    the mesh dims the heads are split on.
+
+    Heads split over "model" when it divides them (and the groups of a
+    rank's heads are whole): there ``norm_w`` and ``out_proj``'s rows are
+    split on head boundaries, and the gated norm sums its squares over
+    "model" (:meth:`out`).  Otherwise every rank computes every head, and
+    takes its own columns of the normed output where ``out_proj``'s rows
+    are split.  ``out_proj``'s product is then a partial sum over
+    "model", which the residual stream's ``like`` completes."""
+
+    def __init__(self, x: DTensor, p: dict, H: int, P: int, N: int, G: int):
+        mesh = x.device_mesh
+        self.like, self.d_inner = x, H * P
+        self.norm_w, self.out_proj = p["norm_w"], p["out_proj"]
+        self.split = _sharded_dims(self.out_proj, 0)
+        if _sharded_dims(self.norm_w, 0) != self.split:
+            raise ValueError("norm_w and out_proj split d_inner apart")
+        if any(isinstance(x.placements[i], Shard) for i in self.split):
+            raise NotImplementedError("the SSD mixer takes x replicated on "
+                                      "the mesh dims of its heads")
+        n = 1
+        for i in self.split:
+            n *= mesh.size(i)
+        h, hpg = H // n, H // G
+        self.local = bool(self.split) and H % n == 0 and (
+            h % hpg == 0 or hpg % h == 0)
+        first = _shard_offset(self.out_proj, 0)[0] // P if self.local else 0
+        if not self.local:
+            h = H
+        g0, g1 = first // hpg, (first + h - 1) // hpg + 1
+        self.h, self.groups = h, g1 - g0
+        d_inner, GN = H * P, G * N
+        heads = (first * P, (first + h) * P)
+        xbc = [heads, (d_inner + g0 * N, d_inner + g1 * N),
+               (d_inner + GN + g0 * N, d_inner + GN + g1 * N)]
+        dt = 2 * d_inner + 2 * GN + first
+
+        def take(name, spans):
+            w = gathered_local(p[name], x, self.split)
+            if h == H and self.groups == G:     # every column, in order
+                return w
+            return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+
+        self.params = {
+            "in_proj": take("in_proj", [heads] + [
+                (a + d_inner, b + d_inner) for a, b in xbc] + [(dt, dt + h)]),
+            "conv_w": take("conv_w", xbc),
+            "conv_b": take("conv_b", xbc),
+            **{k: take(k, [(first, first + h)])
+               for k in ("A_log", "D", "dt_bias")},
+        }
+        self.x = x.to_local(grad_placements=_partial_on(x, self.split))
+
+    def out(self, y: torch.Tensor, z: torch.Tensor, eps: float) -> DTensor:
+        """The gated RMSNorm of this rank's (b, T, h * P) scan output ``y``
+        and gate ``z`` over all of d_inner, as ``models.common.rms_norm``
+        computes it (float32), then ``out_proj``: a ``DTensor`` (B, T, D),
+        a partial sum over the mesh dims of the heads."""
+        x, mesh = self.like, self.like.device_mesh
+        g = (y * F.silu(z)).float()
+        ss = g.square().sum(dim=-1, keepdim=True)
+        if self.local:
+            ss = _sum_for_parts(ss, x, self.split)
+        g = g * torch.rsqrt(ss / self.d_inner + eps)
+        if self.split and not self.local:
+            lo, size = _shard_offset(self.norm_w, 0)
+            g = g[..., lo:lo + size]
+        w = self.norm_w.to_local(grad_placements=_grad_placements(
+            self.norm_w, x))
+        g = (g * w.float()).to(y.dtype)
+        placements = [Shard(2) if i in self.split else pl
+                      for i, pl in enumerate(x.placements)]
+        return from_local_layout(g, mesh, placements) @ self.out_proj

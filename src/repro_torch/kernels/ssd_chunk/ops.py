@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import on_cpu
 from repro_torch.kernels.ssd_chunk import kernel
@@ -33,7 +34,12 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     (B, T, N) or (B, T, G, N), init_state (B, H, P, N) or None (zeros).
     T is padded to a chunk multiple with dt = 0 steps, which leave the
     state exactly as it is (decay exp(0) = 1, input weight 0); the padded
-    outputs are trimmed."""
+    outputs are trimmed.  A ``DTensor`` argument is refused: K7 reads
+    storage, so a sharded caller hands each rank's own heads as plain
+    tensors (``distributed.tensor_parallel.SSDHeads``)."""
+    if any(isinstance(t, DTensor) for t in (x, dt, A, Bm, Cm, init_state)):
+        raise TypeError("ssd_scan takes plain tensors, not DTensors: pass "
+                        "each rank's local heads (tensor_parallel.SSDHeads)")
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     if init_state is None:

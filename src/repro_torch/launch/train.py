@@ -24,8 +24,10 @@ rendezvous.  ``--device`` defaults to the CUDA cards (rank r on card
 ``LOCAL_RANK % count`` over NCCL, at most one rank a card: ranks that
 share a card are refused; ``--device cpu`` runs the ranks over gloo).
 The master weights come from the port's seeded init in
-``cfg.param_dtype``, drawn alike on every rank.  The sharded step covers the dense families
-(ROADMAP step 16c); the others' wait for step 16c(b).
+``cfg.param_dtype``, drawn alike on every rank.  The sharded step covers
+the dense families (ROADMAP step 16c) and the SSM and hybrid ones
+(mamba2, hymba: each rank scans its own SSD heads, through K7 on the
+card); the others wait for step 16c(b).
 """
 
 from __future__ import annotations
@@ -71,14 +73,17 @@ def mesh_batch(batch: dict, mesh: DistMesh) -> dict:
     return SH.place(tensors, SH.batch_specs(tensors, dp_axes(mesh)), mesh)
 
 
+SHARDED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def sharded_families_check(cfg: ArchConfig) -> None:
     """Raise for a config the sharded step does not cover yet."""
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family not in SHARDED_FAMILIES or cfg.use_mla:
         kind = f"{cfg.family}, MLA" if cfg.use_mla else cfg.family
         raise NotImplementedError(
-            f"the sharded train step covers the dense families; {cfg.name} "
-            f"({kind}) waits for ROADMAP step 16c(b): run it with "
-            "--model-parallel 1 on one device")
+            "the sharded train step covers the dense, SSM and hybrid "
+            f"families; {cfg.name} ({kind}) waits for ROADMAP step 16c(b): "
+            "run it with --model-parallel 1 on one device")
 
 
 def placed_state(cfg: ArchConfig, tcfg: TrainConfig, mesh: DistMesh,

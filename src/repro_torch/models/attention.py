@@ -68,8 +68,10 @@ def _project_qkv(x, p, cfg: ArchConfig, positions):
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     like = None
     if TP.is_dtensor(q):
-        q, k, v, like = TP.local_heads(q, k, v, Hq, Hkv)
-        q_norm, k_norm = (TP.local_replica(p[n], like) if cfg.qk_norm else None
+        q, k, v, like = TP.local_heads(q, k, v, Hq, Hkv, p["wo"])
+        split = TP.whole_heads_split(like, p["wo"])
+        q_norm, k_norm = (TP.local_replica(p[n], like, split)
+                          if cfg.qk_norm else None
                           for n in ("q_norm", "k_norm"))
     else:
         q = q.reshape(B, T, Hq, Dh)
@@ -103,7 +105,7 @@ def gqa_seq(x, p, cfg: ArchConfig, *, is_global: bool = False, positions=None,
                           kv_block=kv_block)
     out = constrain(out, "attn_out")
     if like is not None:        # each rank's heads back into the DTensor
-        out = TP.from_local_heads(out, like)
+        out = TP.from_local_heads(out, like, p["wo"])
     y = out.reshape(B, T, -1) @ p["wo"]
     if return_kv:
         return y, (k, v)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models.common import rms_norm
@@ -30,7 +31,12 @@ def init_hybrid(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
     }
 
 
-def _mix(ya, ys, p, cfg: ArchConfig):
+def _mix(ya, ys, p, cfg: ArchConfig, x):
+    """The branches' RMSNorms, averaged.  On ``DTensor``s each branch's
+    partial sum over "model" (its row-sharded output projection) is
+    completed in ``x``'s layout first: the norm of a partial sum is not
+    the sum of the norms."""
+    ya, ys = TP.like(ya, x), TP.like(ys, x)
     return 0.5 * (rms_norm(ya, p["attn_out_norm"], cfg.norm_eps)
                   + rms_norm(ys, p["ssm_out_norm"], cfg.norm_eps))
 
@@ -44,10 +50,10 @@ def hybrid_seq(x, p, cfg: ArchConfig, *, is_global: bool = False,
                                positions=positions, return_kv=True)
         ys, ssm_state, conv_state = S.ssm_seq(x, p["ssm"], cfg,
                                               return_state=True)
-        return _mix(ya, ys, p, cfg), (k, v), (conv_state, ssm_state)
+        return _mix(ya, ys, p, cfg, x), (k, v), (conv_state, ssm_state)
     ya = A.gqa_seq(x, p["attn"], cfg, is_global=is_global, positions=positions)
     ys = S.ssm_seq(x, p["ssm"], cfg)
-    return _mix(ya, ys, p, cfg)
+    return _mix(ya, ys, p, cfg, x)
 
 
 def hybrid_decode(x_t, p, cfg: ArchConfig, k_cache, v_cache, length,
@@ -58,4 +64,4 @@ def hybrid_decode(x_t, p, cfg: ArchConfig, k_cache, v_cache, length,
                                         length, is_global=is_global)
     ys, conv_state, ssm_state = S.ssm_decode(x_t, p["ssm"], cfg, conv_state,
                                              ssm_state)
-    return _mix(ya, ys, p, cfg), k_cache, v_cache, conv_state, ssm_state
+    return _mix(ya, ys, p, cfg, x_t), k_cache, v_cache, conv_state, ssm_state

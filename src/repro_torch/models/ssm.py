@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels.ssd_chunk.ops import ssd_decode_step, ssd_scan
 from repro_torch.models.common import dense_init, rms_norm
 
@@ -51,8 +52,7 @@ def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
     }
 
 
-def _split_proj(zxbcdt, cfg: ArchConfig):
-    H, P, N, G, d_inner, conv_ch, _ = _dims(cfg)
+def _split_proj(zxbcdt, d_inner: int, conv_ch: int):
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner: d_inner + conv_ch]
     dt = zxbcdt[..., d_inner + conv_ch:]
@@ -74,12 +74,26 @@ def ssm_seq(x, p, cfg: ArchConfig, *, return_state: bool = False,
     """Full-sequence SSD mixer.  x (B, T, D) -> (B, T, D); with
     ``return_state`` also the final SSM state (B, H, P, N) f32 and the
     decode conv state, the last d_conv - 1 pre-conv rows (B, d_conv - 1,
-    conv_ch), zero-padded on the left when T is shorter."""
-    B, T, _ = x.shape
+    conv_ch), zero-padded on the left when T is shorter.
+
+    On a ``DTensor`` x (the sharded train step) each rank runs the mixer
+    on its own SSD heads, from plain tensors
+    (``tensor_parallel.SSDHeads``), and the result is a ``DTensor``: a
+    partial sum over "model" where ``out_proj``'s rows are split."""
     H, P, N, G, d_inner, conv_ch, _ = _dims(cfg)
+    shard = None
+    if TP.is_dtensor(x):
+        if return_state or init_state is not None:
+            raise NotImplementedError("sharded serving caches (cache_specs) "
+                                      "are not ported: the SSM states need "
+                                      "one card")
+        shard = TP.SSDHeads(x, p, H, P, N, G)
+        x, p, H, G = shard.x, shard.params, shard.h, shard.groups
+        d_inner, conv_ch = H * P, H * P + 2 * G * N
+    B, T, _ = x.shape
 
     zxbcdt = x @ p["in_proj"]
-    z, xBC_pre, dt = _split_proj(zxbcdt, cfg)
+    z, xBC_pre, dt = _split_proj(zxbcdt, d_inner, conv_ch)
     xBC = F.silu(_causal_conv(xBC_pre, p["conv_w"], p["conv_b"]))
     xs = xBC[..., :d_inner].reshape(B, T, H, P)
     Bm = xBC[..., d_inner: d_inner + G * N].reshape(B, T, G, N)
@@ -95,6 +109,8 @@ def ssm_seq(x, p, cfg: ArchConfig, *, return_state: bool = False,
         chunk=min(cfg.ssm_chunk, max(8, T)))
     y = y + p["D"][None, None, :, None] * xs.float()
     y = y.reshape(B, T, d_inner).to(x.dtype)
+    if shard is not None:
+        return shard.out(y, z, cfg.norm_eps)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if return_state:
@@ -114,7 +130,7 @@ def ssm_decode(x_t, p, cfg: ArchConfig, conv_state, ssm_state):
     H, P, N, G, d_inner, conv_ch, _ = _dims(cfg)
 
     zxbcdt = x_t @ p["in_proj"]
-    z, xBC_t, dt = _split_proj(zxbcdt, cfg)                  # (B,1,*)
+    z, xBC_t, dt = _split_proj(zxbcdt, d_inner, conv_ch)     # (B, 1, *)
     window = torch.cat([conv_state, xBC_t], dim=1)           # (B, d_conv, C)
     conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
     xBC = F.silu(conv_out)                                   # (B, C)

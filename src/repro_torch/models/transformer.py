@@ -242,7 +242,7 @@ def _layer_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
         if return_cache:
             y, sstate, cstate = S.ssm_seq(h, lp["ssm"], cfg, return_state=True)
             return x + y, {}, {"conv": cstate, "ssm": sstate}
-        return x + S.ssm_seq(h, lp["ssm"], cfg), {}, None
+        return x + TP.like(S.ssm_seq(h, lp["ssm"], cfg), x), {}, None
     if kind == "hybrid":
         h = _norm(x, lp["ln1"], cfg)
         cache = None
@@ -252,7 +252,7 @@ def _layer_seq(x, lp, cfg: ArchConfig, kind: str, is_global: bool,
             cache = {"k": k, "v": v, "conv": cstate, "ssm": sstate}
         else:
             y = HY.hybrid_seq(h, lp["mix"], cfg, is_global=is_global)
-        x, _ = _ffn_seq(x + y, lp, cfg)
+        x, _ = _ffn_seq(x + y, lp, cfg)     # _mix completes both branches
         return x, {}, cache
     if kind == "pair":
         x, kva = _attn_seq(x, lp["a"], cfg, "dense", is_global, return_cache)
@@ -351,8 +351,11 @@ def assemble_inputs(params: dict, cfg: ArchConfig, batch: dict):
         x = torch.cat([pv, x], dim=1)
         n_prefix += pv.shape[1]
     if cfg.n_meta_tokens:
-        meta = params["meta_tokens"].to(x.dtype)[None].expand(
-            B, cfg.n_meta_tokens, cfg.d_model)
+        meta = params["meta_tokens"].to(x.dtype)
+        if TP.is_dtensor(x):          # each rank's rows, laid out as x
+            meta = TP.batch_rows(meta, x)
+        else:
+            meta = meta[None].expand(B, cfg.n_meta_tokens, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
         n_prefix += cfg.n_meta_tokens
     return x, n_prefix
