@@ -234,8 +234,8 @@ exits non-zero):
                the first prefill; decode by the recurrence;
 8. families    the families added last, at their published widths with
                bf16 weights from the port's seeded init, one line each:
-               the serving traffic above, cut to 12 requests, through the
-               engine on
+               the serving traffic above, cut to 12 requests of 64 new
+               tokens, through the engine on
                deepseek-moe-16b (a 4,096-position cache; the MoE drops of
                one 2,048-token prompt), minicpm3-4b (MLA, no K6; one
                decode step against the teacher-forced prefill), internvl2-
@@ -257,12 +257,13 @@ exits non-zero):
                1024, 32 SSD heads of 64, d_state 128, vocab 50,280, tied
                embeddings), each at its published widths and depth: bf16
                compute over float32 master weights and AdamW state,
-               remat, the copy task, 16 steps of 8 x 2,048 tokens, lr
-               3e-4 with the launcher's warmup, a checkpoint at step 12
-               on a thread; then that checkpoint restored and steps
-               12-13 replayed.  tokens/s, step ms p50 / p99 (CUDA
-               events), peak memory, ``train_mfu`` (model FLOPs over the
-               H100's dense bf16 peak; mamba2 has no attention term) and
+               remat, the copy task, the first 12 steps of a 16-step
+               schedule of 8 x 2,048 tokens, lr 3e-4 with the launcher's
+               warmup, a checkpoint at step 8 on a thread; then that
+               checkpoint restored and steps 8-9 replayed.  tokens/s,
+               step ms p50 / p99 (CUDA events), peak memory,
+               ``train_mfu`` (model FLOPs over the H100's dense bf16
+               peak; mamba2 has no attention term) and
                the device's busy share of one more, profiled step, and
                for mamba2 the SSD scans' share of the step (one layer's
                scan at the training shape, K7 forward, K7 recompute and
@@ -282,12 +283,15 @@ exits non-zero):
                cards, else one rank on a 1 x 1 mesh (four ranks sharing
                the card would need gloo, whose path for DTensor's
                all-gather of CUDA tensors crashes); qwen2-1.5b,
-               mamba2-370m and hymba-1.5b at full width cut to 2 layers:
+               mamba2-370m, hymba-1.5b and deepseek-moe-16b at full width
+               cut to 2 layers (deepseek: its dense layer and one MoE
+               layer of 64 experts, each rank computing its own):
                (a) float32, TF32 off, one step of 8 x 256 tokens against
                the one-card ``make_train_step`` from the same init and
                batch: loss within 1e-3, every parameter within 2e-3 (the
                reference's 8-devices-equal-1 tolerance), the first moment
-               within 1e-3 of its largest; (b) bf16 over float32 masters,
+               within 1e-3 of its largest, the MoE drops equal to the
+               one-card step's; (b) bf16 over float32 masters,
                remat, 2 layers, 4 steps of 8 x 2,048 tokens with a
                checkpoint at step 2 and a resume from it: finite losses,
                the replay bit for bit; the kernels counted around each
@@ -324,6 +328,8 @@ and one prefill of 2,048 tokens), ``grid_study`` (with ``kernels``: the
 device time of K1-K4b at the phase 2 shape under a grid of one thread a
 packet and of 1, 2 and 3 blocks an SM, in turns) and ``train_sharded_full``
 (four cards: qwen2-1.5b and mamba2-370m at full width and depth on 2 x 2,
+deepseek-moe-16b at full width cut to 8 layers (1 dense + 7 MoE: 4.62 B
+parameters, 17.2 GiB of state a card; 28 layers would hold 61.0),
 16 steps of 8 x 2,048 tokens with a checkpoint at step 12 and its replay,
 K7 counted as in ``train_sharded``; step ms p50 / p99, the largest over
 the ranks; tokens/s; peak memory a card; each rank's argument bytes against
@@ -3377,12 +3383,13 @@ class _K7Capture:
 def _serve_full_width(arch: str, seed: int, check_step: int, check, *,
                       cfg=None, cache_len: int = SERVE_CACHE,
                       requests: int = SERVE_REQUESTS,
+                      new_tokens: int = SERVE_NEW,
                       reduced: dict | None = None, extra=None) -> dict:
     """The serving path at full width: ``ServingEngine`` on ``arch`` (or on
     ``cfg``, a cut of it) with bf16 weights from the port's seeded init,
-    the traffic above (``requests`` of them) into a cache of ``cache_len``
-    positions, a rebalance every 6 steps and the most-loaded shard failed
-    at step 8.
+    the traffic above (``requests`` of them, ``new_tokens`` each) into a
+    cache of ``cache_len`` positions, a rebalance every 6 steps and the
+    most-loaded shard failed at step 8.
     ``check(engine, cfg)`` runs after step ``check_step`` (None: no
     check); ``extra(engine, params, cfg)`` after the run, for reports of
     its own; neither's time is the run's.  Gates: every request finishes,
@@ -3412,7 +3419,7 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check, *,
     plens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, requests)
     for n in plens:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)),
-                   max_new_tokens=SERVE_NEW)
+                   max_new_tokens=new_tokens)
     live: dict = {}
 
     def on_step(step, e):
@@ -3441,7 +3448,7 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check, *,
     # gates: every request finished with its tokens; the failover moved
     # every sequence off the dead shard and none sat on it afterwards
     done = eng.finished
-    short = [r for r in done.values() if len(r.out_tokens) != SERVE_NEW]
+    short = [r for r in done.values() if len(r.out_tokens) != new_tokens]
     if len(done) != requests or short:
         raise AssertionError(f"serving {arch}: {len(done)} of "
                              f"{requests} finished, {len(short)} short")
@@ -3476,7 +3483,7 @@ def _serve_full_width(arch: str, seed: int, check_step: int, check, *,
                            for t in g.values()),
         "slots": SERVE_SLOTS, "cache_len": cache_len,
         "shards": SERVE_SHARDS, "replication": 2,
-        "requests": requests, "new_tokens": SERVE_NEW,
+        "requests": requests, "new_tokens": new_tokens,
         "prompt_tokens": int(plens.sum()), "reduced": cut,
         "setup_s": setup_s, "run_s": run_s, "steps": len(records),
         "tokens": tokens, "tokens_per_s": tokens / run_s,
@@ -3516,6 +3523,9 @@ FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
 # HBM3, 700 W), and the script must stay well inside its time limit (16
 # before phase benches joined it)
 FAMILY_REQUESTS = 12
+# and half their new tokens (63 decode steps, the K6 check at step 32): the
+# script's time limit once phase train_sharded took deepseek-moe-16b
+FAMILY_NEW, FAMILY_K6_CHECK_STEP = 64, 32
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -3749,11 +3759,15 @@ def phase_families(seed: int = 0) -> list[dict]:
         else:
             check = kw.pop("check")
             out = _serve_full_width(
-                arch, seed, SERVE_K6_CHECK_STEP, check,
+                arch, seed, FAMILY_K6_CHECK_STEP, check,
                 cache_len=FAMILY_CACHE[arch], requests=FAMILY_REQUESTS,
+                new_tokens=FAMILY_NEW,
                 reduced={"requests": f"{SERVE_REQUESTS} -> "
                                      f"{FAMILY_REQUESTS}: the script's "
-                                     "time limit", **kw.pop("reduced", {})},
+                                     "time limit",
+                         "new_tokens": f"{SERVE_NEW} -> {FAMILY_NEW}: the "
+                                       "script's time limit",
+                         **kw.pop("reduced", {})},
                 **kw)
         if arch in FAMILY_PARAMS:
             lo, hi = FAMILY_PARAMS[arch]
@@ -3796,21 +3810,28 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 # depth, bf16 compute over float32 master weights and AdamW state, remat,
 # the copy task, launch/train.py's loop and schedule (warmup
 # max(5, steps // 20)); mamba2's SSD scans run K7 forward and the plain
-# chunked scan's VJP backward
+# chunked scan's VJP backward.  The first TRAIN_STEPS steps of the
+# launcher's TRAIN_SCHEDULE-step schedule (cut from all 16 for the
+# script's time limit, with the same losses step for step)
 TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-370m")
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 16
-# one checkpoint, at step 12: its write overlaps the last 4 steps (a
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SCHEDULE = 8, 2048, 12, 16
+# one checkpoint, at step 8: its write overlaps the last 4 steps (a
 # checkpoint at 8 and 16 left the whole of the second's write to wait for)
-TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 12, 2
+TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 8, 2
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+def train_flops(cfg, params: dict, batch: int, seq: int) -> float:
     """Model FLOPs of one train step (forward and backward, no remat):
-    6 x parameters x tokens, plus attention's 12 x layers x q width x
-    sequence per token (PaLM's count, the whole T x T square); an
-    attention-free config (mamba2, ``n_heads`` 0) has no attention term."""
+    6 x active parameters x tokens (a routed expert's weights count top_k
+    / n_experts of their size, ``launch.roofline``'s rule), plus
+    attention's 12 x layers x q width x sequence per token (PaLM's count,
+    the whole T x T square); an attention-free config (mamba2,
+    ``n_heads`` 0) has no attention term."""
+    from repro_torch.launch.roofline import tree_param_counts
+
     tokens = batch * seq
-    return (6.0 * n_params * tokens
+    _, active = tree_param_counts(cfg, params)
+    return (6.0 * active * tokens
             + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
 
 
@@ -3894,8 +3915,9 @@ def _scan_ms(cfg, reps: int = 3, queue: int = 10) -> dict:
 
 def _train_full_width(arch: str) -> dict:
     """``launch/train.py``'s loop on ``arch`` at full width:
-    ``TRAIN_STEPS`` steps of 8 x 2,048 tokens, a checkpoint every
-    ``TRAIN_CKPT_EVERY`` on a thread; then that checkpoint restored and
+    the first ``TRAIN_STEPS`` steps of a ``TRAIN_SCHEDULE``-step schedule
+    of 8 x 2,048 tokens, a checkpoint every ``TRAIN_CKPT_EVERY`` on a
+    thread; then that checkpoint restored and
     the next ``TRAIN_REPLAY`` steps replayed.  Gates: the mean loss of
     the last 5 steps under that of the first 5 (the reference's
     ``test_loss_decreases``), finite losses, no kernel of the port
@@ -3925,7 +3947,7 @@ def _train_full_width(arch: str) -> dict:
     ssm = cfg.family in ("ssm", "hybrid")
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     steps = TRAIN_STEPS
-    tcfg = train_config(steps, TRAIN_LR)
+    tcfg = train_config(TRAIN_SCHEDULE, TRAIN_LR)
     ckpt = OUT / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     lines: list[str] = []
@@ -3952,7 +3974,7 @@ def _train_full_width(arch: str) -> dict:
     ms = [r["ms"] for r in recs[1:]]           # the first step warms up
     secs = [r["seconds"] for r in recs[1:]]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    flops = train_flops(cfg, state["params"], TRAIN_BATCH, TRAIN_SEQ)
     # the device's busy share of one more step (the state it makes is
     # dropped); device activity only: a step issues ~64,000 kernels, and
     # the operator events would take the trace's processing past a minute
@@ -4026,7 +4048,8 @@ def _train_full_width(arch: str) -> dict:
         "resume": {"from_step": TRAIN_CKPT_EVERY, "losses": again,
                    "first_run": first, "bitwise": again == first,
                    "max_abs_diff": max(diffs), "seconds": replay_s},
-        "reduced": {"steps": f"{TRAIN_STEPS}: the script's time limit"},
+        "reduced": {"steps": f"{TRAIN_STEPS} of a {TRAIN_SCHEDULE}-step "
+                             "schedule: the script's time limit"},
     }
     if scan is not None:
         out["scan"] = scan
@@ -4067,7 +4090,7 @@ def phase_training() -> dict:
 # wait_tensor (torch 2.11; c10d's own collectives pass), so the launcher
 # refuses ranks that share a card and the collectives are proven on
 # four cards and in the CPU tests.  For each of SHARDED_ARCHS (the dense,
-# SSM and hybrid families) at full width cut to 2 layers: (a) parity,
+# SSM, hybrid and MoE families) at full width cut to 2 layers: (a) parity,
 # float32 compute, TF32 off, one step of 8 x 256 tokens against the
 # one-card make_train_step from the same init and batch (on rank 0's
 # card); (b) bf16 over float32 masters, remat, 8 x 2,048 tokens,
@@ -4075,11 +4098,17 @@ def phase_training() -> dict:
 # resume from it.  K7 is counted around the sharded steps alone: each rank
 # scans its own SSD heads once a layer and step, twice under remat.
 # train_sharded_full (run only when named; four cards): SHARDED_FULL_ARCHS
-# at full width and depth on 2 x 2 for SHARDED_FULL_STEPS steps, the
-# measurements of PERF.md's sharded-step table
+# at full width and depth (or the depth of SHARDED_FULL_LAYERS) on 2 x 2
+# for SHARDED_FULL_STEPS steps, the measurements of PERF.md's sharded-step
+# table
 SHARDED_MP = 2
-SHARDED_ARCHS = ("qwen2-1.5b", "mamba2-370m", "hymba-1.5b")
-SHARDED_FULL_ARCHS = ("qwen2-1.5b", "mamba2-370m")
+SHARDED_ARCHS = ("qwen2-1.5b", "mamba2-370m", "hymba-1.5b",
+                 "deepseek-moe-16b")
+SHARDED_FULL_ARCHS = ("qwen2-1.5b", "mamba2-370m", "deepseek-moe-16b")
+# deepseek's 28 layers hold 61.0 GiB of state a card on 2 x 2 (f32 masters
+# over "model", m and v over both axes) before gradients and activations;
+# 8 (1 dense + 7 MoE, 4.62 B parameters) hold 17.2 GiB
+SHARDED_FULL_LAYERS = {"deepseek-moe-16b": 8}
 SHARDED_PARITY_LAYERS = 2
 SHARDED_PARITY_SHAPE = (8, 256)          # batch, tokens
 SHARDED_LOSS_TOL = 1e-3                  # tests/test_dist.py's 8 == 1 test
@@ -4169,6 +4198,7 @@ def _sharded_parity(mesh, arch: str) -> dict:
         loss = TP.whole(m["loss"]).item()
         launches = _kernel_launches()
         gnorm = TP.whole(m["grad_norm"]).item()
+        dropped = TP.whole(m["moe_dropped"]).item()
         del state
         new = SH.gather(new)
         run = {"launches": launches, "steps_run": 1, "remat": tcfg.remat,
@@ -4190,13 +4220,16 @@ def _sharded_parity(mesh, arch: str) -> dict:
            "loss": loss, "loss_one_card": float(ref_m["loss"]),
            "loss_err": abs(loss - float(ref_m["loss"])),
            "grad_norm": gnorm, "grad_norm_one_card": float(ref_m["grad_norm"]),
+           "moe_dropped": dropped,
+           "moe_dropped_one_card": int(ref_m["moe_dropped"]),
            "params_worst": worst(new["params"], ref_new["params"]),
            "m_worst_over_max": worst(new["opt"]["m"],
                                      ref_new["opt"]["m"]) / m_scale,
            "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"]), **run}
     out["ok"] = (out["loss_err"] < SHARDED_LOSS_TOL
                  and out["params_worst"] < SHARDED_PARAM_TOL
-                 and out["m_worst_over_max"] < SHARDED_MOMENT_TOL)
+                 and out["m_worst_over_max"] < SHARDED_MOMENT_TOL
+                 and out["moe_dropped"] == out["moe_dropped_one_card"])
     del new, ref_new
     return out
 
@@ -4315,7 +4348,8 @@ def _sharded_full(mesh, out_dir: Path, arch: str) -> dict:
     from repro_torch.training.step import abstract_train_state, make_train_step
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = _sharded_cfg(arch)
+    layers = SHARDED_FULL_LAYERS.get(arch)
+    cfg = _sharded_cfg(arch, layers)
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     tcfg = train_config(SHARDED_FULL_STEPS, TRAIN_LR)
     cell = DRY.build_cell(cfg, f"train@B{TRAIN_BATCH}xT{TRAIN_SEQ}",
@@ -4338,8 +4372,10 @@ def _sharded_full(mesh, out_dir: Path, arch: str) -> dict:
     n_leaves = len(T.leaves(state)) + len(batch)
     del state, batch
     _free_card()
-    run = _sharded_train(mesh, out_dir, arch, layers=None,
+    run = _sharded_train(mesh, out_dir, arch, layers=layers,
                          steps=SHARDED_FULL_STEPS, ckpt_at=SHARDED_FULL_CKPT)
+    run["reduced"] = ([f"n_layers {_sharded_cfg(arch).n_layers} -> {layers}"]
+                      if layers else [])
     # one more step's collectives, counted
     state, _ = placed_state(cfg, tcfg, mesh)
     batch = mesh_batch(make_batch(cfg, shape, 0, DataConfig("copy")), mesh)
@@ -4534,7 +4570,7 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                 "held_bytes", "bytes_gate", "comm_payload", "profiled_step")})
             res.update({k: first[k] for k in (
                 "predicted_bytes", "leaves", "comm_counts", "ring_model",
-                "ring_model_argument_bytes")})
+                "ring_model_argument_bytes", "reduced")})
             if not all(res["bytes_gate"]):
                 raise AssertionError(
                     f"{arch}: a rank's arguments are not the rules' bytes: "

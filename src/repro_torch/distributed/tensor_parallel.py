@@ -40,6 +40,12 @@ path, bit for bit):
   gathered weight a sum over "model" (:func:`gathered_local`), and the
   gated norm's squares summed over "model".  The scan takes plain
   tensors: K7 on the card.
+* :class:`ExpertShard`: the MoE layer on each rank's own batch rows and
+  experts (the rules split the routed experts on E over "model"): every
+  model rank holds its data rows' tokens, so the dispatch needs no
+  all-to-all, only the per-expert counts all-gathered over the data axes
+  (the whole batch's queue order), and the combine is a partial sum over
+  "model" that :func:`add_parts` joins to the shared experts' own.
 * :func:`batch_rows`: hymba's meta tokens repeated over each rank's own
   batch rows.
 
@@ -473,3 +479,114 @@ class SSDHeads:
         placements = [Shard(2) if i in self.split else pl
                       for i, pl in enumerate(x.placements)]
         return from_local_layout(g, mesh, placements) @ self.out_proj
+
+
+def add_parts(a: DTensor, b: DTensor) -> DTensor:
+    """``a + b`` for two ``DTensor``s of one shape, either of them a
+    partial sum over mesh dims where the other is whole: the partial one
+    is summed first (a whole one is never cut into parts, which DTensor
+    does by dividing it)."""
+    if a.placements != b.placements:
+        if any(p.is_partial() for p in a.placements):
+            a = a.redistribute(a.device_mesh, b.placements)
+        else:
+            b = b.redistribute(b.device_mesh, a.placements)
+    return a + b
+
+
+class ExpertShard:
+    """Each rank's share of an MoE layer (``models.moe.moe_layer``) on a
+    ``DTensor`` x (B, T, D), split over the batch and replicated on
+    "model".
+
+    The rules split the routed experts' ``wg``, ``wu`` and ``wo`` (E, ...)
+    on E over "model" when it divides E (:attr:`split`, the mesh dims that
+    split them), and leave the router replicated.  Each rank routes its
+    own batch rows (every model rank alike), gathers the slots of its own
+    experts (:attr:`experts`, from :attr:`first_expert` on) from those
+    rows, and its combine is its part of a sum over :attr:`split`
+    (:meth:`out`).  Where the rules replicate the experts, every rank
+    computes every expert on its rows and nothing is summed.
+
+    The one-card layer's semantics over the whole batch: the capacity of
+    its tokens (:attr:`n_data` x the local ones); each assignment's place
+    in its expert's queue after those of the data ranks before it, whose
+    rows come first (:meth:`queues`: the per-expert counts all-gathered
+    over the data dims); the aux term's mean probability and counts over
+    the whole batch (:meth:`batch_sum`).
+
+    Gradients: :attr:`x` and :attr:`router` are used on the dispatch path
+    for this rank's experts only, so their gradients are its part of a sum
+    over :attr:`split` (the router's over the data dims too).  The aux
+    term reads them whole on every model rank: only the first rank of
+    :attr:`split` carries its gradient (:meth:`batch_sum`), so it counts
+    once.  The local experts' gradients are partial over the data dims.
+    Any other layout raises: nothing is gathered silently."""
+
+    EXPERT_LEAVES = ("wg", "wu", "wo")
+
+    def __init__(self, x: DTensor, p: dict):
+        mesh = x.device_mesh
+        self.like, self.mesh = x, mesh
+        wg = p["wg"]
+        self.split = _sharded_dims(wg, 0)
+        self.data = _sharded_dims(x, 0)
+        for i, pl in enumerate(x.placements):
+            if not (pl.is_replicate() or i in self.data) or (
+                    i in self.split and i in self.data):
+                raise NotImplementedError(
+                    "the MoE layer takes x split over the batch and "
+                    "replicated on the experts' mesh dims, not "
+                    f"{x.placements}")
+        for name in self.EXPERT_LEAVES:
+            if list(p[name].placements) != [
+                    Shard(0) if i in self.split else Replicate()
+                    for i in range(mesh.ndim)]:
+                raise NotImplementedError(
+                    f"the MoE layer takes {name} split on E alone (the "
+                    f"rules'), not {p[name].placements}")
+        if any(not pl.is_replicate() for pl in p["router"].placements):
+            raise NotImplementedError("the MoE layer takes the router "
+                                      "replicated")
+        coord = mesh.get_coordinate()
+        self.n_data, self.index = 1, 0
+        for i in self.data:                 # major first, as the rows lie
+            self.n_data *= mesh.size(i)
+            self.index = self.index * mesh.size(i) + coord[i]
+        self.first = all(coord[i] == 0 for i in self.split)
+        self.first_expert = _shard_offset(wg, 0)[0]
+        self.x = x.to_local(grad_placements=_partial_on(x, self.split))
+        self.router = local_replica(p["router"], x, self.split)
+        self.experts = {k: p[k].to_local(grad_placements=_grad_placements(
+            p[k], x)) for k in self.EXPERT_LEAVES}
+
+    def queues(self, counts: torch.Tensor):
+        """(offset, total) from this rank's per-expert assignment counts
+        (E,): the assignments of the data ranks before this one, and of
+        the whole batch (no gradient)."""
+        if not self.data:
+            return torch.zeros_like(counts), counts
+        every = from_local_layout(counts[None], self.mesh, [
+            Shard(0) if i in self.data else Replicate()
+            for i in range(self.mesh.ndim)]).full_tensor()
+        return every[:self.index].sum(dim=0), every.sum(dim=0)
+
+    def batch_sum(self, local: torch.Tensor) -> torch.Tensor:
+        """``local``, a sum over this rank's rows, summed over the data
+        dims.  Its gradient reaches ``local`` on the first rank of
+        :attr:`split` alone: the others' copies of the term add nothing to
+        x's and the router's sums over :attr:`split`."""
+        if not self.first:
+            local = local.detach()
+        return _sum_over(local, self.like, self.data) if self.data else local
+
+    def out(self, y: torch.Tensor) -> DTensor:
+        """This rank's (b, T, D) routed output as the ``DTensor`` (B, T, D):
+        a partial sum over :attr:`split`."""
+        return from_local_layout(y, self.mesh, _partial_on(self.like,
+                                                           self.split))
+
+    def replicated(self, t: torch.Tensor) -> DTensor:
+        """A value every rank holds alike (the aux terms)."""
+        return from_local_layout(t, self.mesh,
+                                 [Replicate()] * self.mesh.ndim)

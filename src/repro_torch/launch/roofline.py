@@ -45,8 +45,13 @@ def param_counts(arch: str) -> tuple[float, float]:
     from repro_torch.models.model import abstract_params
 
     cfg = get_config(arch)
+    return tree_param_counts(cfg, abstract_params(cfg))
+
+
+def tree_param_counts(cfg, params: dict) -> tuple[float, float]:
+    """:func:`param_counts` of a parameter tree of ``cfg``."""
     total = routed = 0
-    for path, leaf in T.items(abstract_params(cfg)):
+    for path, leaf in T.items(params):
         n = leaf.numel()
         total += n
         if "moe" in path and "shared" not in path and any(

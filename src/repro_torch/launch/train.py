@@ -25,9 +25,12 @@ rendezvous.  ``--device`` defaults to the CUDA cards (rank r on card
 share a card are refused; ``--device cpu`` runs the ranks over gloo).
 The master weights come from the port's seeded init in
 ``cfg.param_dtype``, drawn alike on every rank.  The sharded step covers
-the dense families (ROADMAP step 16c) and the SSM and hybrid ones
-(mamba2, hymba: each rank scans its own SSD heads, through K7 on the
-card); the others wait for step 16c(b).
+the dense families (ROADMAP step 16c), the SSM and hybrid ones (mamba2,
+hymba: each rank scans its own SSD heads, through K7 on the card) and the
+MoE family (deepseek-moe, llama4's dense + MoE pairs: each rank runs its
+own experts on its own batch rows, with the whole batch's capacity, queue
+order and drops); MLA, the vlm and the encoder-decoder wait for step
+16c(b).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ def mesh_batch(batch: dict, mesh: DistMesh) -> dict:
     return SH.place(tensors, SH.batch_specs(tensors, dp_axes(mesh)), mesh)
 
 
-SHARDED_FAMILIES = ("dense", "ssm", "hybrid")
+SHARDED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 def sharded_families_check(cfg: ArchConfig) -> None:
@@ -81,7 +84,7 @@ def sharded_families_check(cfg: ArchConfig) -> None:
     if cfg.family not in SHARDED_FAMILIES or cfg.use_mla:
         kind = f"{cfg.family}, MLA" if cfg.use_mla else cfg.family
         raise NotImplementedError(
-            "the sharded train step covers the dense, SSM and hybrid "
+            "the sharded train step covers the dense, SSM, hybrid and MoE "
             f"families; {cfg.name} ({kind}) waits for ROADMAP step 16c(b): "
             "run it with --model-parallel 1 on one device")
 

@@ -7,6 +7,10 @@ mirrors the bounded switch queues of the data plane (tokens past an
 expert's capacity are dropped, like bucket overflow in
 ``core.dist_store``, and keep the shared-expert path).
 
+On a ``DTensor`` x (the sharded train step) each rank routes its own
+batch rows and computes its own experts (``tensor_parallel.ExpertShard``)
+with the whole batch's capacity, queue order, drops and aux term.
+
 Two dispatch modes, as in the reference:
 
 * ``gather`` (default): each assignment's place in its expert's queue
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.constraints import constrain
 from repro_torch.models.common import activation, dense_init
 from repro_torch.models.ffn import init_swiglu, swiglu
@@ -67,27 +72,21 @@ def moe_layer(x: torch.Tensor, p: dict, cfg: ArchConfig, *,
               dispatch: str = "gather"):
     """x (B, T, D) -> (y (B, T, D), aux): ``moe_aux_loss`` (the Switch
     load-balance term, float32) and ``moe_dropped`` (assignments past
-    capacity, int32), both 0-d tensors on x's device."""
+    capacity, int32), both 0-d tensors on x's device.  On a ``DTensor`` x
+    :func:`_moe_layer_sharded`."""
+    if TP.is_dtensor(x):
+        return _moe_layer_sharded(x, p, cfg, dispatch)
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * T, D)
     N = B * T
     C = _capacity(N, cfg)
 
-    logits = (xf @ p["router"]).float()                       # (N, E)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = e / e.sum(dim=-1, keepdim=True)
-    gate_vals, topk_idx = top_k(probs, K)                     # (N, K)
-    if cfg.router_softmax_after_topk:
-        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
-            min=1e-9)
+    probs, gate_vals, topk_idx = _route(xf, p["router"], cfg)
 
     # load-balance auxiliary loss (Switch): E * sum_e f_e * P_e
     me = probs.mean(dim=0)                                    # (E,)
-    flat = topk_idx.reshape(-1)
-    counts = torch.zeros(E, dtype=torch.int64, device=x.device).index_add_(
-        0, flat, torch.ones_like(flat))        # bincount (no meta shape)
-    ce = counts.float() / (N * K)
+    ce = _counts(topk_idx, E).float() / (N * K)
     aux_loss = E * (me * ce).sum()
 
     if dispatch == "einsum":
@@ -102,6 +101,61 @@ def moe_layer(x: torch.Tensor, p: dict, cfg: ArchConfig, *,
     return y.reshape(B, T, D), aux
 
 
+def _route(xf, router, cfg: ArchConfig):
+    """(probs (N, E) float32, gate values (N, K), expert ids (N, K)) of the
+    tokens xf (N, D)."""
+    logits = (xf @ router).float()                            # (N, E)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    gate_vals, topk_idx = top_k(probs, cfg.top_k)             # (N, K)
+    if cfg.router_softmax_after_topk:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
+            min=1e-9)
+    return probs, gate_vals, topk_idx
+
+
+def _counts(topk_idx, E: int) -> torch.Tensor:
+    """(E,) int64: the assignments to each expert."""
+    flat = topk_idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=flat.device).index_add_(
+        0, flat, torch.ones_like(flat))        # bincount (no meta shape)
+
+
+def _moe_layer_sharded(x, p: dict, cfg: ArchConfig, dispatch: str):
+    """:func:`moe_layer` on a ``DTensor`` x (B, T, D) split over the batch:
+    each rank routes its own rows and runs its own experts on plain
+    tensors (``tensor_parallel.ExpertShard``).  The capacity is the whole
+    batch's, an assignment's place in its expert's queue follows the
+    assignments of the data ranks before this one, and the drops and the
+    aux term count the whole batch, so the layer equals the one-card one.
+    y is a ``DTensor``, a partial sum over the mesh dims that split the
+    experts (with the shared experts' row-sharded product), which the
+    residual stream's ``like`` completes; the aux terms are replicated."""
+    if dispatch != "gather":
+        raise NotImplementedError("the sharded MoE layer dispatches by "
+                                  "gather")
+    E, K = cfg.n_experts, cfg.top_k
+    ep = TP.ExpertShard(x, p)
+    b, T, D = ep.x.shape
+    xf = ep.x.reshape(b * T, D)
+    N = b * T * ep.n_data                 # the whole batch's tokens
+    C = _capacity(N, cfg)
+
+    probs, gate_vals, topk_idx = _route(xf, ep.router, cfg)
+    offset, total = ep.queues(_counts(topk_idx, E))
+    me = ep.batch_sum(probs.sum(dim=0)) / N
+    aux_loss = E * (me * (total.float() / (N * K))).sum()
+    dropped = (total - C).clamp(min=0).sum().to(torch.int32)
+
+    y, _ = _dispatch_gather(xf, ep.experts, cfg, topk_idx, gate_vals, C,
+                            first=ep.first_expert, offset=offset)
+    y = ep.out(y.reshape(b, T, D))
+    if cfg.n_shared_experts:
+        y = TP.add_parts(y, swiglu(x, p["shared"], cfg))
+    return y, {"moe_aux_loss": ep.replicated(aux_loss),
+               "moe_dropped": ep.replicated(dropped)}
+
+
 def _expert_ffn(p: dict, cfg: ArchConfig, xe: torch.Tensor) -> torch.Tensor:
     """xe (E, C, D) -> (E, C, D), batched over the expert axis."""
     act = activation(cfg.act)
@@ -109,11 +163,17 @@ def _expert_ffn(p: dict, cfg: ArchConfig, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wo"])
 
 
-def _dispatch_gather(xf, p, cfg: ArchConfig, topk_idx, gate_vals, C: int):
+def _dispatch_gather(xf, p, cfg: ArchConfig, topk_idx, gate_vals, C: int, *,
+                     first: int = 0, offset=None):
+    """(y (N, D), assignments dropped) of the experts in ``p``: all E, or
+    (the sharded layer) E' of them from expert ``first`` on, where y holds
+    their contributions alone.  ``offset`` (E,), where given, is added to
+    each assignment's place in its expert's queue: the assignments of the
+    batch rows before these."""
     N, D = xf.shape
     E, K = cfg.n_experts, cfg.top_k
     dev = xf.device
-    EC = E * C
+    EC = p["wg"].shape[0] * C               # the slots of p's experts
 
     flat_e = topk_idx.reshape(N * K)                          # (NK,)
     flat_g = gate_vals.reshape(N * K)
@@ -124,9 +184,14 @@ def _dispatch_gather(xf, p, cfg: ArchConfig, topk_idx, gate_vals, C: int):
     group_start = torch.searchsorted(sorted_e,
                                      torch.arange(E + 1, device=dev))
     pos_sorted = torch.arange(N * K, device=dev) - group_start[sorted_e]
+    if offset is not None:
+        pos_sorted = pos_sorted + offset[sorted_e]
     keep = pos_sorted < C
-    slot_sorted = torch.where(keep, sorted_e * C + pos_sorted, EC)
     dropped = (~keep).sum().to(torch.int32)
+    own = sorted_e - first
+    if EC < E * C:                          # another rank's experts: dropped
+        keep = keep & (own >= 0) & (own * C < EC)
+    slot_sorted = torch.where(keep, own * C + pos_sorted, EC)
 
     # token and gate per (expert, slot): padding slots point at row N (a
     # zero row); the drops all land in a spare slot EC, sliced off (the
@@ -137,7 +202,7 @@ def _dispatch_gather(xf, p, cfg: ArchConfig, topk_idx, gate_vals, C: int):
         0, slot_sorted, flat_g[order])[:EC]
 
     x_pad = torch.cat([xf, xf.new_zeros((1, D))])
-    xe = constrain(x_pad[tos].reshape(E, C, D), "moe_expert")
+    xe = constrain(x_pad[tos].reshape(EC // C, C, D), "moe_expert")
     ye = constrain(_expert_ffn(p, cfg, xe), "moe_expert").reshape(EC, D)
     contrib = (ye * gos[:, None]).to(xf.dtype)
 

@@ -952,12 +952,13 @@ def test_model_parallel_without_torchrun_is_a_usage_error(monkeypatch):
             TRAIN.main([*argv, "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "deepseek-moe-16b",
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-26b",
                                   "minicpm3-4b"])
 def test_sharded_step_names_the_families_it_waits_for(arch):
     from repro_torch.launch.train import sharded_families_check
 
     with pytest.raises(NotImplementedError, match="16c\\(b\\)"):
         sharded_families_check(get_config(arch).reduced())
-    for admitted in ("qwen3-14b", "mamba2-370m", "hymba-1.5b"):
+    for admitted in ("qwen3-14b", "mamba2-370m", "hymba-1.5b",
+                     "deepseek-moe-16b", "llama4-maverick-400b-a17b"):
         sharded_families_check(get_config(admitted).reduced())
