@@ -218,7 +218,7 @@ exits non-zero):
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
                of an 8,192-position cache (7.5 GB), 4 shards of replication
-               2, 64 requests of 256-2,048 prompt tokens and 128 new tokens
+               2, 64 requests of 256-2,048 prompt tokens and 96 new tokens
                each, greedy, a rebalance every 6 steps and the most-loaded
                shard failed at step 8; every request must finish and no
                sequence may sit on the dead shard afterwards; K6 is held
@@ -234,7 +234,7 @@ exits non-zero):
                the first prefill; decode by the recurrence;
 8. families    the families added last, at their published widths with
                bf16 weights from the port's seeded init, one line each:
-               the serving traffic above, cut to 12 requests of 64 new
+               the serving traffic above, cut to 12 requests of 40 new
                tokens, through the engine on
                deepseek-moe-16b (a 4,096-position cache; the MoE drops of
                one 2,048-token prompt), minicpm3-4b (MLA, no K6; one
@@ -252,10 +252,10 @@ exits non-zero):
                finishes, none stays on the failed shard, K6 launches ==
                ``gqa_attentions`` x steps, parameter counts within the
                reference's ranges (the pair: its exact count);
-9. training    ``launch/train.py``'s loop on qwen2-1.5b (28 layers, d
-               1536, vocab 151,936) and then mamba2-370m (48 layers, d
-               1024, 32 SSD heads of 64, d_state 128, vocab 50,280, tied
-               embeddings), each at its published widths and depth: bf16
+9. training    ``launch/train.py``'s loop on qwen2-1.5b (d 1536, vocab
+               151,936; 14 of its 28 layers) and then mamba2-370m (48
+               layers, d 1024, 32 SSD heads of 64, d_state 128, vocab
+               50,280, tied embeddings), each at its published widths: bf16
                compute over float32 master weights and AdamW state,
                remat, the copy task, the first 12 steps of a 16-step
                schedule of 8 x 2,048 tokens, lr 3e-4 with the launcher's
@@ -283,18 +283,23 @@ exits non-zero):
                cards, else one rank on a 1 x 1 mesh (four ranks sharing
                the card would need gloo, whose path for DTensor's
                all-gather of CUDA tensors crashes); qwen2-1.5b,
-               mamba2-370m, hymba-1.5b and deepseek-moe-16b at full width
-               cut to 2 layers (deepseek: its dense layer and one MoE
-               layer of 64 experts, each rank computing its own):
-               (a) float32, TF32 off, one step of 8 x 256 tokens against
-               the one-card ``make_train_step`` from the same init and
-               batch: loss within 1e-3, every parameter within 2e-3 (the
+               mamba2-370m, hymba-1.5b, deepseek-moe-16b, minicpm3-4b,
+               internvl2-26b and whisper-small at full width cut to 2
+               layers (deepseek: its dense layer and one MoE layer of 64
+               experts, each rank computing its own; internvl2 to 1
+               layer, its two embeddings 1.14 B parameters; whisper at
+               its full 12 + 12):
+               (a) float32, TF32 off, one step of 8 x 256 tokens
+               (internvl2: 256 patches and 256 text tokens) against the
+               one-card ``make_train_step`` from the same init and batch:
+               loss within 1e-3, every parameter within 2e-3 (the
                reference's 8-devices-equal-1 tolerance), the first moment
                within 1e-3 of its largest, the MoE drops equal to the
-               one-card step's; (b) bf16 over float32 masters,
-               remat, 2 layers, 4 steps of 8 x 2,048 tokens with a
-               checkpoint at step 2 and a resume from it: finite losses,
-               the replay bit for bit; the kernels counted around each
+               one-card step's; (b) bf16 over float32 masters, remat, 5
+               steps of 8 x 2,048 tokens (whisper: 8 x 448, its decoder's
+               context) with a checkpoint at step 3 and a resume from it,
+               the checkpoint then removed: finite losses, the replay bit
+               for bit; the kernels counted around each
                rank's sharded steps: K7 exactly once a scan layer and step
                (twice under remat) for mamba2 and hymba, each rank on its
                own SSD heads, one plain-VJP backward a scan layer and
@@ -327,10 +332,11 @@ Four more phases run only when named in ``--phases``: ``profile``
 and one prefill of 2,048 tokens), ``grid_study`` (with ``kernels``: the
 device time of K1-K4b at the phase 2 shape under a grid of one thread a
 packet and of 1, 2 and 3 blocks an SM, in turns) and ``train_sharded_full``
-(four cards: qwen2-1.5b and mamba2-370m at full width and depth on 2 x 2,
-deepseek-moe-16b at full width cut to 8 layers (1 dense + 7 MoE: 4.62 B
-parameters, 17.2 GiB of state a card; 28 layers would hold 61.0),
-16 steps of 8 x 2,048 tokens with a checkpoint at step 12 and its replay,
+(four cards: qwen2-1.5b, mamba2-370m, minicpm3-4b and whisper-small at full
+width and depth on 2 x 2, deepseek-moe-16b at full width cut to 8 layers (1
+dense + 7 MoE: 4.62 B parameters, 17.2 GiB of state a card; 28 layers would
+hold 61.0) and internvl2-26b cut to 8 (4.3 B parameters), 16 steps of 8 x
+2,048 tokens with a checkpoint at step 12 and its replay,
 K7 counted as in ``train_sharded``; step ms p50 / p99, the largest over
 the ranks; tokens/s; peak memory a card; each rank's argument bytes against
 ``sharded_bytes_per_device``, less than 512 B a leaf above; one step's
@@ -3287,11 +3293,12 @@ def phase_telemetry() -> dict:
 # for qwen2-1.5b its context of 32,768 cut to an 8,192-position cache (the
 # bf16 KV cache is then 7.5 GB), mamba2-370m keeps no KV cache (its decode
 # state is 48 MiB of f32 a slot); 64 requests of 256-2,048 prompt tokens
-# and 128 new tokens each
+# and 96 new tokens each (128 until phase train_sharded took the MLA, vlm
+# and encdec families: the script's time limit)
 SERVE_ARCH = "qwen2-1.5b"
 SERVE_SSM_ARCH = "mamba2-370m"
 SERVE_SLOTS, SERVE_CACHE, SERVE_SHARDS = 32, 8192, 4
-SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 64, 128, (256, 2048)
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 64, 96, (256, 2048)
 SERVE_REBALANCE_EVERY, SERVE_FAIL_AT = 6, 8
 SERVE_K6_CHECK_STEP = 64
 
@@ -3523,9 +3530,10 @@ FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
 # HBM3, 700 W), and the script must stay well inside its time limit (16
 # before phase benches joined it)
 FAMILY_REQUESTS = 12
-# and half their new tokens (63 decode steps, the K6 check at step 32): the
-# script's time limit once phase train_sharded took deepseek-moe-16b
-FAMILY_NEW, FAMILY_K6_CHECK_STEP = 64, 32
+# and 40 new tokens (39 decode steps, the K6 check at step 32): the
+# script's time limit once phase train_sharded took deepseek-moe-16b (64
+# then) and the MLA, vlm and encdec families (40)
+FAMILY_NEW, FAMILY_K6_CHECK_STEP = 40, 32
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -3806,8 +3814,9 @@ def phase_serving_ssm(seed: int = 0) -> dict:
 
 
 
-# phase training: qwen2-1.5b and mamba2-370m at their published widths and
-# depth, bf16 compute over float32 master weights and AdamW state, remat,
+# phase training: qwen2-1.5b and mamba2-370m at their published widths,
+# mamba2 at its depth and qwen2 at the depth of TRAIN_LAYERS, bf16 compute
+# over float32 master weights and AdamW state, remat,
 # the copy task, launch/train.py's loop and schedule (warmup
 # max(5, steps // 20)); mamba2's SSD scans run K7 forward and the plain
 # chunked scan's VJP backward.  The first TRAIN_STEPS steps of the
@@ -3818,6 +3827,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SCHEDULE = 8, 2048, 12, 16
 # one checkpoint, at step 8: its write overlaps the last 4 steps (a
 # checkpoint at 8 and 16 left the whole of the second's write to wait for)
 TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_REPLAY = 3e-4, 8, 2
+# qwen2 at 14 of its 28 layers: the time phase train_sharded's MLA, vlm
+# and encdec families take (its full depth trains on four cards in
+# train_sharded_full); mamba2's loss falls by 0.0006 over 12 steps at its
+# full depth, too little to move
+TRAIN_LAYERS = {"qwen2-1.5b": 14}
 
 
 def train_flops(cfg, params: dict, batch: int, seq: int) -> float:
@@ -3826,13 +3840,47 @@ def train_flops(cfg, params: dict, batch: int, seq: int) -> float:
     / n_experts of their size, ``launch.roofline``'s rule), plus
     attention's 12 x layers x q width x sequence per token (PaLM's count,
     the whole T x T square); an attention-free config (mamba2,
-    ``n_heads`` 0) has no attention term."""
+    ``n_heads`` 0) has no attention term.  MLA's scores run at the query /
+    key width nd + rd and its context at v's vd: 6 x layers x heads x (nd
+    + rd + vd) x sequence a token.  The encoder-decoder:
+    :func:`_encdec_train_flops`."""
     from repro_torch.launch.roofline import tree_param_counts
 
+    if cfg.family == "encdec":
+        return _encdec_train_flops(cfg, params, batch, seq)
     tokens = batch * seq
     _, active = tree_param_counts(cfg, params)
+    if cfg.use_mla:
+        width = cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
+        return (6.0 * active * tokens
+                + 6.0 * cfg.n_layers * cfg.n_heads * width * seq * tokens)
     return (6.0 * active * tokens
             + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
+
+
+def _encdec_train_flops(cfg, params: dict, batch: int, seq: int) -> float:
+    """:func:`train_flops` of whisper: the encoder's weights (and its
+    final norm) and the cross attention's K / V projections run on the
+    frames, ``batch`` x ``encoder_len`` of them, the rest on the decoder's
+    ``batch`` x ``seq`` tokens (the tied table once, as the head); the
+    attention term of the encoder's self attention over the frames, the
+    decoder's over its tokens and the cross attention's over the frames
+    from each token."""
+    from repro_torch.training import tree as T
+
+    def count(tree) -> int:
+        return sum(t.numel() for t in T.leaves(tree))
+
+    frames, tokens = batch * cfg.encoder_len, batch * seq
+    cross = params["dec"]["cross"]
+    on_frames = (count(params["enc"]) + count(params["enc_ln"])
+                 + sum(cross[k].numel() for k in ("wk", "wv", "bv")))
+    on_tokens = count(params) - on_frames
+    width = cfg.n_heads * cfg.head_dim
+    return (6.0 * on_frames * frames + 6.0 * on_tokens * tokens
+            + 12.0 * width * (cfg.n_encoder_layers * cfg.encoder_len * frames
+                              + cfg.n_layers * (seq + cfg.encoder_len)
+                              * tokens))
 
 
 K7_KERNELS = 4            # K7's four passes, one kernel each
@@ -3928,6 +3976,7 @@ def _train_full_width(arch: str) -> dict:
     first run's losses.  For an SSM config, the scans' share of the step:
     :func:`_scan_ms` x layers over the profiled step's device time and
     kernels, and over step ms p50."""
+    import dataclasses
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -3944,6 +3993,9 @@ def _train_full_width(arch: str) -> dict:
     from repro_torch.training.step import make_train_step
 
     cfg = get_config(arch)
+    full_depth = cfg.n_layers
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
     ssm = cfg.family in ("ssm", "hybrid")
     shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     steps = TRAIN_STEPS
@@ -4049,7 +4101,10 @@ def _train_full_width(arch: str) -> dict:
                    "first_run": first, "bitwise": again == first,
                    "max_abs_diff": max(diffs), "seconds": replay_s},
         "reduced": {"steps": f"{TRAIN_STEPS} of a {TRAIN_SCHEDULE}-step "
-                             "schedule: the script's time limit"},
+                             "schedule: the script's time limit",
+                    **({"n_layers": f"{full_depth} -> {cfg.n_layers}: the "
+                                    "script's time limit"}
+                       if cfg.n_layers != full_depth else {})},
     }
     if scan is not None:
         out["scan"] = scan
@@ -4089,34 +4144,56 @@ def phase_training() -> dict:
 # DTensor's functional all-gather of CUDA tensors crashes the process in
 # wait_tensor (torch 2.11; c10d's own collectives pass), so the launcher
 # refuses ranks that share a card and the collectives are proven on
-# four cards and in the CPU tests.  For each of SHARDED_ARCHS (the dense,
-# SSM, hybrid and MoE families) at full width cut to 2 layers: (a) parity,
-# float32 compute, TF32 off, one step of 8 x 256 tokens against the
-# one-card make_train_step from the same init and batch (on rank 0's
-# card); (b) bf16 over float32 masters, remat, 8 x 2,048 tokens,
-# SHARDED_BF16_STEPS steps with a checkpoint at SHARDED_BF16_CKPT, then a
-# resume from it.  K7 is counted around the sharded steps alone: each rank
-# scans its own SSD heads once a layer and step, twice under remat.
+# four cards and in the CPU tests.  For each of SHARDED_ARCHS (every
+# family) at full width cut to 2 layers (SHARDED_SMOKE_LAYERS: internvl2
+# to 1, whisper at its full depth): (a) parity, float32 compute, TF32 off,
+# one step of 8 x 256 tokens (internvl2: 256 patches and 256 text tokens)
+# against the one-card make_train_step from the same init and batch (on
+# rank 0's card, beside the sharded step's gathered state); (b) bf16
+# over float32 masters, remat, 8 x 2,048 tokens (SHARDED_TRAIN_SEQ: whisper
+# 8 x 448), SHARDED_BF16_STEPS steps with a checkpoint at
+# SHARDED_BF16_CKPT, then a resume from it.  K7 is counted around the
+# sharded steps alone: each rank scans its own SSD heads once a layer and
+# step, twice under remat.
 # train_sharded_full (run only when named; four cards): SHARDED_FULL_ARCHS
 # at full width and depth (or the depth of SHARDED_FULL_LAYERS) on 2 x 2
 # for SHARDED_FULL_STEPS steps, the measurements of PERF.md's sharded-step
 # table
 SHARDED_MP = 2
 SHARDED_ARCHS = ("qwen2-1.5b", "mamba2-370m", "hymba-1.5b",
-                 "deepseek-moe-16b")
-SHARDED_FULL_ARCHS = ("qwen2-1.5b", "mamba2-370m", "deepseek-moe-16b")
+                 "deepseek-moe-16b", "minicpm3-4b", "internvl2-26b",
+                 "whisper-small")
+SHARDED_FULL_ARCHS = ("qwen2-1.5b", "mamba2-370m", "deepseek-moe-16b",
+                      "minicpm3-4b", "internvl2-26b", "whisper-small")
 # deepseek's 28 layers hold 61.0 GiB of state a card on 2 x 2 (f32 masters
 # over "model", m and v over both axes) before gradients and activations;
-# 8 (1 dense + 7 MoE, 4.62 B parameters) hold 17.2 GiB
-SHARDED_FULL_LAYERS = {"deepseek-moe-16b": 8}
+# 8 (1 dense + 7 MoE, 4.62 B parameters) hold 17.2 GiB.  internvl2's 48
+# layers would hold 51 GB of f32 masters a card before m and v; 8 layers
+# (4.3 B parameters) hold about 17 GiB of state, as deepseek's 8
+SHARDED_FULL_LAYERS = {"deepseek-moe-16b": 8, "internvl2-26b": 8}
 SHARDED_PARITY_LAYERS = 2
 SHARDED_PARITY_SHAPE = (8, 256)          # batch, tokens
+# the vlm's sequence holds its 256 patches ahead of the text: 256 of each
+SHARDED_PARITY_SEQ = {"internvl2-26b": 512}
+# phase train_sharded's depth where it is not SHARDED_PARITY_LAYERS /
+# SHARDED_BF16_LAYERS (None: the config's own): internvl2 at 1 layer (its
+# two embeddings are 1.14 B parameters and a layer 0.39 B: 1.6 B at 12
+# bytes a parameter is 19 GB a state, and (a) holds the sharded step's
+# and the one-card step's on one card), whisper at its full 12 + 12 layers
+SHARDED_SMOKE_LAYERS = {"internvl2-26b": 1, "whisper-small": None}
+# the bf16 runs' sequence where it is not TRAIN_SEQ: whisper's published
+# 448-position decoder context (its loss takes no remat: 8 x 2,048 tokens
+# over 24 layers and 1,500 frames ran the card out of memory)
+SHARDED_TRAIN_SEQ = {"whisper-small": WHISPER_CACHE}
 SHARDED_LOSS_TOL = 1e-3                  # tests/test_dist.py's 8 == 1 test
 SHARDED_PARAM_TOL = 2e-3
 SHARDED_MOMENT_TOL = 1e-3                # of the largest |m|
 SHARDED_BF16_LAYERS = 2
-SHARDED_BF16_STEPS = 4
-SHARDED_BF16_CKPT = 2
+# (b): one checkpoint, at step 3 of 5 (a 4-step run with one at 2 wrote a
+# second at 4), removed after the 2-step replay: the GPU machine's disk
+# takes 45 GiB of writes a call, and internvl2's state is 19 GB
+SHARDED_BF16_STEPS = 5
+SHARDED_BF16_CKPT = 3
 SHARDED_FULL_STEPS = 16
 SHARDED_FULL_CKPT = 12
 SHARDED_TIMEOUT_S = {"smoke": 900, "full": 1800}
@@ -4183,13 +4260,17 @@ def _sharded_parity(mesh, arch: str) -> dict:
     from repro_torch.training.step import (TrainConfig, init_train_state,
                                            make_train_step)
 
-    cfg = _sharded_cfg(arch, SHARDED_PARITY_LAYERS, dtype="float32")
+    cfg = _sharded_cfg(arch, SHARDED_SMOKE_LAYERS.get(arch,
+                                                      SHARDED_PARITY_LAYERS),
+                       dtype="float32")
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=10),
                        remat=False)
     B, T_ = SHARDED_PARITY_SHAPE
+    T_ = SHARDED_PARITY_SEQ.get(arch, T_)
     batch = make_batch(cfg, ShapeSpec("sharded_parity", T_, B, "train"), 0,
                        DataConfig("copy"))
     step = make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
     with _tf32_off():
         state, _ = placed_state(cfg, tcfg, mesh)
         _reset_kernel_launches()
@@ -4225,7 +4306,9 @@ def _sharded_parity(mesh, arch: str) -> dict:
            "params_worst": worst(new["params"], ref_new["params"]),
            "m_worst_over_max": worst(new["opt"]["m"],
                                      ref_new["opt"]["m"]) / m_scale,
-           "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"]), **run}
+           "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"]),
+           "max_memory_allocated_gb": (torch.cuda.max_memory_allocated()
+                                       / 2**30), **run}
     out["ok"] = (out["loss_err"] < SHARDED_LOSS_TOL
                  and out["params_worst"] < SHARDED_PARAM_TOL
                  and out["m_worst_over_max"] < SHARDED_MOMENT_TOL
@@ -4238,16 +4321,19 @@ def _sharded_train(mesh, out_dir: Path, arch: str, *, layers: int | None,
                    steps: int, ckpt_at: int) -> dict:
     """``launch/train.py``'s loop on ``mesh`` (bf16 over float32 masters,
     remat, 8 x 2,048 tokens): ``steps`` steps with a checkpoint at
-    ``ckpt_at``, then the steps after it again from that checkpoint.
-    Step ms (CUDA events) and the kernels' launches (both runs) are this
-    rank's."""
+    ``ckpt_at``, then the two steps after it again from that checkpoint,
+    which is then removed.  Step ms (CUDA events) and the kernels'
+    launches (both runs) are this rank's."""
+    import shutil
+
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.train import train_config, train_loop
 
     cfg = _sharded_cfg(arch, layers)
-    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    shape = ShapeSpec("chip_train", SHARDED_TRAIN_SEQ.get(arch, TRAIN_SEQ),
+                      TRAIN_BATCH, "train")
     tcfg = train_config(steps, TRAIN_LR)
     ckpt = str(out_dir / "ckpt")
     log = print if mesh.rank == 0 else (lambda s: None)
@@ -4268,12 +4354,14 @@ def _sharded_train(mesh, out_dir: Path, arch: str, *, layers: int | None,
                            ckpt_every=10**9, mesh=mesh, resume_step=ckpt_at,
                            log=log)
     replay_s = time.perf_counter() - t1
+    if mesh.rank == 0:          # the ranks have read it (train_loop's barrier)
+        shutil.rmtree(ckpt, ignore_errors=True)
     launches = {k: v + _kernel_launches()[k] for k, v in launches.items()}
     losses = [r["loss"] for r in recs]
     again = [r["loss"] for r in replay]
     return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
             "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype,
-            "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": shape.seq_len,
             "steps": steps, "ckpt_at": ckpt_at, "losses": losses,
             "grad_norms": [r["grad_norm"] for r in recs],
             "ms": [r["ms"] for r in recs],
@@ -4350,9 +4438,10 @@ def _sharded_full(mesh, out_dir: Path, arch: str) -> dict:
 
     layers = SHARDED_FULL_LAYERS.get(arch)
     cfg = _sharded_cfg(arch, layers)
-    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    shape = ShapeSpec("chip_train", SHARDED_TRAIN_SEQ.get(arch, TRAIN_SEQ),
+                      TRAIN_BATCH, "train")
     tcfg = train_config(SHARDED_FULL_STEPS, TRAIN_LR)
-    cell = DRY.build_cell(cfg, f"train@B{TRAIN_BATCH}xT{TRAIN_SEQ}",
+    cell = DRY.build_cell(cfg, f"train@B{TRAIN_BATCH}xT{shape.seq_len}",
                           MeshLayout(mesh.axis_names,
                                      tuple(mesh.shape.values())))
     predicted = DRY.count_cell(cell)
@@ -4442,7 +4531,9 @@ def sharded_rank(part: str, out: str) -> None:
                 _free_card()
                 dist.barrier()
                 rec["bf16"][arch] = _sharded_train(
-                    mesh, out_dir / arch, arch, layers=SHARDED_BF16_LAYERS,
+                    mesh, out_dir / arch, arch,
+                    layers=SHARDED_SMOKE_LAYERS.get(arch,
+                                                    SHARDED_BF16_LAYERS),
                     steps=SHARDED_BF16_STEPS, ckpt_at=SHARDED_BF16_CKPT)
                 _free_card()
                 dist.barrier()
@@ -4478,6 +4569,9 @@ def phase_train_sharded(part: str = "smoke") -> dict:
     step (twice under remat) for mamba2 and hymba, none for qwen2.
     ``part`` "full" is train_sharded_full, which needs four cards."""
     import shutil
+
+    from repro_torch.models.model import abstract_params
+    from repro_torch.telemetry.profiler import PEAK_BF16_FLOPS
 
     cards = torch.cuda.device_count()
     n = _sharded_ranks()
@@ -4561,10 +4655,17 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                                                 for rec in recs),
             "step_ms_p50": float(np.percentile(ms, 50)),
             "step_ms_p99": float(np.percentile(ms, 99)),
-            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(secs) / float(
+            "tokens_per_s": TRAIN_BATCH * first["seq"] * len(secs) / float(
                 secs.sum()),
             "max_memory_allocated_gb_by_rank": [
                 rec[runs][arch]["max_memory_allocated_gb"] for rec in recs]}
+        # model FLOPs of a step over p50 and the ranks' dense bf16 peak
+        cfg = _sharded_cfg(arch, first["layers"])
+        res["model_flops_per_step"] = train_flops(
+            cfg, abstract_params(cfg), TRAIN_BATCH, first["seq"])
+        res["train_mfu"] = (res["model_flops_per_step"]
+                            / (res["step_ms_p50"] / 1e3)
+                            / (n * PEAK_BF16_FLOPS))
         if part == "full":
             res.update({k: [rec[runs][arch][k] for rec in recs] for k in (
                 "held_bytes", "bytes_gate", "comm_payload", "profiled_step")})
@@ -4576,6 +4677,9 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                     f"{arch}: a rank's arguments are not the rules' bytes: "
                     f"{res['held_bytes']} vs {first['predicted_bytes']}")
         else:
+            full_depth = _sharded_cfg(arch).n_layers
+            res["reduced"] = ([f"n_layers {full_depth} -> {first['layers']}"]
+                              if first["layers"] != full_depth else [])
             par = recs[0]["parity"][arch]
             res["parity"] = {k: v for k, v in par.items()
                              if k not in ("launches", "steps_run")}

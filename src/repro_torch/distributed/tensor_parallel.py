@@ -48,6 +48,14 @@ path, bit for bit):
   "model" that :func:`add_parts` joins to the shared experts' own.
 * :func:`batch_rows`: hymba's meta tokens repeated over each rank's own
   batch rows.
+* :class:`MLAHeads`: minicpm3's MLA attention on each rank's own heads,
+  from the down projections gathered over "model" (the rules split them
+  inside the low-rank vectors, which the norms read whole), every
+  gathered or replicated leaf's gradient a sum over "model".
+* :func:`replicated`: a value every rank holds alike (whisper's positions,
+  the MoE's aux terms) as a replicated ``DTensor``.
+* :func:`pad`: the cross-entropy's padding of the sequence to whole
+  chunks, on each rank's own shard.
 
 Every collective here goes through a ``DTensor`` redistribution, so
 autograd carries it into the backward; the one exception, the max that
@@ -138,14 +146,35 @@ def laid_out_as(t: torch.Tensor, like):
                       like.to_local().device)
 
 
+def replicated(t: torch.Tensor, like):
+    """``t``, which every rank holds alike (a constant: whisper's
+    positions, the aux terms), as a ``DTensor`` replicated on ``like``'s
+    mesh; a plain ``like`` leaves ``t`` as it is."""
+    if not is_dtensor(like):
+        return t
+    return from_local_layout(t, like.device_mesh,
+                             [Replicate()] * like.device_mesh.ndim)
+
+
 def zeros_like_scalar(x, dtype: torch.dtype):
     """A 0-dim zero on ``x``'s device: replicated on ``x``'s mesh when
     ``x`` is a ``DTensor``."""
-    if is_dtensor(x):
-        z = torch.zeros((), dtype=dtype, device=x.to_local().device)
-        return from_local_layout(z, x.device_mesh,
-                                 [Replicate()] * x.device_mesh.ndim)
-    return torch.zeros((), dtype=dtype, device=x.device)
+    dev = x.to_local().device if is_dtensor(x) else x.device
+    return replicated(torch.zeros((), dtype=dtype, device=dev), x)
+
+
+def pad(t, widths: tuple, value: float = 0.0):
+    """``F.pad(t, widths, value=value)``; on a ``DTensor`` each rank pads
+    its own shard, laid out as ``t`` (the padded dims must not be split).
+    DTensor's own padding of a tensor on a 2-D mesh (torch 2.11) returns
+    a spec with one placement, which the next op refuses."""
+    if not is_dtensor(t):
+        return F.pad(t, widths, value=value)
+    padded = {t.ndim - 1 - i // 2 for i, w in enumerate(widths) if w}
+    if any(_sharded_dims(t, d) for d in padded):
+        raise NotImplementedError("padding a split dim of a DTensor")
+    return from_local_layout(F.pad(t.to_local(), widths, value=value),
+                             t.device_mesh, t.placements)
 
 
 def _sharded_dims(t: DTensor, tensor_dim: int) -> list[int]:
@@ -304,11 +333,12 @@ def whole_heads_split(like: DTensor, wo: DTensor) -> list[int]:
 
 def local_heads(q: DTensor, k: DTensor, v: DTensor, n_heads: int,
                 n_kv_heads: int, wo: DTensor | None = None):
-    """q (B, T, Hq * Dq), k (B, T, Hkv * Dq), v (B, T, Hkv * Dv) as each
-    rank's plain (b, T, h, D) q and the (b, T, hkv, D) k / v its q heads
-    attend to, with ``hkv`` dividing ``h`` as GQA needs.  Returns (q, k,
-    v, out_like), ``out_like`` the ``DTensor`` whose layout the attention
-    output takes (:func:`from_local_heads`).
+    """q (B, T, Hq * Dq), k (B, S, Hkv * Dq), v (B, S, Hkv * Dv) as each
+    rank's plain (b, T, h, D) q and the (b, S, hkv, D) k / v its q heads
+    attend to, with ``hkv`` dividing ``h`` as GQA needs (S is T but in
+    cross attention).  Returns (q, k, v, out_like), ``out_like`` the
+    ``DTensor`` whose layout the attention output takes
+    (:func:`from_local_heads`).
 
     Heads split over "model" stay local.  A kv projection that "model"
     does not split into whole heads is gathered, and each rank takes the
@@ -332,8 +362,7 @@ def local_heads(q: DTensor, k: DTensor, v: DTensor, n_heads: int,
         kv = [t.to_local(grad_placements=_partial_on(t, part))
               for t in (k, v)]
         hkv = kv[0].shape[-1] * n_kv_heads // k.shape[-1]
-        return (q_loc, kv[0].reshape(b, T, hkv, -1),
-                kv[1].reshape(b, T, hkv, -1), q)
+        return (q_loc, *(t.reshape(*t.shape[:2], hkv, -1) for t in kv), q)
     # gather the kv heads; keep those of this rank's q heads, one a q head
     # (an expand, whose backward sums in a fixed order: index_select's
     # adds atomically on the card, and the step would not replay bit for
@@ -345,9 +374,11 @@ def local_heads(q: DTensor, k: DTensor, v: DTensor, n_heads: int,
     for t in (k, v):
         g = _gather_last(t)
         grad = _partial_on(g, q_dims + part)
-        full = g.to_local(grad_placements=grad).reshape(b, T, n_kv_heads, -1)
+        full = g.to_local(grad_placements=grad)
+        S = full.shape[1]
+        full = full.reshape(b, S, n_kv_heads, -1)
         rep = full[:, :, lo:hi, None].expand(-1, -1, -1, group, -1)
-        rep = rep.reshape(b, T, (hi - lo) * group, -1)
+        rep = rep.reshape(b, S, (hi - lo) * group, -1)
         out.append(rep[:, :, first - lo * group:first - lo * group + h])
     return q_loc, out[0], out[1], q
 
@@ -481,6 +512,71 @@ class SSDHeads:
         return from_local_layout(g, mesh, placements) @ self.out_proj
 
 
+class MLAHeads:
+    """Each rank's share of an MLA attention (``models.attention.mla_seq``)
+    on a ``DTensor`` x (B, T, D), split over the batch and replicated on
+    "model".
+
+    The rules column-shard the down projections ``wdq`` (D, q_lora) and
+    ``wdkv`` (D, kv_lora + rope) on "model" at boundaries that are not the
+    layer's: both RMS norms run over the whole low-rank vector, and
+    ``wdkv``'s shards fall inside the latent, off the latent / rope
+    boundary.  So those two are gathered over "model", and every rank
+    computes the normed query, the latent and the shared rotary key whole
+    (:attr:`params`, plain, and :attr:`x`).  The up projections ``wuq``
+    and ``wukv`` are column-sharded on head boundaries when "model"
+    divides the heads: each rank takes its own heads from its columns
+    (:attr:`h` of them), and ``wo``'s rows take its part of the output
+    (:meth:`out`).  Otherwise they are gathered too, every rank computes
+    every head, and keeps its own columns of the output where ``wo``'s rows
+    are split.  ``wo``'s product is a partial sum over the mesh dims of the
+    heads (:attr:`split`), which the residual stream's ``like`` completes.
+
+    Every rank uses x, the gathered weights, the replicated norms and the
+    rotary key on its own heads alone, so their gradients are marked as its
+    part of a sum over :attr:`split`."""
+
+    def __init__(self, x: DTensor, p: dict, n_heads: int):
+        mesh = x.device_mesh
+        self.like, self.wo = x, p["wo"]
+        self.split = _sharded_dims(self.wo, 0)
+        if any(isinstance(x.placements[i], Shard) for i in self.split):
+            raise NotImplementedError("the MLA attention takes x replicated "
+                                      "on the mesh dims of its heads")
+        n = 1
+        for i in self.split:
+            n *= mesh.size(i)
+        self.local = bool(self.split) and n_heads % n == 0 and all(
+            _sharded_dims(p[k], 1) == self.split for k in ("wuq", "wukv"))
+        self.h = n_heads // n if self.local else n_heads
+
+        def gathered(name):
+            return gathered_local(p[name], x, self.split)
+
+        up = (("wuq", "wukv") if self.local else ())
+        self.params = {
+            **{k: gathered(k) for k in ("wdq", "wdkv")},
+            **{k: local_replica(p[k], x, self.split)
+               for k in ("q_norm", "kv_norm")},
+            **{k: p[k].to_local(grad_placements=_grad_placements(p[k], x))
+               if k in up else gathered(k) for k in ("wuq", "wukv")},
+        }
+        self.x = x.to_local(grad_placements=_partial_on(x, self.split))
+
+    def out(self, o: torch.Tensor) -> DTensor:
+        """This rank's (b, T, h, vd) attention output through ``wo``: a
+        ``DTensor`` (B, T, D), a partial sum over :attr:`split`."""
+        b, T = o.shape[:2]
+        o = o.reshape(b, T, -1)
+        if self.split and not self.local:
+            lo, size = _shard_offset(self.wo, 0)
+            o = o[..., lo:lo + size]
+        placements = [Shard(2) if i in self.split else pl
+                      for i, pl in enumerate(self.like.placements)]
+        return from_local_layout(o, self.like.device_mesh,
+                                 placements) @ self.wo
+
+
 def add_parts(a: DTensor, b: DTensor) -> DTensor:
     """``a + b`` for two ``DTensor``s of one shape, either of them a
     partial sum over mesh dims where the other is whole: the partial one
@@ -586,7 +682,3 @@ class ExpertShard:
         return from_local_layout(y, self.mesh, _partial_on(self.like,
                                                            self.split))
 
-    def replicated(self, t: torch.Tensor) -> DTensor:
-        """A value every rank holds alike (the aux terms)."""
-        return from_local_layout(t, self.mesh,
-                                 [Replicate()] * self.mesh.ndim)

@@ -25,12 +25,15 @@ rendezvous.  ``--device`` defaults to the CUDA cards (rank r on card
 share a card are refused; ``--device cpu`` runs the ranks over gloo).
 The master weights come from the port's seeded init in
 ``cfg.param_dtype``, drawn alike on every rank.  The sharded step covers
-the dense families (ROADMAP step 16c), the SSM and hybrid ones (mamba2,
-hymba: each rank scans its own SSD heads, through K7 on the card) and the
-MoE family (deepseek-moe, llama4's dense + MoE pairs: each rank runs its
-own experts on its own batch rows, with the whole batch's capacity, queue
-order and drops); MLA, the vlm and the encoder-decoder wait for step
-16c(b).
+every family: the dense ones, MLA (minicpm3: the down projections
+gathered, each rank on its own heads) and the vlm (internvl2: the patch
+prefix gathered over "model"); the SSM and hybrid ones (mamba2, hymba:
+each rank scans its own SSD heads, through K7 on the card); the MoE
+family (deepseek-moe, llama4's dense + MoE pairs: each rank runs its own
+experts on its own batch rows, with the whole batch's capacity, queue
+order and drops); and the encoder-decoder (whisper: each rank on its own
+heads in the encoder's, the decoder's and the cross attention, the tied
+table vocab-parallel).
 """
 
 from __future__ import annotations
@@ -74,19 +77,6 @@ def mesh_batch(batch: dict, mesh: DistMesh) -> dict:
     split over the mesh's data axes, each rank keeping its rows."""
     tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
     return SH.place(tensors, SH.batch_specs(tensors, dp_axes(mesh)), mesh)
-
-
-SHARDED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
-
-
-def sharded_families_check(cfg: ArchConfig) -> None:
-    """Raise for a config the sharded step does not cover yet."""
-    if cfg.family not in SHARDED_FAMILIES or cfg.use_mla:
-        kind = f"{cfg.family}, MLA" if cfg.use_mla else cfg.family
-        raise NotImplementedError(
-            "the sharded train step covers the dense, SSM, hybrid and MoE "
-            f"families; {cfg.name} ({kind}) waits for ROADMAP step 16c(b): "
-            "run it with --model-parallel 1 on one device")
 
 
 def placed_state(cfg: ArchConfig, tcfg: TrainConfig, mesh: DistMesh,
@@ -220,7 +210,6 @@ def main(argv=None) -> None:
         return
     if "WORLD_SIZE" not in os.environ:
         raise SystemExit(f"usage: {EL.TORCHRUN_USAGE}")
-    sharded_families_check(cfg)
     own_group = not dist.is_initialized()
     dev = EL.init_process_group(args.device)
     try:

@@ -180,9 +180,9 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
 
 def _mla_q(x, p, cfg: ArchConfig, positions):
     B, T, _ = x.shape
-    H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(B, T, H, nd + rd)
+    q = (cq @ p["wuq"]).reshape(B, T, -1, nd + rd)
     qn, qr = q[..., :nd], q[..., nd:]
     return qn, apply_rope(qr, positions, cfg.rope_theta)
 
@@ -199,9 +199,19 @@ def _mla_ckv(x, p, cfg: ArchConfig, positions):
 
 def mla_seq(x, p, cfg: ArchConfig, *, positions=None, q_block: int = 256,
             kv_block: int = 512, return_kv: bool = False):
-    """Full-sequence MLA: decompress K/V and run the flash attention."""
-    B, T, _ = x.shape
+    """Full-sequence MLA: decompress K/V and run the flash attention.  On
+    a ``DTensor`` x, each rank's own heads as plain tensors
+    (``tensor_parallel.MLAHeads``), and a partial sum over "model"."""
     H, nd, rd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    heads = None
+    if TP.is_dtensor(x):
+        if return_kv:
+            raise NotImplementedError("sharded serving caches (cache_specs) "
+                                      "are not ported: return_kv needs one "
+                                      "card")
+        heads = TP.MLAHeads(x, p, H)
+        x, p, H = heads.x, heads.params, heads.h
+    B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
     qn, qr = _mla_q(x, p, cfg, positions)
@@ -216,6 +226,8 @@ def mla_seq(x, p, cfg: ArchConfig, *, positions=None, q_block: int = 256,
     out = flash_attention(q, k, v, causal=True, q_block=q_block,
                           kv_block=kv_block, scale=(nd + rd) ** -0.5)
     out = constrain(out, "attn_out")
+    if heads is not None:
+        return heads.out(out)
     y = out.reshape(B, T, -1) @ p["wo"]
     if return_kv:
         return y, (ckv, krope)

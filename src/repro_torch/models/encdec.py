@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FF
 from repro_torch.models.common import (dense_init, generator, layer_norm,
@@ -71,7 +72,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 
 
 def _ln(x, p, cfg: ArchConfig):
-    return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    """LayerNorm; on a ``DTensor`` its gradient is summed over the mesh
+    where it arises (``tensor_parallel.reduce_grad``): every norm's output
+    feeds column-sharded projections (the last one the vocab-sharded
+    logits)."""
+    return TP.reduce_grad(layer_norm(x, p["w"], p["b"], cfg.norm_eps))
 
 
 def _heads(t: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -79,22 +84,40 @@ def _heads(t: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return t.reshape(B, T, cfg.n_heads, cfg.head_dim)
 
 
+def _kv(x, p):
+    """K (no bias) and V of x (B, S, D), (B, S, H * Dh) each."""
+    return x @ p["wk"], x @ p["wv"] + p["bv"]
+
+
 def _self_kv(x, p, cfg: ArchConfig):
-    """K (no bias) and V of x (B, T, D), (B, T, H, Dh) each."""
-    return _heads(x @ p["wk"], cfg), _heads(x @ p["wv"] + p["bv"], cfg)
+    """K and V of x (B, T, D), (B, T, H, Dh) each."""
+    return tuple(_heads(t, cfg) for t in _kv(x, p))
 
 
 def _attn(x, p, cfg: ArchConfig, *, causal: bool, kv=None):
-    """kv: precomputed (k, v) for cross attention."""
+    """kv: precomputed (k, v) (B, S, H * Dh) for cross attention.  On a
+    ``DTensor`` x, each rank attends with its own heads
+    (``tensor_parallel.local_heads``), and ``wo``'s partial sum over
+    "model" is completed before the replicated ``bo`` is added once."""
     B, T, _ = x.shape
-    q = _heads(x @ p["wq"] + p["bq"], cfg)
-    k, v = _self_kv(x, p, cfg) if kv is None else kv
-    out = flash_attention(q, k, v, causal=causal)
+    q = x @ p["wq"] + p["bq"]
+    k, v = _kv(x, p) if kv is None else kv
+    if TP.is_dtensor(q):
+        H = cfg.n_heads
+        q, k, v, like = TP.local_heads(q, k, v, H, H, p["wo"])
+        out = flash_attention(q, k, v, causal=causal)
+        y = TP.from_local_heads(out, like, p["wo"]) @ p["wo"]
+        return TP.like(y, x) + p["bo"]
+    out = flash_attention(_heads(q, cfg), _heads(k, cfg), _heads(v, cfg),
+                          causal=causal)
     return out.reshape(B, T, -1) @ p["wo"] + p["bo"]
 
 
-def _positions(T: int, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    return sinusoid_pos(T, cfg.d_model, x.device).to(x.dtype)
+def _positions(T: int, cfg: ArchConfig, x) -> torch.Tensor:
+    """The sinusoidal positions (T, D) in x's dtype; replicated on a
+    ``DTensor`` x's mesh."""
+    dev = x.to_local().device if TP.is_dtensor(x) else x.device
+    return TP.replicated(sinusoid_pos(T, cfg.d_model, dev).to(x.dtype), x)
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor):
@@ -113,20 +136,32 @@ def _enc_layer(x, lp, cfg: ArchConfig):
 
 def _dec_layer(x, lp, cfg: ArchConfig, enc_out):
     """One teacher-forced decoder layer; returns (x, (k, v, ck, cv)), its
-    self and cross K/V."""
+    self and cross K/V (B, S, H * Dh)."""
     h = _ln(x, lp["ln1"], cfg)
-    k, v = _self_kv(h, lp["self"], cfg)
+    k, v = _kv(h, lp["self"])
     x = x + _attn(h, lp["self"], cfg, causal=True, kv=(k, v))
     h = _ln(x, lp["lnx"], cfg)
-    ck, cv = _self_kv(enc_out, lp["cross"], cfg)
+    ck, cv = _kv(enc_out, lp["cross"])
     x = x + _attn(h, lp["cross"], cfg, causal=False, kv=(ck, cv))
     x = x + FF.mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], cfg)
     return x, (k, v, ck, cv)
 
 
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The tied head's logits (B, T, V); vocab-sharded on a ``DTensor``
+    table."""
     x = _ln(x, params["dec_ln"], cfg)
     return x @ params["embed"].T.to(x.dtype)
+
+
+def _embed(params: dict, cfg: ArchConfig, tokens) -> torch.Tensor:
+    """The tied table's rows of ``tokens``; on a ``DTensor`` table the
+    vocab-parallel lookup."""
+    if TP.is_dtensor(params["embed"]):
+        x = TP.vocab_parallel_embed(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens.long()]
+    return x.to(model_dtype(cfg))
 
 
 def decode_seq(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -135,7 +170,7 @@ def decode_seq(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """Teacher-forced decoder pass; optionally returns the serving cache
     (self K/V padded to ``cache_len`` positions, the cross K/V, length).
     Returns (logits (B, T, V), cache or None)."""
-    x = params["embed"][tokens.long()].to(model_dtype(cfg))
+    x = _embed(params, cfg, tokens)
     B, T, _ = x.shape
     x = x + _positions(T, cfg, x)[None]
     ks, vs, cks, cvs = [], [], [], []
@@ -146,10 +181,11 @@ def decode_seq(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     logits = _logits(params, cfg, x)
     if not return_cache:
         return logits, None
+    stack = lambda ts: torch.stack([_heads(t, cfg) for t in ts])  # noqa: E731
     pad = lambda t: torch.nn.functional.pad(  # noqa: E731
         t, (0, 0, 0, 0, 0, cache_len - T))
-    cache = {"k": pad(torch.stack(ks)), "v": pad(torch.stack(vs)),
-             "ck": torch.stack(cks), "cv": torch.stack(cvs),
+    cache = {"k": pad(stack(ks)), "v": pad(stack(vs)),
+             "ck": stack(cks), "cv": stack(cvs),
              "length": torch.full((B,), T, dtype=torch.int32,
                                   device=x.device)}
     return logits, cache
@@ -159,23 +195,27 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, **_):
     """Teacher-forced cross-entropy over the full (B, T, V) float32 logits
     (whisper's vocabulary is small enough), the gold logit gathered.
     batch: ``frames`` (B, F, D), ``tokens`` and ``labels`` (B, T), -1 =
-    masked.  Returns (ce, metrics), the metrics' MoE terms zero."""
+    masked.  Returns (ce, metrics), the metrics' MoE terms zero.  On
+    ``DTensor``s the vocab-parallel cross-entropy, which never gathers the
+    vocab-sharded logits."""
     check_param_dtypes(params, cfg)
     enc_out = encode(params, cfg, batch["frames"])
     logits, _ = decode_seq(params, cfg, batch["tokens"], enc_out)
     logits = logits.float()
     labels = batch["labels"]
-    mask = labels >= 0
-    safe = labels.clamp(min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
-    nll = torch.where(mask, lse - gold, 0.0)
-    tokens = mask.sum().to(torch.int32)
-    ce = nll.sum() / tokens.clamp(min=1).float()
-    dev = logits.device
+    if TP.is_dtensor(logits):
+        nll, tokens = TP.vocab_parallel_ce(logits, labels)
+    else:
+        mask = labels >= 0
+        safe = labels.clamp(min=0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        nll = torch.where(mask, lse - gold, 0.0).sum()
+        tokens = mask.sum().to(torch.int32)
+    ce = nll / tokens.clamp(min=1).float()
     return ce, {"ce": ce, "tokens": tokens,
-                "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=dev),
-                "moe_dropped": torch.zeros((), dtype=torch.int32, device=dev)}
+                "moe_aux_loss": TP.zeros_like_scalar(logits, torch.float32),
+                "moe_dropped": TP.zeros_like_scalar(logits, torch.int32)}
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, cache_len: int):
@@ -195,7 +235,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens_t: torch.Tensor,
     check_param_dtypes(params, cfg)
     B = tokens_t.shape[0]
     length = cache["length"]
-    x = params["embed"][tokens_t.long()[:, None]].to(model_dtype(cfg))
+    x = _embed(params, cfg, tokens_t[:, None])
     S_max = cache["k"].shape[2]
     # the reference's gather clamps a position past the table
     pos = _positions(S_max, cfg, x)[length.long().clamp(0, S_max - 1)]

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models.common import activation, dense_init
 
 
@@ -36,5 +37,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(x, p, cfg: ArchConfig):
+    """The biased MLP; on a ``DTensor`` x, ``wo``'s partial sum over
+    "model" is completed before the replicated ``bo`` is added once."""
     act = activation(cfg.act)
-    return act(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
+    return TP.like(act(x @ p["wi"] + p["bi"]) @ p["wo"], x) + p["bo"]

@@ -152,8 +152,8 @@ def _moe_layer_sharded(x, p: dict, cfg: ArchConfig, dispatch: str):
     y = ep.out(y.reshape(b, T, D))
     if cfg.n_shared_experts:
         y = TP.add_parts(y, swiglu(x, p["shared"], cfg))
-    return y, {"moe_aux_loss": ep.replicated(aux_loss),
-               "moe_dropped": ep.replicated(dropped)}
+    return y, {"moe_aux_loss": TP.replicated(aux_loss, x),
+               "moe_dropped": TP.replicated(dropped, x)}
 
 
 def _expert_ffn(p: dict, cfg: ArchConfig, xe: torch.Tensor) -> torch.Tensor:

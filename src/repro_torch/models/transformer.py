@@ -335,9 +335,20 @@ def embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
 
 def project_patches(params: dict, cfg: ArchConfig, patches: torch.Tensor):
     """The vlm's stub frontend output (B, P, vit_embed_dim) -> d_model
-    tokens (InternVL's mlp1, tanh-approximate gelu)."""
-    h = patches.to(model_dtype(cfg)) @ params["mlp1"]["w1"]
-    return F.gelu(h, approximate="tanh") @ params["mlp1"]["w2"]
+    tokens (InternVL's mlp1, tanh-approximate gelu).
+
+    On ``DTensor``s the rules column-shard both ``w1`` and ``w2`` on
+    "model", so the hidden's columns are split where ``w2`` contracts
+    them: the hidden is gathered over "model" before ``w2`` and the prefix
+    after it, (B, P, D) each (no weight is gathered).  Both are explicit
+    redistributions, whose backward sums the hidden's partial gradient
+    over "model" (a reduce-scatter) and keeps each rank's columns of the
+    prefix's whole one: the prefix comes out as the token embeddings lie,
+    split over the batch and replicated on "model"."""
+    h = F.gelu(patches.to(model_dtype(cfg)) @ params["mlp1"]["w1"],
+               approximate="tanh")
+    h = TP.like(h, patches)
+    return TP.like(h @ params["mlp1"]["w2"], patches)
 
 
 def assemble_inputs(params: dict, cfg: ArchConfig, batch: dict):
@@ -403,8 +414,8 @@ def chunked_ce_loss(params: dict, cfg: ArchConfig, x: torch.Tensor,
     chunk = min(chunk, T)
     pad = -T % chunk
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        x = TP.pad(x, (0, 0, 0, pad))
+        labels = TP.pad(labels, (0, pad), value=-1)
     loss_sum = TP.zeros_like_scalar(x, torch.float32)
     count = TP.zeros_like_scalar(x, torch.int32)
     for c0 in range(0, T + pad, chunk):

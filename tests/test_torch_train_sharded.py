@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch.train import device_batch, train_config
@@ -952,13 +952,31 @@ def test_model_parallel_without_torchrun_is_a_usage_error(monkeypatch):
             TRAIN.main([*argv, "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-26b",
-                                  "minicpm3-4b"])
-def test_sharded_step_names_the_families_it_waits_for(arch):
-    from repro_torch.launch.train import sharded_families_check
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_sharded_step_admits_every_family(arch, tmp_path, monkeypatch):
+    """``main``'s sharded path (``--model-parallel 1`` under a one-rank
+    gloo group) trains every registered config, reduced: no family is
+    refused; rank 0 logs the mesh line and the step."""
+    import contextlib
+    import io
 
-    with pytest.raises(NotImplementedError, match="16c\\(b\\)"):
-        sharded_families_check(get_config(arch).reduced())
-    for admitted in ("qwen3-14b", "mamba2-370m", "hymba-1.5b",
-                     "deepseek-moe-16b", "llama4-maverick-400b-a17b"):
-        sharded_families_check(get_config(admitted).reduced())
+    from repro_torch.launch import train as TRAIN
+
+    for name, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                        ("LOCAL_RANK", "0"), ("LOCAL_WORLD_SIZE", "1")):
+        monkeypatch.setenv(name, value)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            TRAIN.main(["--arch", arch, "--reduced", "--model-parallel", "1",
+                        "--steps", "1", "--seq", "32", "--batch", "2",
+                        "--ckpt-dir", str(tmp_path / "ckpt"),
+                        "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
+    text = buf.getvalue()
+    assert f"mesh: {{'data': 1, 'model': 1}} | arch: {arch}" in text
+    loss = float(text.split("step     0 loss ")[1].split()[0])
+    assert np.isfinite(loss) and "done at step 1" in text

@@ -261,10 +261,15 @@ from repro.training.step import TrainConfig, make_train_step
 
 out_dir, cases = sys.argv[1], json.loads(sys.argv[2])
 at = jax.sharding.AxisType
-mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(at.Auto,) * 2)
-tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=10),
-                   remat=False)
-for name, (arch, over) in cases.items():
+# a case is (arch, overrides) on 2 x 4 without remat, or (arch, overrides,
+# mesh shape, TrainConfig keywords)
+for name, (arch, over, *rest) in cases.items():
+    shape, tkw = rest if rest else ((2, 4), {"remat": False})
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(at.Auto,) * 2,
+                         devices=jax.devices()[:shape[0] * shape[1]])
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=10), **tkw)
     flat = dict(np.load(os.path.join(out_dir, f"init_{name}.npz")))
     state = {}
     for key, arr in flat.items():
