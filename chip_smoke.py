@@ -218,7 +218,7 @@ exits non-zero):
                qwen2-1.5b (28 layers, d 1536, 12 / 2 heads of 128, vocab
                151,936, bf16 weights from the port's seeded init), 32 slots
                of an 8,192-position cache (7.5 GB), 4 shards of replication
-               2, 64 requests of 256-2,048 prompt tokens and 96 new tokens
+               2, 64 requests of 256-2,048 prompt tokens and 80 new tokens
                each, greedy, a rebalance every 6 steps and the most-loaded
                shard failed at step 8; every request must finish and no
                sequence may sit on the dead shard afterwards; K6 is held
@@ -234,7 +234,7 @@ exits non-zero):
                the first prefill; decode by the recurrence;
 8. families    the families added last, at their published widths with
                bf16 weights from the port's seeded init, one line each:
-               the serving traffic above, cut to 12 requests of 40 new
+               the serving traffic above, cut to 12 requests of 24 new
                tokens, through the engine on
                deepseek-moe-16b (a 4,096-position cache; the MoE drops of
                one 2,048-token prompt), minicpm3-4b (MLA, no K6; one
@@ -304,7 +304,25 @@ exits non-zero):
                (twice under remat) for mamba2 and hymba, each rank on its
                own SSD heads, one plain-VJP backward a scan layer and
                step, nothing else (qwen2 launches none), the counts on a
-               line of their own;
+               line of their own; in the same ranks, first, the
+               int8-compressed data-parallel step
+               (``make_dp_train_step`` over the group of "data": the
+               replicated state and each rank's rows as plain tensors on
+               its card, each rank's int8 gradient all-gathered and the
+               ranks added in rank order) for qwen2-1.5b and mamba2-370m
+               at full width cut to 2 layers: (a) float32, TF32 off, one
+               step of 8 x 256 tokens against the single-controller
+               ``make_dp_train_step(n_dp)`` on rank 0's card: the
+               compressed sum alone on the ranks' gathered gradients (q,
+               scales, new error, mean) bit for bit, the step's metrics,
+               parameters, moments and error buffers bit for bit where
+               the card's kernels are deterministic, else within (a)'s
+               tolerances, no all-reduce; (b) bf16 over float32 masters,
+               remat, 5 steps of 8 x 2,048 tokens: finite losses, the
+               compressed sum's quantize / gather / dequantize-and-add
+               CUDA-event ms; after each, the ranks' parameters one
+               replica (a digest a rank); K7 as the sharded step's, on
+               its own path (``train_dp``) in the kernel line;
 11. dryrun     the dry-run (``repro_torch.launch.dryrun``) on this machine,
                which has no JAX: (a) the ten configs' ``train_4k`` and
                ``decode_32k`` cells on the 16x16 mesh at published widths,
@@ -326,7 +344,7 @@ exits non-zero):
                prediction exactly, K6 (qwen2's decode) and K7 (mamba2's
                prefill and train) once a layer and step, finite outputs.
 
-Four more phases run only when named in ``--phases``: ``profile``
+Five more phases run only when named in ``--phases``: ``profile``
 (``torch.profiler`` over two full-width epochs of the epoch driver),
 ``serving_profile`` (over two full-width decode steps with every slot busy,
 and one prefill of 2,048 tokens), ``grid_study`` (with ``kernels``: the
@@ -341,7 +359,14 @@ K7 counted as in ``train_sharded``; step ms p50 / p99, the largest over
 the ranks; tokens/s; peak memory a card; each rank's argument bytes against
 ``sharded_bytes_per_device``, less than 512 B a leaf above; one step's
 collectives by ``CommDebugMode`` against the dry-run's ring model; one
-profiled step a rank).
+profiled step a rank) and ``train_dp_full`` (four cards: the
+int8-compressed data-parallel step for qwen2-1.5b and mamba2-370m at full
+width and depth over four DP ranks on 4 x 1, each rank 2 of the 8 x 2,048
+rows, 16 steps of a 16-step schedule: step ms p50 / p99, the largest over
+the ranks; tokens/s; peak memory a card; the compressed sum's quantize,
+gather and dequantize-and-add CUDA-event ms; the bytes gathered a step
+against n_dp x parameters; one replica after the run; K7 as in
+``train_sharded``).
 
 It then prints the kernel table (``{"kernels": [...]}``, with each main
 path's launch counts in ``launches_by_path``, and beside K7 the backward
@@ -371,7 +396,7 @@ PHASES = ("device", "kernels", "parity", "full_width", "overload",
           "telemetry", "dist", "paper", "benches", "serving", "serving_ssm",
           "families", "training", "train_sharded", "dryrun")
 EXTRA_PHASES = ("profile", "serving_profile",   # run only when named
-                "grid_study", "train_sharded_full")
+                "grid_study", "train_sharded_full", "train_dp_full")
 
 
 def emit(obj: dict) -> None:
@@ -3293,12 +3318,13 @@ def phase_telemetry() -> dict:
 # for qwen2-1.5b its context of 32,768 cut to an 8,192-position cache (the
 # bf16 KV cache is then 7.5 GB), mamba2-370m keeps no KV cache (its decode
 # state is 48 MiB of f32 a slot); 64 requests of 256-2,048 prompt tokens
-# and 96 new tokens each (128 until phase train_sharded took the MLA, vlm
-# and encdec families: the script's time limit)
+# and 80 new tokens each (128 until phase train_sharded took the MLA, vlm
+# and encdec families, 96 until it took the compressed DP step: the
+# script's time limit)
 SERVE_ARCH = "qwen2-1.5b"
 SERVE_SSM_ARCH = "mamba2-370m"
 SERVE_SLOTS, SERVE_CACHE, SERVE_SHARDS = 32, 8192, 4
-SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 64, 96, (256, 2048)
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 64, 80, (256, 2048)
 SERVE_REBALANCE_EVERY, SERVE_FAIL_AT = 6, 8
 SERVE_K6_CHECK_STEP = 64
 
@@ -3530,10 +3556,11 @@ FAMILY_CACHE = {"deepseek-moe-16b": 4096, "minicpm3-4b": 8192,
 # HBM3, 700 W), and the script must stay well inside its time limit (16
 # before phase benches joined it)
 FAMILY_REQUESTS = 12
-# and 40 new tokens (39 decode steps, the K6 check at step 32): the
+# and 24 new tokens (23 decode steps, the K6 check at step 16): the
 # script's time limit once phase train_sharded took deepseek-moe-16b (64
-# then) and the MLA, vlm and encdec families (40)
-FAMILY_NEW, FAMILY_K6_CHECK_STEP = 40, 32
+# then), the MLA, vlm and encdec families (40) and the compressed DP step
+# (24)
+FAMILY_NEW, FAMILY_K6_CHECK_STEP = 24, 16
 LLAMA4_DEPTH = 2
 MOE_PROMPT = 2048                 # the prompt whose MoE drops are reported
 VLM_PATCHES, VLM_TOKENS, VLM_STEPS = 256, 256, 16
@@ -4196,7 +4223,23 @@ SHARDED_BF16_STEPS = 5
 SHARDED_BF16_CKPT = 3
 SHARDED_FULL_STEPS = 16
 SHARDED_FULL_CKPT = 12
-SHARDED_TIMEOUT_S = {"smoke": 900, "full": 1800}
+SHARDED_TIMEOUT_S = {"smoke": 900, "full": 1800, "dp_full": 1200}
+# the int8-compressed data-parallel step over ranks
+# (training.step.make_dp_train_step on a DistMesh), in the ranks of
+# train_sharded, over the group of "data" (the model ranks of a data row
+# compute the same): DP_ARCHS at full width cut to SHARDED_PARITY_LAYERS;
+# (a) float32, TF32 off, one step of 8 x 256 tokens against the
+# single-controller make_dp_train_step(n_dp) on rank 0's card (the
+# compressed sum alone on the ranks' gathered gradients: bit for bit;
+# the step: bit for bit where the card's kernels are deterministic, else
+# within the sharded step's tolerances); (b) bf16 over float32 masters,
+# remat, DP_BF16_STEPS steps of 8 x 2,048 tokens, no checkpoint.  After
+# each, the ranks' parameters are the same replica (a digest a rank).
+# train_dp_full (run only when named; four cards): DP_ARCHS at full width
+# and depth over four DP ranks on 4 x 1, 2 of the 8 x 2,048-token rows a
+# rank, SHARDED_FULL_STEPS steps of that schedule
+DP_ARCHS = ("qwen2-1.5b", "mamba2-370m")
+DP_BF16_STEPS = 5
 
 
 def _sharded_ranks() -> int:
@@ -4241,6 +4284,13 @@ def _sharded_cfg(arch: str, layers: int | None = None, **kw):
     if layers is not None and layers != cfg.n_layers:
         kw["n_layers"] = layers
     return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _worst(a: dict, b: dict) -> float:
+    from repro_torch.training import tree as T
+
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(T.leaves(a), T.leaves(b)))
 
 
 def _sharded_parity(mesh, arch: str) -> dict:
@@ -4289,11 +4339,6 @@ def _sharded_parity(mesh, arch: str) -> dict:
         ref = init_train_state(cfg, tcfg, device=mesh.device)
         ref_new, ref_m = step(ref, device_batch(batch, mesh.device))
     del ref
-
-    def worst(a, b):
-        return max(float((x.float() - y.float()).abs().max())
-                   for x, y in zip(T.leaves(a), T.leaves(b)))
-
     m_scale = max(float(x.abs().max()) for x in T.leaves(ref_new["opt"]["m"]))
     out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "batch": B, "seq": T_,
@@ -4303,10 +4348,10 @@ def _sharded_parity(mesh, arch: str) -> dict:
            "grad_norm": gnorm, "grad_norm_one_card": float(ref_m["grad_norm"]),
            "moe_dropped": dropped,
            "moe_dropped_one_card": int(ref_m["moe_dropped"]),
-           "params_worst": worst(new["params"], ref_new["params"]),
-           "m_worst_over_max": worst(new["opt"]["m"],
-                                     ref_new["opt"]["m"]) / m_scale,
-           "v_worst": worst(new["opt"]["v"], ref_new["opt"]["v"]),
+           "params_worst": _worst(new["params"], ref_new["params"]),
+           "m_worst_over_max": _worst(new["opt"]["m"],
+                                      ref_new["opt"]["m"]) / m_scale,
+           "v_worst": _worst(new["opt"]["v"], ref_new["opt"]["v"]),
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated()
                                        / 2**30), **run}
     out["ok"] = (out["loss_err"] < SHARDED_LOSS_TOL
@@ -4505,11 +4550,245 @@ def _sharded_full(mesh, out_dir: Path, arch: str) -> dict:
             "ring_model_argument_bytes": predicted["memory"]["argument_bytes"]}
 
 
+def _replicas_equal(tree: dict) -> bool:
+    """Whether every rank of the world holds the same ``tree``: each
+    leaf's bit patterns summed as int64 (exact, in any order), the
+    digests all-gathered and compared."""
+    import torch.distributed as dist
+
+    from repro_torch.training import tree as T
+    from repro_torch.training.grad_compression import all_gather_rows
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    mine = torch.stack([t.detach().reshape(-1).view(ints[t.element_size()])
+                        .sum(dtype=torch.int64) for t in T.leaves(tree)])
+    every = all_gather_rows(mine, None, dist.get_world_size())
+    return bool((every == every[0]).all())
+
+
+@contextlib.contextmanager
+def _collective_bytes():
+    """c10d's all-gathers and all-reduces while the block runs: a dict of
+    their counts and the bytes each rank received (an all-gather's
+    output)."""
+    import torch.distributed as dist
+
+    seen = {"all_gather": 0, "gathered_bytes": 0, "all_reduce": 0}
+    names = ("all_gather_single", "all_gather_into_tensor")
+    saved = {n: getattr(dist, n) for n in names if hasattr(dist, n)}
+    saved_reduce = dist.all_reduce
+
+    def counted(fn):
+        def gather(out, x, *args, **kw):
+            seen["all_gather"] += 1
+            seen["gathered_bytes"] += out.numel() * out.element_size()
+            return fn(out, x, *args, **kw)
+        return gather
+
+    def reduce(*args, **kw):
+        seen["all_reduce"] += 1
+        return saved_reduce(*args, **kw)
+
+    for n, fn in saved.items():
+        setattr(dist, n, counted(fn))
+    dist.all_reduce = reduce
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+        dist.all_reduce = saved_reduce
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    from repro_torch.training import tree as T
+
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def _dp_parity(mesh, arch: str) -> dict:
+    """(a) of the ranked DP step: the compressed sum alone, then one step,
+    against the single controller on rank 0's card."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch.train import device_batch
+    from repro_torch.training import tree as T
+    from repro_torch.training.grad_compression import (all_gather_rows,
+                                                       compressed_psum,
+                                                       gather_mean,
+                                                       quantize_payload,
+                                                       quantize_with_feedback)
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import (TrainConfig, dp_group,
+                                           init_dp_error_feedback,
+                                           init_placed_dp_error_feedback,
+                                           init_train_state,
+                                           make_dp_train_step,
+                                           value_and_grad)
+
+    cfg = _sharded_cfg(arch, SHARDED_PARITY_LAYERS, dtype="float32")
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=10),
+                       remat=False, grad_compression=True)
+    B, T_ = SHARDED_PARITY_SHAPE
+    batch = device_batch(make_batch(cfg, ShapeSpec("dp_parity", T_, B,
+                                                   "train"), 0,
+                                    DataConfig("copy")), mesh.device)
+    group, n, r = dp_group(mesh)
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model, "batch": B,
+           "seq": T_, "n_dp": n, "compute_dtype": cfg.dtype, "tf32": False}
+    torch.cuda.reset_peak_memory_stats()
+    with _tf32_off():
+        state = init_train_state(cfg, tcfg, device=mesh.device)
+        zeros = state.pop("err")
+        # the compressed sum alone: this rank's gradient through the
+        # ranked sum, and every rank's, gathered, through the single
+        # controller's on rank 0: the same inputs, so bit for bit
+        rows = {k: v.reshape(n, B // n, -1)[r] for k, v in batch.items()}
+        _, grads = value_and_grad(cfg, state["params"], rows)
+        payload, new_e = quantize_payload(grads, zeros)
+        mean = gather_mean(payload, group)
+        stacked = T.tree_map(lambda g: all_gather_rows(
+            g.reshape(-1), group, n).view(n, *g.shape), grads)
+        del grads
+        if mesh.rank == 0:
+            ref_mean, ref_err = compressed_psum(
+                stacked, T.tree_map(lambda e: e[None].expand(n, *e.shape),
+                                    zeros))
+            q0, s0, _ = zip(*(quantize_with_feedback(g[0], e) for g, e in
+                              zip(T.leaves(stacked), T.leaves(zeros))))
+            out["sum"] = {
+                "q": torch.equal(payload.q, torch.cat([q.reshape(-1)
+                                                       for q in q0])),
+                "scales": torch.equal(payload.scales, torch.stack(s0)),
+                "new_error": _trees_equal(new_e, T.tree_map(
+                    lambda e: e[0], ref_err)),
+                "mean": _trees_equal(mean, ref_mean)}
+            del ref_mean, ref_err
+        del stacked, payload, new_e, mean
+        # one step of the ranked step, and of the single controller
+        err = init_placed_dp_error_feedback(cfg, state["params"], mesh)
+        step = make_dp_train_step(cfg, tcfg, mesh)
+        _reset_kernel_launches()
+        with _collective_bytes() as seen:
+            new, new_err, m = step(state, err, batch)
+            loss = float(m["loss"])
+        launches = _kernel_launches()
+        new_err = T.tree_map(TP.whole, new_err)
+        out["replicas_equal"] = _replicas_equal(new)
+        out.update(loss=loss, launches=launches, steps_run=1,
+                   remat=tcfg.remat, scan_layers=_scan_layers(cfg),
+                   collectives=seen)
+        if mesh.rank != 0:
+            return out
+        one = make_dp_train_step(cfg, tcfg, n)
+        ref_new, ref_err, ref_m = one(
+            state, init_dp_error_feedback(cfg, state["params"], n), batch)
+    m_scale = max(float(x.abs().max()) for x in T.leaves(ref_new["opt"]["m"]))
+    out.update({
+        "loss_one_controller": float(ref_m["loss"]),
+        "metrics_bitwise": all(torch.equal(m[k], ref_m[k]) for k in ref_m),
+        "loss_err": abs(loss - float(ref_m["loss"])),
+        "params_bitwise": _trees_equal(new["params"], ref_new["params"]),
+        "opt_bitwise": _trees_equal(new["opt"], ref_new["opt"]),
+        "error_bitwise": _trees_equal(new_err, ref_err),
+        "params_worst": _worst(new["params"], ref_new["params"]),
+        "m_worst_over_max": _worst(new["opt"]["m"],
+                                   ref_new["opt"]["m"]) / m_scale,
+        "error_worst": _worst(new_err, ref_err),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
+    out["bitwise"] = all(out[k] for k in ("metrics_bitwise", "params_bitwise",
+                                          "opt_bitwise", "error_bitwise"))
+    out["ok"] = (all(out["sum"].values()) and out["replicas_equal"]
+                 and seen["all_reduce"] == 0
+                 and out["loss_err"] < SHARDED_LOSS_TOL
+                 and out["params_worst"] < SHARDED_PARAM_TOL
+                 and out["m_worst_over_max"] < SHARDED_MOMENT_TOL)
+    return out
+
+
+def _dp_train(mesh, arch: str, *, layers: int | None, steps: int,
+              schedule: int) -> dict:
+    """The ranked DP step, bf16 over float32 masters, remat, for ``steps``
+    steps of a ``schedule``-step run of 8 x 2,048 tokens: this rank's
+    step ms (CUDA events) and host seconds, its compressed sum's
+    quantize / gather / dequantize-and-add ms a step (CUDA events), the
+    collectives and the bytes gathered, peak memory and the kernels'
+    launches; after the run, whether the ranks hold one replica."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import device_batch, train_config
+    from repro_torch.models.model import param_count
+    from repro_torch.training.step import (dp_group,
+                                           init_placed_dp_error_feedback,
+                                           init_train_state,
+                                           make_dp_train_step)
+
+    cfg = _sharded_cfg(arch, layers)
+    shape = ShapeSpec("chip_dp", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = dataclasses.replace(train_config(schedule, TRAIN_LR),
+                               grad_compression=True)
+    _, n, _ = dp_group(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg, device=mesh.device)
+    del state["err"]
+    err = init_placed_dp_error_feedback(cfg, state["params"], mesh)
+    step = make_dp_train_step(cfg, tcfg, mesh)
+    log = print if mesh.rank == 0 else (lambda s: None)
+    _reset_kernel_launches()
+    recs, parts = [], []
+    t_run = time.perf_counter()
+    with _collective_bytes() as seen:
+        for i in range(steps):
+            batch = device_batch(make_batch(cfg, shape, i,
+                                            DataConfig("copy")), mesh.device)
+            spans: dict = {}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t0 = time.perf_counter()
+            state, err, m = step(state, err, batch, spans=spans)
+            ev[1].record()
+            loss = float(m["loss"])                  # waits for the step
+            recs.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                         "seconds": time.perf_counter() - t0,
+                         "ms": ev[0].elapsed_time(ev[1])})
+            parts.append({k: sum(a.elapsed_time(b) for a, b in v)
+                          for k, v in spans.items()})
+            if i % 4 == 0 or i == steps - 1:
+                log(f"dp {arch} step {i} loss {loss:.4f}")
+    run_s = time.perf_counter() - t_run
+    launches = _kernel_launches()
+    params = param_count(state["params"])
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.dtype, "master_dtype": cfg.param_dtype,
+           "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "rows_a_rank": TRAIN_BATCH // n, "n_dp": n, "steps": steps,
+           "schedule": schedule, "params": params,
+           "losses": [r["loss"] for r in recs],
+           "grad_norms": [r["grad_norm"] for r in recs],
+           "ms": [r["ms"] for r in recs],
+           "seconds": [r["seconds"] for r in recs], "run_s": run_s,
+           "sum_ms": parts, "collectives_per_step": {
+               k: v / steps for k, v in seen.items()},
+           "n_dp_x_params": n * params,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 2**30,
+           "launches": launches, "steps_run": steps,
+           "scan_layers": _scan_layers(cfg)}
+    out["replicas_equal"] = _replicas_equal(state["params"])
+    del state, err
+    return out
+
+
 def sharded_rank(part: str, out: str) -> None:
-    """One rank of phase train_sharded (``part`` "smoke") or of
-    train_sharded_full ("full"), under torch.distributed.run: joins the
-    group (NCCL or gloo, ``training.elastic``), fits the (n / 2, 2) mesh
-    and writes its record to ``<out>/rank<r>.json``."""
+    """One rank of phase train_sharded (``part`` "smoke"), of
+    train_sharded_full ("full") or of train_dp_full ("dp_full"), under
+    torch.distributed.run: joins the group (NCCL or gloo,
+    ``training.elastic``), fits the (n / 2, 2) mesh (n x 1 for
+    "dp_full") and writes its record to ``<out>/rank<r>.json``."""
     import torch.distributed as dist
 
     from repro_torch.training import elastic as EL
@@ -4519,13 +4798,24 @@ def sharded_rank(part: str, out: str) -> None:
     faulthandler.enable()         # a crash in a collective names its frame
     out_dir = Path(out)
     dev = EL.init_process_group()
-    mesh = EL.fit_mesh(model_parallel=min(SHARDED_MP, dist.get_world_size()),
-                       device=dev)
+    mp = 1 if part == "dp_full" else min(SHARDED_MP, dist.get_world_size())
+    mesh = EL.fit_mesh(model_parallel=mp, device=dev)
     rec = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
            "mesh": mesh.shape, "card": torch.cuda.get_device_name(dev)}
     try:
         if part == "smoke":
             rec["parity"], rec["bf16"] = {}, {}
+            rec["dp_parity"], rec["dp_bf16"] = {}, {}
+            for arch in DP_ARCHS:
+                t0 = time.perf_counter()
+                rec["dp_parity"][arch] = _dp_parity(mesh, arch)
+                _free_card()
+                rec["dp_bf16"][arch] = _dp_train(
+                    mesh, arch, layers=SHARDED_BF16_LAYERS,
+                    steps=DP_BF16_STEPS, schedule=DP_BF16_STEPS)
+                rec["dp_bf16"][arch]["phase_s"] = time.perf_counter() - t0
+                _free_card()
+                dist.barrier()
             for arch in SHARDED_ARCHS:
                 rec["parity"][arch] = _sharded_parity(mesh, arch)
                 _free_card()
@@ -4537,9 +4827,17 @@ def sharded_rank(part: str, out: str) -> None:
                     steps=SHARDED_BF16_STEPS, ckpt_at=SHARDED_BF16_CKPT)
                 _free_card()
                 dist.barrier()
-        else:
+        elif part == "full":
             rec["full"] = {arch: _sharded_full(mesh, out_dir / arch, arch)
                            for arch in SHARDED_FULL_ARCHS}
+        else:
+            rec["dp_full"] = {}
+            for arch in DP_ARCHS:
+                rec["dp_full"][arch] = _dp_train(
+                    mesh, arch, layers=None, steps=SHARDED_FULL_STEPS,
+                    schedule=SHARDED_FULL_STEPS)
+                _free_card()
+                dist.barrier()
         with open(out_dir / f"rank{mesh.rank}.json", "w") as f:
             json.dump(rec, f)
     finally:
@@ -4561,22 +4859,13 @@ def _sharded_launch_gate(rec: dict, where: str, run: dict) -> int:
     return run["launches"]["ssd_chunk"]
 
 
-def phase_train_sharded(part: str = "smoke") -> dict:
-    """Start the ranks through torch.distributed.run, read their records
-    and gate them: (a) within the tolerances, (b) finite losses and a
-    bit-for-bit replay, every rank on NCCL and the mesh expected, and the
-    kernels each rank's sharded steps launched: K7 once a scan layer and
-    step (twice under remat) for mamba2 and hymba, none for qwen2.
-    ``part`` "full" is train_sharded_full, which needs four cards."""
+def _start_ranks(part: str, n: int, mesh: dict) -> tuple[list, float, Path]:
+    """Run ``part``'s ranks, n of them, through torch.distributed.run
+    (this script's hidden ``--sharded-rank`` entry) and read their
+    records; every rank must be on NCCL on ``mesh``.  Returns (the
+    records by rank, the wall seconds, their directory)."""
     import shutil
 
-    from repro_torch.models.model import abstract_params
-    from repro_torch.telemetry.profiler import PEAK_BF16_FLOPS
-
-    cards = torch.cuda.device_count()
-    n = _sharded_ranks()
-    if part == "full" and cards != 4:
-        raise RuntimeError("train_sharded_full runs on four cards")
     out_dir = OUT / f"train_sharded_{part}"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4599,28 +4888,102 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                            f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
     recs = [json.loads((out_dir / f"rank{i}.json").read_text())
             for i in range(n)]
-    want_backend = "nccl"
-    mp = min(SHARDED_MP, n)
-    mesh = {"data": n // mp, "model": mp}
     for rec in recs:
-        if rec["backend"] != want_backend or rec["mesh"] != mesh:
+        if rec["backend"] != "nccl" or rec["mesh"] != mesh:
             raise AssertionError(f"rank {rec['rank']} ran on {rec['backend']} "
-                                 f"{rec['mesh']}, not {want_backend} {mesh}")
-    runs = "full" if part == "full" else "bf16"
-    archs = SHARDED_FULL_ARCHS if part == "full" else SHARDED_ARCHS
-    # the kernels of the sharded steps, gated rank by rank; the path's
-    # launches are their sum over the ranks and runs
-    where = (runs, "parity") if part == "smoke" else (runs,)
-    k7 = {arch: {name: [] for name in where} for arch in archs}
+                                 f"{rec['mesh']}, not nccl {mesh}")
+    return recs, wall, out_dir
+
+
+def _dp_summary(recs: list, key: str, arch: str) -> dict:
+    """A ranked DP run over the ranks' records: step ms p50 / p99 (the
+    largest over the ranks, step 0 left out), tokens/s over the slowest
+    rank's host seconds, the compressed sum's parts a step (p50 of the
+    largest over the ranks), peak memory by rank; gated: finite losses,
+    one replica on every rank, no all-reduce."""
+    runs = [rec[key][arch] for rec in recs]
+    first = runs[0]
+    for rec, run in zip(recs, runs):
+        if not (np.isfinite(run["losses"]).all() and run["replicas_equal"]
+                and run["collectives_per_step"]["all_reduce"] == 0):
+            raise AssertionError(
+                f"rank {rec['rank']} dp {arch}: losses {run['losses']}, "
+                f"replicas equal {run['replicas_equal']}, collectives "
+                f"{run['collectives_per_step']}")
+    ms = np.max([run["ms"] for run in runs], axis=0)[1:]
+    secs = np.max([run["seconds"] for run in runs], axis=0)[1:]
+    parts = {k: float(np.percentile(np.max(
+        [[p[k] for p in run["sum_ms"][1:]] for run in runs], axis=0), 50))
+        for k in first["sum_ms"][0]}
+    return {**{k: first[k] for k in (
+        "layers", "d_model", "compute_dtype", "master_dtype", "remat",
+        "batch", "seq", "rows_a_rank", "n_dp", "steps", "schedule", "params",
+        "losses", "grad_norms", "run_s", "collectives_per_step",
+        "n_dp_x_params")},
+        "first_step_ms_max_over_ranks": max(run["ms"][0] for run in runs),
+        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "tokens_per_s": first["batch"] * first["seq"] * len(secs)
+        / float(secs.sum()),
+        "sum_ms_p50": parts,
+        "replicas_equal": True,
+        "max_memory_allocated_gb_by_rank": [
+            run["max_memory_allocated_gb"] for run in runs]}
+
+
+def _launches_of(recs: list, runs: dict, archs) -> tuple[dict, dict]:
+    """The kernels each rank's runs launched, gated rank by rank
+    (:func:`_sharded_launch_gate`): (K7's counts by arch, run and rank,
+    the launches summed over the ranks and runs)."""
+    k7 = {arch: {name: [] for name in runs} for arch in archs}
     launches: dict = {}
     for rec in recs:
         for arch in archs:
-            for name in where:
-                run = rec[name][arch]
+            for name, key in runs.items():
+                run = rec[key][arch]
                 k7[arch][name].append(_sharded_launch_gate(
                     rec, f"{arch} {name}", run))
                 for k, v in run["launches"].items():
                     launches[k] = launches.get(k, 0) + v
+    return k7, launches
+
+
+def _path_launches(launches: dict) -> dict:
+    return {"launches": {k: v for k, v in launches.items()
+                         if k != "ssd_chunk_plain_grad"},
+            "plain_vjp_backward": launches["ssd_chunk_plain_grad"]}
+
+
+def phase_train_sharded(part: str = "smoke") -> dict:
+    """Start the ranks through torch.distributed.run, read their records
+    and gate them: (a) within the tolerances, (b) finite losses and a
+    bit-for-bit replay, every rank on NCCL and the mesh expected, and the
+    kernels each rank's sharded steps launched: K7 once a scan layer and
+    step (twice under remat) for mamba2 and hymba, none for qwen2.
+    ``part`` "full" is train_sharded_full, which needs four cards.  The
+    smoke also gates the ranked DP step (DP_ARCHS): (a) the compressed sum
+    bit for bit, the step within the tolerances, (b) finite losses, one
+    replica, K7 as the sharded step's.  Returns the sharded steps'
+    launches, and the DP step's under "dp"."""
+    import shutil
+
+    from repro_torch.models.model import abstract_params
+    from repro_torch.telemetry.profiler import PEAK_BF16_FLOPS
+
+    cards = torch.cuda.device_count()
+    n = _sharded_ranks()
+    if part == "full" and cards != 4:
+        raise RuntimeError("train_sharded_full runs on four cards")
+    mp = min(SHARDED_MP, n)
+    mesh = {"data": n // mp, "model": mp}
+    recs, wall, out_dir = _start_ranks(part, n, mesh)
+    runs = "full" if part == "full" else "bf16"
+    archs = SHARDED_FULL_ARCHS if part == "full" else SHARDED_ARCHS
+    # the kernels of the sharded steps, gated rank by rank; the path's
+    # launches are their sum over the ranks and runs
+    where = {runs: runs, "parity": "parity"} if part == "smoke" else {
+        runs: runs}
+    k7, launches = _launches_of(recs, where, archs)
     emit({"phase": f"train_sharded_{part}_k7_launches",
           "k7_launches_by_arch_and_rank": k7,
           "rule": "a rank's K7 launches: scan layers x steps run, x 2 "
@@ -4628,7 +4991,7 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                   "1 step without remat)"})
     out = {"phase": "train_sharded" if part == "smoke" else
            "train_sharded_full", "ranks": n, "cards": cards,
-           "backend": want_backend, "mesh": mesh,
+           "backend": "nccl", "mesh": mesh,
            "devices": [rec["device"] for rec in recs],
            "how": (f"{n} ranks, one a card, over NCCL" if n > 1 else
                    "one rank on the one card over NCCL, a 1 x 1 mesh: ranks "
@@ -4687,11 +5050,55 @@ def phase_train_sharded(part: str = "smoke") -> dict:
                 raise AssertionError(f"{arch} sharded step against one card: "
                                      f"{par}")
         out[runs][arch] = res
+    result = _path_launches(launches)
+    if part == "smoke":
+        out["dp"], result["dp"] = _dp_smoke(recs)
     emit(out)
     shutil.rmtree(out_dir, ignore_errors=True)
-    return {"launches": {k: v for k, v in launches.items()
-                         if k != "ssd_chunk_plain_grad"},
-            "plain_vjp_backward": launches["ssd_chunk_plain_grad"]}
+    return result
+
+
+def _dp_smoke(recs: list) -> tuple[dict, dict]:
+    """The ranked DP step's part of train_sharded: (a) rank 0's record
+    gated, (b) summarized, K7 gated; (the phase line's "dp", the path's
+    launches)."""
+    k7, launches = _launches_of(recs, {"parity": "dp_parity",
+                                       "bf16": "dp_bf16"}, DP_ARCHS)
+    out = {"how": "make_dp_train_step over the group of \"data\", the "
+                  "replicated state and each rank's rows on its own card",
+           "k7_launches": k7, "parity": {}, "bf16": {}}
+    for arch in DP_ARCHS:
+        par = recs[0]["dp_parity"][arch]
+        if not (par["ok"] and all(rec["dp_parity"][arch]["replicas_equal"]
+                                  for rec in recs)):
+            raise AssertionError(f"{arch} ranked DP step against the single "
+                                 f"controller: {par}")
+        out["parity"][arch] = {k: v for k, v in par.items()
+                               if k not in ("launches", "steps_run")}
+        out["bf16"][arch] = {**_dp_summary(recs, "dp_bf16", arch),
+                             "phase_s": recs[0]["dp_bf16"][arch]["phase_s"]}
+    return out, _path_launches(launches)
+
+
+def phase_train_dp_full() -> dict:
+    """train_dp_full on four cards: the ranked DP step for DP_ARCHS at full
+    width and depth over four DP ranks (4 x 1), each rank 2 of the 8 x
+    2,048-token rows, SHARDED_FULL_STEPS steps; gated as the smoke's (b)
+    and K7 as train_sharded's."""
+    import shutil
+
+    if torch.cuda.device_count() != 4:
+        raise RuntimeError("train_dp_full runs on four cards")
+    recs, wall, out_dir = _start_ranks("dp_full", 4, {"data": 4, "model": 1})
+    k7, launches = _launches_of(recs, {"dp_full": "dp_full"}, DP_ARCHS)
+    out = {"phase": "train_dp_full", "ranks": 4, "backend": "nccl",
+           "mesh": {"data": 4, "model": 1}, "wall_s": wall,
+           "devices": [rec["device"] for rec in recs], "k7_launches": k7,
+           "runs": {arch: _dp_summary(recs, "dp_full", arch)
+                    for arch in DP_ARCHS}}
+    emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return _path_launches(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4988,7 +5395,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + EXTRA_PHASES))
-    ap.add_argument("--sharded-rank", choices=("smoke", "full"),
+    ap.add_argument("--sharded-rank", choices=("smoke", "full", "dp_full"),
                     help=argparse.SUPPRESS)   # a rank of train_sharded
     ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5033,6 +5440,8 @@ def main(argv=None) -> int:
     training = run("training", phase_training)
     sharded = run("train_sharded", phase_train_sharded)
     run("train_sharded_full", phase_train_sharded, "full")
+    run("train_dp_full", phase_train_dp_full)
+    dp = None if sharded is None else sharded.pop("dp")
     dryrun = run("dryrun", phase_dryrun)
     if families is not None:      # the five runs' launches as one path
         families = {"launches": {name: sum(f["launches"][name]
@@ -5062,7 +5471,7 @@ def main(argv=None) -> int:
                   ("serving", serving),
                   ("serving_ssm", serving_ssm), ("families", families),
                   ("training", training), ("train_sharded", sharded),
-                  ("dryrun", dryrun))
+                  ("train_dp", dp), ("dryrun", dryrun))
                  if p is not None}
         main_rows = [r for r in kernels if not r.get("filter_bits")
                      and r.get("main", True)]
@@ -5077,7 +5486,7 @@ def main(argv=None) -> int:
                 row["plain_vjp_backward_by_path"] = {
                     name: p["plain_vjp_backward"] for name, p in
                     (("training", training), ("train_sharded", sharded),
-                     ("dryrun", dryrun))
+                     ("train_dp", dp), ("dryrun", dryrun))
                     if p is not None}
         emit({"kernels": [{k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
